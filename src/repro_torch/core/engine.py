@@ -1,24 +1,27 @@
 """DistGNNEngine (the port's counterpart of `repro/core/engine.py`): the
-layer-wise full-graph inference sweep on one card.
+synchronous full-graph training step and the layer-wise full-graph inference
+sweep on one card.
 
 The engine builds the partition family's layout (`partition/layout_api.py`),
 moves the ELL constants and the feature plane onto its device once, and runs
 each layer through the family's ExchangeBackend
 (`execution/exchange_api.py`): exchange (chunked), masked ELL multiply
 through the hand-written CUDA kernel, degree normalization, then the model's
-dense combine.  `infer_full_graph(reference=True)` runs an independent
-plain-PyTorch gather over the same padded space: the oracle every sweep is
-held to.
+dense combine.  The training step (`make_step`) runs the same forward
+under autograd, so the ELL multiply's backward is the CUDA transpose kernel
+over a CSR plan built once here.  `make_reference_step` and
+`infer_full_graph(reference=True)` run an independent plain-PyTorch gather
+over the same padded space: the oracle every step and sweep is held to.
 
 Ported: model gcn, partition family edge_cut, execution broadcast, batching
-full_graph, one rank.  Everything else raises NotImplementedError naming the
-slice it waits for.  Training, the async protocols and telemetry arrive with
-their own slices.
+full_graph, protocol sync, one rank.  Everything else raises
+NotImplementedError naming the slice it waits for.  The async protocols and
+telemetry arrive with their own slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,23 +29,27 @@ import torch.distributed as dist
 
 from repro_torch.core.execution.exchange_api import make_backend
 from repro_torch.core.graph import Graph
+from repro_torch.core.models.gnn import accuracy, init_gnn_params, softmax_xent
 from repro_torch.core.partition.edge_cut import Partition
 from repro_torch.core.partition.layout_api import get_layout_builder
 from repro_torch.core.sampling.distributed import CommStats
-from repro_torch.kernels.ops import ell_spmm
+from repro_torch.kernels.ops import ell_spmm, ell_transpose_plan
 
 EXECUTION_MODELS = ("broadcast", "ring", "p2p")
 GNN_MODELS = ("gcn", "sage", "gat", "gin")
+PROTOCOLS = ("sync", "epoch_fixed", "epoch_adaptive", "variation")
 BATCHING_MODES = ("full_graph", "node_wise", "layer_wise", "subgraph")
 PARTITION_FAMILIES = ("edge_cut", "vertex_cut", "hybrid")
 
 # layout attributes the engine mirrors, so callers keep reading eng.<attr>
-ENGINE_MIRROR_ATTRS = ("nb", "Vp", "K", "ids_global", "store")
+ENGINE_MIRROR_ATTRS = ("nb", "Vp", "K", "ids_global", "store", "y",
+                       "train_w", "test_w")
 
 
 @dataclasses.dataclass
 class EngineConfig:
     execution: str = "broadcast"  # broadcast | ring | p2p
+    protocol: str = "sync"  # sync | epoch_fixed | epoch_adaptive | variation
     model: str = "gcn"  # gcn | sage | gat | gin — the GNN layer program
     partition_family: str = "edge_cut"  # edge_cut | vertex_cut | hybrid
     partitioner: str = "hash"  # edge_cut: any key of PARTITIONERS (hash and
@@ -51,19 +58,58 @@ class EngineConfig:
     exchange_chunks: int = 1  # feature-dim chunks of the exchange
     hidden: int = 32
     num_layers: int = 2
+    lr: float = 0.5  # SGD step of the training step
+    seed: int = 0  # init_state's params generator
 
 
 def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def _leaves(params: Dict) -> List[torch.Tensor]:
+    return [p_l[key] for p_l in params["layers"] for key in ("w", "b")]
+
+
+def _from_leaves(leaves) -> Dict:
+    it = iter(leaves)
+    return {"layers": [{"w": w, "b": b} for w, b in zip(it, it)]}
+
+
+class _SlotGather(torch.autograd.Function):
+    """The reference's masked gather, sum_j mask[:, j] * table[ids[:, j]],
+    one ELL slot at a time.  Its backward adds each unmasked slot's
+    mask * ct into the table rows it read with index_add_.  Autograd's own
+    rule for ``table[ids]`` would also scatter the masked slots, which all
+    name the pad row, into one serial run per slot on the card."""
+
+    @staticmethod
+    def forward(ctx, ids, mask, table):
+        ctx.save_for_backward(ids, mask)
+        ctx.rows = table.shape[0]
+        out = table.new_zeros((ids.shape[0], table.shape[1]))
+        for j in range(ids.shape[1]):
+            out += mask[:, j:j + 1] * table[ids[:, j]]
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, mask = ctx.saved_tensors
+        d_table = ct.new_zeros((ctx.rows, ct.shape[1]))
+        for j in range(ids.shape[1]):
+            (r,) = torch.nonzero(mask[:, j], as_tuple=True)
+            d_table.index_add_(0, ids[r, j], mask[r, j, None] * ct[r])
+        return None, None, d_table
+
+
 class DistGNNEngine:
     """Builds the device layout + exchange plan from (graph, config) and
-    exposes the layer-wise inference sweep plus its single-device oracle.
+    exposes the full-graph training step, the layer-wise inference sweep and
+    their single-device oracles.
 
-    ``device`` is where the sweep runs: "cuda" by default, and the
-    constructor raises when CUDA is missing unless the caller asks for
-    "cpu" (where the ELL multiply takes the kernel's plain version)."""
+    ``device`` is where the step and the sweep run: "cuda" by default, and
+    the constructor raises when CUDA is missing unless the caller asks for
+    "cpu" (where the ELL multiply and its gradient take the kernels' plain
+    versions)."""
 
     def __init__(self, g: Graph, cfg: Optional[EngineConfig] = None,
                  partition: Optional[Partition] = None, *, device="cuda"):
@@ -77,8 +123,15 @@ class DistGNNEngine:
         if cfg.partition_family not in PARTITION_FAMILIES:
             raise ValueError(
                 f"partition_family must be one of {PARTITION_FAMILIES}")
+        if cfg.protocol not in PROTOCOLS:
+            raise ValueError(f"protocol must be one of {PROTOCOLS}")
         if cfg.exchange_chunks < 1:
             raise ValueError("exchange_chunks must be >= 1")
+        if cfg.protocol != "sync":
+            raise NotImplementedError(
+                f"protocol={cfg.protocol!r}: only sync is ported; the "
+                "historical-embedding protocols arrive with their own slice "
+                "(ROADMAP queue 1 item 4)")
         if cfg.model != "gcn":
             raise NotImplementedError(
                 f"model={cfg.model!r}: only gcn is ported; sage/gat/gin "
@@ -98,7 +151,8 @@ class DistGNNEngine:
             raise RuntimeError(
                 "DistGNNEngine runs on the card (device='cuda') and CUDA is "
                 "not available; pass device='cpu' to run on the CPU")
-        # the sweep is held to the fp32 reference: no TF32 in the matmuls
+        # the step and the sweep are held to the fp32 reference: no TF32 in
+        # the matmuls
         torch.backends.cuda.matmul.allow_tf32 = False
         self.g = g
         builder = get_layout_builder(cfg.partition_family)
@@ -107,26 +161,37 @@ class DistGNNEngine:
         for name in ENGINE_MIRROR_ATTRS:
             setattr(self, name, getattr(lay, name))
         consts = lay.exchange_consts()
+        ids = torch.from_numpy(consts["ids"]).to(self.device)
+        mask = torch.from_numpy(consts["mask"]).to(self.device)
+        # the ELL backward's CSR transpose over the gather table's rows
+        # (every rank's block + the zero pad row): built once, read by
+        # every layer, chunk and step
+        plan = ell_transpose_plan(ids, mask, self.k * self.nb + 1)
         self._consts = dict(
-            ids=torch.from_numpy(consts["ids"]).to(self.device),
-            mask=torch.from_numpy(consts["mask"]).to(self.device),
-            deg=torch.from_numpy(lay.deg).to(self.device))
+            ids=ids, mask=mask, plan=plan,
+            deg=torch.from_numpy(lay.deg).to(self.device),
+            y=torch.from_numpy(lay.y).long().to(self.device),
+            train_w=torch.from_numpy(lay.train_w).to(self.device),
+            test_w=torch.from_numpy(lay.test_w).to(self.device))
         self.backend = make_backend(self)
         num_classes = int(g.labels.max()) + 1
         self.dims = ([g.features.shape[1]]
                      + [cfg.hidden] * (cfg.num_layers - 1) + [num_classes])
         self._wire_fields = lay.wire_fields_per_step(cfg.model, self.dims)
         self._infer_step = None
+        self._step = None
+        self._ref_step = None
         self.comm_stats = CommStats()
 
     # ------------------------------------------------------------------
     # shared layer math
     # ------------------------------------------------------------------
 
-    def _ell(self, ids, mask, table):
+    def _ell(self, ids, mask, table, plan=None):
         """sum_k mask[v,k] * table[ids[v,k]]: the CUDA ELL kernel on the
-        card, its plain version on the CPU."""
-        return ell_spmm(ids, mask, table, normalize=False)
+        card (its backward the transpose kernel over ``plan``), its plain
+        version on the CPU."""
+        return ell_spmm(ids, mask, table, normalize=False, plan=plan)
 
     @staticmethod
     def _combine(model, p_l, nbr, h_self, last: bool):
@@ -137,22 +202,111 @@ class DistGNNEngine:
         z = (nbr + h_self) @ p_l["w"] + p_l["b"]
         return z if last else torch.relu(z)
 
+    def _forward(self, params, X):
+        """The distributed forward: every layer through the family's
+        exchange-aggregate and the model's combine; returns the logits."""
+        cl = self._consts
+        L = len(self.dims) - 1
+        H = X
+        for l, p_l in enumerate(params["layers"]):
+            nbr = self.backend.aggregate(H, cl)
+            H = self._combine(self.cfg.model, p_l, nbr, H, last=(l == L - 1))
+        return H
+
     def _make_reference_layer(self):
         """Single-device reference layer over the padded [Vp] space: a plain
-        slot-by-slot gather of the global ELL table (written apart from the
-        kernel and its plain version, so it checks both)."""
+        slot-by-slot gather of the global ELL table and its slot-by-slot
+        scatter-add gradient (`_SlotGather`, written apart from the kernels,
+        their plain versions and the transpose plan, so it checks all
+        three)."""
         c = self.cfg
         ids_g = torch.from_numpy(self.ids_global).to(self.device)
         mask, deg = self._consts["mask"], self._consts["deg"]
 
         def layer_ref(p_l, H, last):
             table = torch.cat([H, H.new_zeros((1, H.shape[1]))], 0)
-            gathered = torch.zeros_like(H)
-            for j in range(ids_g.shape[1]):
-                gathered += mask[:, j:j + 1] * table[ids_g[:, j]]
+            gathered = _SlotGather.apply(ids_g, mask, table)
             return self._combine(c.model, p_l, gathered / deg, H, last=last)
 
         return layer_ref
+
+    # ------------------------------------------------------------------
+    # state and the distributed training step
+    # ------------------------------------------------------------------
+
+    def init_state(self, params: Optional[Dict] = None) -> Dict:
+        """The training state under sync: ``{params, step}``.  Without
+        ``params``, draws them with `init_gnn_params` from a generator
+        seeded with ``cfg.seed``; with them, starts from those weights (a
+        carry-over).  The reference's all-zero historical embeddings and
+        ages serve only the async protocols and arrive with them."""
+        if params is None:
+            params = init_gnn_params(
+                self.cfg.model, self.dims,
+                torch.Generator().manual_seed(self.cfg.seed), self.device)
+        return dict(params=params, step=0)
+
+    def make_step(self):
+        """The training step: state -> (state, {"loss"}, logits).  The loss
+        numerator sum((lse - ll) * w) is differentiated locally; the loss
+        and the gradients are divided by den = max(sum(w), 1) outside the
+        gradient, as in the reference (where both are first summed over
+        ranks: the identity on one rank, an all_reduce with the multi-rank
+        slice).  SGD writes new tensors, so a state can be stepped twice."""
+        if self._step is not None:
+            return self._step
+        cl = self._consts
+        lr = self.cfg.lr
+        den = torch.clamp(cl["train_w"].sum(), min=1.0)
+
+        def step(state):
+            leaves = [p.detach().requires_grad_() for p in
+                      _leaves(state["params"])]
+            with torch.enable_grad():
+                logits = self._forward(_from_leaves(leaves),
+                                       self.store.device_table())
+                lse = torch.logsumexp(logits, dim=-1)
+                ll = torch.gather(logits, -1, cl["y"][:, None])[:, 0]
+                num = ((lse - ll) * cl["train_w"]).sum()
+                grads = torch.autograd.grad(num, leaves)
+            with torch.no_grad():
+                loss = num / den
+                params2 = _from_leaves([p - lr * (g / den)
+                                        for p, g in zip(leaves, grads)])
+            return (dict(params=params2, step=state["step"] + 1),
+                    dict(loss=loss), logits.detach())
+
+        self._step = step
+        return step
+
+    def make_reference_step(self):
+        """The same loss and SGD on one device over the reference layer
+        (`_make_reference_layer`), differentiated by autograd through the
+        plain gather: independent of the kernels and their plan."""
+        if self._ref_step is not None:
+            return self._ref_step
+        cl = self._consts
+        lr = self.cfg.lr
+        layer_ref = self._make_reference_layer()
+        L = len(self.dims) - 1
+
+        def ref_step(state):
+            leaves = [p.detach().requires_grad_() for p in
+                      _leaves(state["params"])]
+            with torch.enable_grad():
+                H = self.store.device_table()
+                for l, p_l in enumerate(_from_leaves(leaves)["layers"]):
+                    H = layer_ref(p_l, H, last=(l == L - 1))
+                loss = softmax_xent(H, cl["y"], cl["train_w"])
+                grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                params2 = _from_leaves([p - lr * g
+                                        for p, g in zip(leaves, grads)])
+            return (dict(params=params2, step=state["step"] + 1),
+                    dict(loss=loss.detach()), H.detach())
+
+        self._ref_step = ref_step
+        return ref_step
 
     # ------------------------------------------------------------------
     # serving: layer-wise full-graph inference (the throughput tier)
@@ -165,17 +319,10 @@ class DistGNNEngine:
         FeatureStore."""
         if self._infer_step is not None:
             return self._infer_step
-        cl = self._consts
-        L = len(self.dims) - 1
-        model = self.cfg.model
 
         @torch.no_grad()
         def istep(params, X):
-            H = X
-            for l, p_l in enumerate(params["layers"]):
-                nbr = self.backend.aggregate(H, cl)
-                H = self._combine(model, p_l, nbr, H, last=(l == L - 1))
-            return H
+            return self._forward(params, X)
 
         self._infer_step = istep
         return istep
@@ -201,6 +348,38 @@ class DistGNNEngine:
         out = self.make_infer_step()(params, X)
         self.comm_stats.inference_bytes += self.inference_bytes_per_sweep()
         return out
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+
+    def account_step(self) -> None:
+        """Accrue one distributed training step's wire bytes into
+        CommStats, field by field, as the reference's `train` does."""
+        for name, b in self._wire_fields.items():
+            setattr(self.comm_stats, name, getattr(self.comm_stats, name) + b)
+
+    def train(self, epochs: int, reference: bool = False
+              ) -> Tuple[List[float], torch.Tensor]:
+        """Run `epochs` steps from `init_state()`; returns (losses, final
+        logits [Vp, C]).  The distributed run resets CommStats and accrues
+        each step's wire bytes; the reference run accrues none."""
+        step = self.make_reference_step() if reference else self.make_step()
+        state = self.init_state()
+        if not reference:
+            self.comm_stats.reset()
+        losses, logits = [], None
+        for _ in range(epochs):
+            state, metrics, logits = step(state)
+            losses.append(float(metrics["loss"]))
+            if not reference:
+                self.account_step()
+        return losses, logits
+
+    def accuracy(self, logits: torch.Tensor, split: str = "test") -> float:
+        """Share of the split's vertices whose argmax logit is the label."""
+        w = self._consts["test_w" if split == "test" else "train_w"]
+        return float(accuracy(logits, self._consts["y"], w))
 
     def inference_bytes_per_sweep(self) -> int:
         """Wire bytes of one layer-wise sweep: the layout's per-step wire

@@ -4,7 +4,10 @@ port's copy of the edge-cut broadcast part of
 
 `partition/layout_api.py` owns the static tables; a backend owns the
 per-layer dataflow that assembles the gather table and runs the masked ELL
-multiply.  A backend reads eng.{_ell, cfg, k} and nothing else.
+multiply.  A backend reads eng.{_ell, cfg, k} and nothing else.  Every step
+of it is differentiable: the training step runs it under autograd, and the
+ELL multiply's backward is the transpose kernel over the plan in
+``cl["plan"]``.
 """
 from __future__ import annotations
 
@@ -43,10 +46,10 @@ class EdgeCutBackend(ExchangeBackend):
 
     def aggregate(self, h_local, cl):
         eng = self.eng
-        ids, mask, deg = cl["ids"], cl["mask"], cl["deg"]
+        ids, mask, deg, plan = cl["ids"], cl["mask"], cl["deg"], cl["plan"]
         agg = chunked_overlap(h_local, eng.cfg.exchange_chunks,
                               self.exchange_fn(cl),
-                              lambda table: eng._ell(ids, mask, table))
+                              lambda table: eng._ell(ids, mask, table, plan))
         return agg / deg
 
 

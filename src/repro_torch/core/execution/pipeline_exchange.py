@@ -7,7 +7,8 @@ columns are independent in every consumer, so the chunked result equals the
 monolithic one column by column, and the gathered table held at once shrinks
 to one chunk's width.  The reference issues chunk c+1's collective while
 chunk c is consumed; with one rank nothing crosses a wire, so here the
-chunks simply run in order.
+chunks simply run in order.  The pad, the slices and the concatenation are
+differentiable, so the training step's backward runs through the chunks too.
 """
 from __future__ import annotations
 

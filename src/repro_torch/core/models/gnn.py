@@ -5,12 +5,13 @@ Parameters are a plain dict of tensors keyed like the JAX tree,
 `init_gnn_params` draws fresh weights from a `torch.Generator` (the JAX
 scheme's distribution, not its bits), and `params_from_numpy` carries the
 reference's own weights over after ``jax.tree.map(np.asarray, params)``.
-GCN only: the other models arrive with the model-axis slice.
+GCN only: the other models arrive with the model-axis slice.  The loss and
+the accuracy are copies of the reference's `softmax_xent` and `accuracy`.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,3 +44,21 @@ def params_from_numpy(tree: Dict, device) -> Dict:
         {key: torch.from_numpy(np.array(p[key], np.float32)).to(device)
          for key in ("w", "b")}
         for p in tree["layers"]]}
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    loss = lse - ll
+    if mask is not None:
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    correct = (torch.argmax(logits, -1) == labels).float()
+    if mask is not None:
+        return (correct * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return correct.mean()

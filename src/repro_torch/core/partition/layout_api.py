@@ -9,9 +9,10 @@ host-side mapping back to original vertex ids.  The engine only dispatches.
 The reference builds the ELL table with a Python loop over every vertex;
 this copy builds the same arrays with vectorised numpy from the CSR, so the
 2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy here; the
-engine moves what the sweep reads onto its device.  Only the broadcast
+engine moves what the sweep and the step read onto its device.  Only the broadcast
 exchange plan is ported (ring and p2p arrive with the multi-rank slice), and
-only the parts of the layout that the inference sweep reads.
+only the parts of the layout that the inference sweep and the full-graph
+training step read.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ class EdgeCutLayout(PartitionLayout):
 
     def _build_vertex_blocks(self):
         """Relabel vertices so partition p owns global rows [p*nb, (p+1)*nb).
-        Pad slots are dead: no edges, zero features."""
+        Pad slots are dead: no edges, zero features/weights."""
         g, k = self.g, self.k
         assign = self.part.assignment
         V = g.num_vertices
@@ -88,6 +89,15 @@ class EdgeCutLayout(PartitionLayout):
         D = g.features.shape[1]
         X = np.zeros((Vp, D), np.float32)
         X[new_of_old] = g.features
+        # labels and loss weights per slot; pad slots weigh 0
+        self.y = np.zeros((Vp,), np.int32)
+        self.y[new_of_old] = g.labels
+        self.train_w = np.zeros((Vp,), np.float32)
+        self.test_w = np.zeros((Vp,), np.float32)
+        if g.train_mask is not None:
+            self.train_w[new_of_old] = g.train_mask
+        if g.test_mask is not None:
+            self.test_w[new_of_old] = g.test_mask
         # ELL adjacency in new ids; pad id = Vp (zero row in gather tables).
         # Slot j of row v holds v's j-th in-neighbor in CSR order.
         deg = g.degree()

@@ -1,4 +1,6 @@
-// ELLPACK SpMM (GNN neighbor aggregation) for Hopper (sm_90a).
+// ELLPACK SpMM (GNN neighbor aggregation) and its transpose for Hopper (sm_90a).
+//
+// Forward, `ell_spmm_launch`:
 //
 //   out[v, :] = sum_k mask[v, k] * H[ids[v, k], :]      (/ max(sum_k mask[v, k], 1))
 //
@@ -133,6 +135,99 @@ void launch(const int* ids, const float* mask, const void* H, void* out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward, `ell_spmm_transpose_launch`: the gradient with respect to H.
+//
+//   dH[u, :] = sum over the slots s = v*K + k with ids[v, k] == u and
+//              mask[v, k] != 0 of mask[v, k] * ct[v, :]
+//
+//   indptr int64 [N+1]  segment of row u: slots[indptr[u] : indptr[u+1]]
+//   slots  int64 [nnz]  v*K + k of every slot with a non-zero mask, grouped by
+//                       the row ids[v, k] it reads, increasing within a segment
+//   mask   f32   [V, K]
+//   ct     f32   [V, D] the cotangent of out (already divided by max(deg, 1)
+//                       when the forward normalized: the wrapper does that)
+//   dH     f32   [N, D]
+//
+// Replaces the gradient rule `_ell_spmm_bwd` (src/repro/kernels/ell_spmm.py:98),
+// the custom_vjp around the Pallas call, where XLA scatter-adds
+// mask[v,k] * ct[v] into dH[ids[v,k]].  A scatter on this card needs float
+// atomics, whose order of arrival changes from run to run, and the JAX tiers
+// assert bitwise determinism.  So the kernel reads a CSR transpose of the ELL
+// table (`ell_transpose_plan`, built once per engine) and is a row gather again:
+//
+//   * one warp per row u of dH, kWarps rows per block; the warp stages its
+//     segment 32 slots at a time (one per lane: v = slot / K and its mask) in
+//     its own stretch of shared memory, then every lane walks the staged
+//     slots in order and gathers ct[v] 16 bytes per lane (float4) when
+//     D % 4 == 0 and the pointers are 16-byte aligned, else 4 bytes per lane;
+//   * the sum stays in registers and runs in the plan's fixed slot order: no
+//     atomics, bitwise equal across launches;
+//   * every row is written: an empty segment (the zero pad row of a gather
+//     table among them) gives zeros, so dH needs no clearing pass.
+//
+// Row offsets are 64-bit, as in the forward.
+//
+// Bound on this card: bytes.  The function must read every ct row that some
+// slot names once, the plan (nnz * 8 + (N+1) * 8) and each slot's mask
+// (nnz * 4), and write dH once (N * D * 4), against 2 * nnz * D flops.  Like
+// the forward, a gather that misses L2 re-reads a ct row for every slot that
+// names it (nnz * D * 4 bytes).
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ell_spmm_transpose_kernel(const long long* __restrict__ indptr,
+                          const long long* __restrict__ slots,
+                          const float* __restrict__ mask,
+                          const T* __restrict__ ct, T* __restrict__ dH,
+                          long long N, int K, int DW /* row width in units of T */) {
+  __shared__ long long s_v[kWarps * 32];
+  __shared__ float s_m[kWarps * 32];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long u = (long long)blockIdx.x * kWarps + warp;
+  if (u >= N) return;  // warps never synchronize across the block
+  long long* my_v = s_v + warp * 32;
+  float* my_m = s_m + warp * 32;
+  const long long p0 = indptr[u];
+  const long long p1 = indptr[u + 1];
+  T* orow = dH + u * (long long)DW;
+
+  for (int c0 = 0; c0 < DW; c0 += 32 * kVecPerLane) {
+    T acc[kVecPerLane];
+#pragma unroll
+    for (int r = 0; r < kVecPerLane; ++r) set_zero(acc[r]);
+
+    for (long long p = p0; p < p1; p += 32) {
+      const int n = (p1 - p) < 32 ? (int)(p1 - p) : 32;
+      __syncwarp();  // every lane is done reading the previous stage
+      if (lane < n) {
+        const long long s = slots[p + lane];
+        my_v[lane] = s / K;
+        my_m[lane] = mask[s];
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const float m = my_m[j];  // the same for the whole warp
+        const T* crow = ct + my_v[j] * (long long)DW;
+#pragma unroll
+        for (int r = 0; r < kVecPerLane; ++r) {
+          const int col = c0 + r * 32 + lane;
+          if (col < DW) fma_into(acc[r], m, __ldg(crow + col));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kVecPerLane; ++r) {
+      const int col = c0 + r * 32 + lane;
+      if (col < DW) orow[col] = acc[r];
+    }
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  V >= 1 and D >= 1: the wrapper
@@ -148,6 +243,29 @@ extern "C" int ell_spmm_launch(const void* ids, const void* mask, const void* H,
     launch<float4>(ids_i, mask_f, H, out, V, K, D / 4, normalize != 0, s);
   } else {
     launch<float>(ids_i, mask_f, H, out, V, K, D, normalize != 0, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the transpose.  N >= 1 and D >= 1: the wrapper
+// returns early for empty shapes.  Returns cudaGetLastError() after the launch.
+extern "C" int ell_spmm_transpose_launch(const void* indptr, const void* slots,
+                                         const void* mask, const void* ct, void* dH,
+                                         long long N, int K, int D, void* stream) {
+  const bool vec4 = (D % 4 == 0) && ((uintptr_t)ct % 16 == 0) && ((uintptr_t)dH % 16 == 0);
+  const long long* indptr_i = static_cast<const long long*>(indptr);
+  const long long* slots_i = static_cast<const long long*>(slots);
+  const float* mask_f = static_cast<const float*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = (unsigned int)((N + kWarps - 1) / kWarps);
+  if (vec4) {
+    ell_spmm_transpose_kernel<float4><<<blocks, kThreads, 0, s>>>(
+        indptr_i, slots_i, mask_f, static_cast<const float4*>(ct),
+        static_cast<float4*>(dH), N, K, D / 4);
+  } else {
+    ell_spmm_transpose_kernel<float><<<blocks, kThreads, 0, s>>>(
+        indptr_i, slots_i, mask_f, static_cast<const float*>(ct),
+        static_cast<float*>(dH), N, K, D);
   }
   return (int)cudaGetLastError();
 }

@@ -1,38 +1,54 @@
-"""ELL SpMM (neighbor aggregation): the wrapper of the hand-written CUDA
-kernel `csrc/ell_spmm.cu`, which replaces the Pallas TPU kernel
-`ell_spmm_pallas` (`src/repro/kernels/ell_spmm.py:38`).
+"""ELL SpMM (neighbor aggregation) and its gradient: the wrappers of the
+hand-written CUDA kernels in `csrc/ell_spmm.cu`, which replace the Pallas TPU
+kernel `ell_spmm_pallas` (`src/repro/kernels/ell_spmm.py:38`) and its
+gradient rule `_ell_spmm_bwd` (`:98`).
 
     out[v] = sum_k mask[v,k] * H[ids[v,k]]   (/ max(sum_k mask[v,k], 1))
+    dH[u]  = sum_{ids[v,k] == u} mask[v,k] * ct[v]   (ct / max(deg, 1) likewise)
 
-A CPU tensor takes the plain version (`ref.ell_spmm_ref`); a CUDA tensor
-launches the kernel on the current stream or raises.  Forward only: the
-scatter-add backward arrives with the training slice.
+`ell_spmm` is a `torch.autograd.Function`: the forward kernel, and the
+transpose kernel as its backward with respect to H (ids and mask are graph
+structure and carry no gradient).  The transpose reads a CSR plan of the
+ELL table (`ell_transpose_plan`), built once per engine, so it sums in a
+fixed order without float atomics.
+
+A CPU tensor takes the plain version (`ref.py`); a CUDA tensor launches the
+kernel on the current stream or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
+Plan = Tuple[torch.Tensor, torch.Tensor]  # (indptr int64 [N+1], slots int64 [nnz])
 
-def _check(ids: torch.Tensor, mask: torch.Tensor, H: torch.Tensor) -> None:
+
+def _check(ids: torch.Tensor, mask: torch.Tensor, H: torch.Tensor,
+           what: str = "ell_spmm") -> None:
     if ids.dtype != torch.int32 or mask.dtype != torch.float32 \
             or H.dtype != torch.float32:
-        raise TypeError("ell_spmm wants ids int32, mask float32, H float32; "
+        raise TypeError(f"{what} wants ids int32, mask float32, float32 rows; "
                         f"got {ids.dtype}, {mask.dtype}, {H.dtype}")
     if ids.dim() != 2 or H.dim() != 2 or mask.shape != ids.shape:
-        raise ValueError("ell_spmm wants ids [V,K], mask [V,K], H [N,D]; got "
+        raise ValueError(f"{what} wants ids [V,K], mask [V,K], rows [*,D]; got "
                          f"{tuple(ids.shape)}, {tuple(mask.shape)}, "
                          f"{tuple(H.shape)}")
     if not (ids.is_contiguous() and mask.is_contiguous()
             and H.is_contiguous()):
-        raise ValueError("ell_spmm wants contiguous tensors")
+        raise ValueError(f"{what} wants contiguous tensors")
     if not ids.device == mask.device == H.device:
-        raise ValueError("ell_spmm wants all tensors on one device; got "
+        raise ValueError(f"{what} wants all tensors on one device; got "
                          f"{ids.device}, {mask.device}, {H.device}")
+    if H.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {H.device}")
+    if ids.shape[1] >= 2 ** 31 or H.shape[1] >= 2 ** 31:
+        raise ValueError(f"{what}: K={ids.shape[1]}, D={H.shape[1]} out of the "
+                         "kernel's range")
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,28 +58,24 @@ def _library() -> ctypes.CDLL:
     lib.ell_spmm_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.ell_spmm_launch.restype = ctypes.c_int
+    lib.ell_spmm_transpose_launch.argtypes = [p, p, p, p, p, ctypes.c_longlong,
+                                              ctypes.c_int, ctypes.c_int, p]
+    lib.ell_spmm_transpose_launch.restype = ctypes.c_int
     lib.ell_spmm_error_string.argtypes = [ctypes.c_int]
     lib.ell_spmm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def ell_spmm(ids: torch.Tensor, mask: torch.Tensor, H: torch.Tensor, *,
-             normalize: bool = True) -> torch.Tensor:
-    """ids int32 [V,K], mask float32 [V,K] (0/1 structure or edge weights),
-    H float32 [N,D] -> float32 [V,D].  Slots whose mask is non-zero must hold
-    ids in [0, N)."""
-    _check(ids, mask, H)
-    if torch.is_grad_enabled() and (H.requires_grad or mask.requires_grad):
-        raise NotImplementedError(
-            "ell_spmm has no backward yet (the scatter-add arrives with the "
-            "training slice); call it under torch.no_grad()")
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({lib.ell_spmm_error_string(err).decode()})")
+
+
+def _forward(ids, mask, H, normalize: bool) -> torch.Tensor:
     if H.device.type == "cpu":
         return ref.ell_spmm_ref(ids, mask, H, normalize=normalize)
-    if H.device.type != "cuda":
-        raise ValueError(f"ell_spmm runs on cpu or cuda tensors, not {H.device}")
     (V, K), D = ids.shape, H.shape[1]
-    if K >= 2 ** 31 or D >= 2 ** 31:
-        raise ValueError(f"ell_spmm: K={K}, D={D} out of the kernel's range")
     out = torch.empty((V, D), dtype=torch.float32, device=H.device)
     if V == 0 or D == 0:
         return out
@@ -73,11 +85,108 @@ def ell_spmm(ids: torch.Tensor, mask: torch.Tensor, H: torch.Tensor, *,
         err = lib.ell_spmm_launch(ids.data_ptr(), mask.data_ptr(),
                                   H.data_ptr(), out.data_ptr(), V, K, D,
                                   int(normalize), stream)
-    if err != 0:
-        raise RuntimeError("ell_spmm kernel launch failed: CUDA error "
-                           f"{err} ({lib.ell_spmm_error_string(err).decode()})")
+    _raise_on(lib, err, "ell_spmm")
     ell_spmm.launches += 1
     return out
 
 
+def ell_transpose_plan(ids: torch.Tensor, mask: torch.Tensor, N: int) -> Plan:
+    """The CSR transpose of an ELL table: ``slots`` lists v*K + k of every
+    slot whose mask is non-zero, grouped by the row ids[v,k] it reads (a
+    stable sort, so each segment is in increasing slot order, the same on
+    every run), and ``indptr[u]:indptr[u+1]`` is row u's segment.  Built on
+    the tensors' device.  A padded transposed ELL would be as wide as the
+    largest out-degree, which has no bound on skewed graphs; the CSR is
+    nnz long."""
+    if ids.dim() != 2 or mask.shape != ids.shape:
+        raise ValueError("ell_transpose_plan wants ids [V,K] and mask [V,K]; "
+                         f"got {tuple(ids.shape)}, {tuple(mask.shape)}")
+    flat = torch.nonzero(mask.reshape(-1) != 0).reshape(-1)  # increasing
+    rows = ids.reshape(-1)[flat].long()
+    if rows.numel() and not bool((rows.min() >= 0) & (rows.max() < N)):
+        raise ValueError(f"ell_transpose_plan: an unmasked id lies outside "
+                         f"[0, {N})")
+    rows, order = torch.sort(rows, stable=True)
+    indptr = torch.searchsorted(
+        rows, torch.arange(N + 1, dtype=torch.int64, device=ids.device))
+    return indptr, flat[order]
+
+
+def ell_spmm_transpose(ids: torch.Tensor, mask: torch.Tensor, ct: torch.Tensor,
+                       N: int, *, normalize: bool,
+                       plan: Optional[Plan] = None) -> torch.Tensor:
+    """The gradient of ``ell_spmm(ids, mask, H, normalize=...)`` with respect
+    to H [N, D], given the cotangent ct [V, D] of its output.  A CPU tensor
+    takes the plain version (a chunked index_add_ over ids); a CUDA tensor
+    launches the transpose kernel over ``plan`` (built here when the caller
+    passes none)."""
+    _check(ids, mask, ct, "ell_spmm_transpose")
+    if ct.shape[0] != ids.shape[0]:
+        raise ValueError(f"ell_spmm_transpose: ct has {ct.shape[0]} rows, "
+                         f"ids {ids.shape[0]}")
+    if ct.device.type == "cpu":
+        return ref.ell_spmm_transpose_ref(ids, mask, ct, N, normalize=normalize)
+    if plan is None:
+        plan = ell_transpose_plan(ids, mask, N)
+    indptr, slots = plan
+    if indptr.dtype != torch.int64 or slots.dtype != torch.int64 \
+            or indptr.shape != (N + 1,) or slots.dim() != 1 \
+            or indptr.device != ct.device or slots.device != ct.device \
+            or not (indptr.is_contiguous() and slots.is_contiguous()):
+        raise ValueError("ell_spmm_transpose wants a plan of int64 indptr "
+                         f"[{N + 1}] and int64 slots [nnz] on {ct.device}")
+    if normalize:
+        ct = (ct / torch.clamp(mask.sum(1, keepdim=True), min=1.0)).contiguous()
+    (V, K), D = ids.shape, ct.shape[1]
+    dH = torch.empty((N, D), dtype=torch.float32, device=ct.device)
+    if N == 0 or D == 0:
+        return dH
+    lib = _library()
+    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    with torch.cuda.device(ct.device):
+        err = lib.ell_spmm_transpose_launch(
+            indptr.data_ptr(), slots.data_ptr(), mask.data_ptr(),
+            ct.data_ptr(), dH.data_ptr(), N, K, D, stream)
+    _raise_on(lib, err, "ell_spmm_transpose")
+    ell_spmm_transpose.launches += 1
+    return dH
+
+
+class _EllSpmm(torch.autograd.Function):
+    """Forward kernel; its backward with respect to H is the transpose
+    kernel.  ids and mask get no gradient (graph structure)."""
+
+    @staticmethod
+    def forward(ctx, ids, mask, H, normalize, plan):
+        ctx.save_for_backward(ids, mask)
+        ctx.normalize, ctx.plan, ctx.N = normalize, plan, H.shape[0]
+        return _forward(ids, mask, H, normalize)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if not ctx.needs_input_grad[2]:
+            return None, None, None, None, None
+        ids, mask = ctx.saved_tensors
+        dH = ell_spmm_transpose(ids, mask, ct.contiguous(), ctx.N,
+                                normalize=ctx.normalize, plan=ctx.plan)
+        return None, None, dH, None, None
+
+
+def ell_spmm(ids: torch.Tensor, mask: torch.Tensor, H: torch.Tensor, *,
+             normalize: bool = True, plan: Optional[Plan] = None) -> torch.Tensor:
+    """ids int32 [V,K], mask float32 [V,K] (0/1 structure or edge weights),
+    H float32 [N,D] -> float32 [V,D].  Slots whose mask is non-zero must hold
+    ids in [0, N).  Differentiable in H; ``plan`` is the transpose plan its
+    backward reads on the card (`ell_transpose_plan(ids, mask, N)`, built at
+    the first backward when none is given)."""
+    _check(ids, mask, H)
+    if torch.is_grad_enabled() and mask.requires_grad:
+        raise NotImplementedError(
+            "ell_spmm gives no gradient for mask (graph structure); the "
+            "weighted aggregation's gradient (ell_attend's dw) arrives with "
+            "the GAT slice")
+    return _EllSpmm.apply(ids, mask, H, normalize, plan)
+
+
 ell_spmm.launches = 0  # kernel launches since the last reset (CPU calls excluded)
+ell_spmm_transpose.launches = 0  # likewise, for the transpose kernel

@@ -6,6 +6,10 @@ wrapper dispatches on the device of the tensors it is given: the plain
 PyTorch version for CPU tensors, the hand-written kernel for CUDA tensors,
 never the plain version for a CUDA tensor.
 """
-from repro_torch.kernels.ell_spmm import ell_spmm
+from repro_torch.kernels.ell_spmm import (
+    ell_spmm,
+    ell_spmm_transpose,
+    ell_transpose_plan,
+)
 
-__all__ = ["ell_spmm"]
+__all__ = ["ell_spmm", "ell_spmm_transpose", "ell_transpose_plan"]

@@ -1,7 +1,7 @@
 """The port's host layer against the reference: synthetic graphs bitwise
 equal for one seed, partitioners equal, and the vectorised edge-cut layout
-build array-for-array equal to the reference's loop build, at k = 1 and
-k = 4 (numpy build only; the engine runs k = 1)."""
+build array-for-array equal to the reference's loop build (labels and
+loss weights included), at k = 1 and k = 4 (numpy build only; the engine runs k = 1)."""
 import dataclasses
 
 import numpy as np
@@ -83,7 +83,10 @@ def test_edge_cut_layout_equal(name, k, partitioner):
                          (lay.mask, np.asarray(jlay.mask)),
                          (lay.deg, np.asarray(jlay.deg)),
                          (lay.X.numpy(), np.asarray(jlay.X)),
-                         (lay.ids_exec, np.asarray(jlay.ids_exec))):
+                         (lay.ids_exec, np.asarray(jlay.ids_exec)),
+                         (lay.y, np.asarray(jlay.y)),
+                         (lay.train_w, np.asarray(jlay.train_w)),
+                         (lay.test_w, np.asarray(jlay.test_w))):
         assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
     for model, dims in (("gcn", [12, 8, 5]), ("gat", [12, 8, 8, 5])):
         assert (lay.wire_fields_per_step(model, dims)
