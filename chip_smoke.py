@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`src/repro_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--jsonl PATH]
 
 Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
-(nvcc, sm_90a), holds each kernel against its plain PyTorch version on the
-card, then drives the port's paths at the full width of the gcn-paper
-workload (a 2**20-vertex graph, dims [256, 256, 256, 64], random seeded
-weights), for exchange_chunks 1 and 2 each: the layer-wise GCN inference
-sweep (`launch/serve_gnn.run_sweep`) and the full-graph training step
-(`launch/train_gnn.run_training`, lr 0.1), each held to its single-device
-reference.  Each phase prints one JSON line; the next-to-last lines are the
-per-kernel summary and the card's name and power limit from nvidia-smi, and
-the last line is {"ok": true, "device": {...}}.  Any failed check raises, so the script exits
-non-zero and prints no result.  It needs a CUDA card and the repository's
-`src/` beside it.
+(nvcc, sm_90a, one process per source, all started together), holds each
+kernel against its plain PyTorch version on the card, then drives the port's
+paths at the full width of the gcn-paper workload (a 2**20-vertex graph,
+dims [256, 256, 256, 64], random seeded weights), for exchange_chunks 1 and 2
+each and for the models gcn and gat: the layer-wise inference sweep
+(`launch/serve_gnn.run_sweep`) and the full-graph training step
+(`launch/train_gnn.run_training`; lr 0.1 for gcn, 1.0 for gat), each held to
+its single-device reference, with every kernel's launches counted from 0
+around each drive.  Each phase prints one JSON line; the next-to-last lines
+are the per-kernel summary and the card's name and power limit from
+nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
+``--jsonl PATH`` every phase line is also appended to PATH.  Any failed check
+raises, so the script exits non-zero and prints no result.  It needs a CUDA
+card and the repository's `src/` beside it.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -35,8 +39,20 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = 1e-4
 SWEEPS = 3
 TRAIN_STEPS = 5
-TRAIN_LR = 0.1  # the loss falls at every step at this width (lr 0.3+ overshoots)
-KERNEL_SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu"}
+# the loss falls at every step at this width: gcn overshoots from lr 0.3;
+# gat fell at every step from 0.05 to 10 on the CPU at this width (2**14
+# vertices) and diverged at 20
+TRAIN_LR = {"gcn": 0.1, "gat": 1.0}
+SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu"}
+# each kernel: its source, and the TPU kernel (or gradient rule) it replaces
+KERNELS = {
+    "ell_spmm": ("ell_spmm", "src/repro/kernels/ell_spmm.py:26"),
+    "ell_spmm_transpose": ("ell_spmm", "src/repro/kernels/ell_spmm.py:98"),
+    "sddmm": ("sddmm", "src/repro/kernels/sddmm.py:16"),
+    "ell_slot_transpose": ("sddmm", "src/repro/kernels/sddmm.py:109"),
+    "ell_attend_dw": ("ell_spmm", "src/repro/kernels/ell_spmm.py:137"),
+}
 
 
 # torch.sparse (the library yardstick only) warns that it is in beta
@@ -44,8 +60,70 @@ warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta"
 warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly")
 
 
+def counters() -> dict:
+    """Each kernel's wrapper, which holds its launch count."""
+    from repro_torch.kernels.ell_spmm import (
+        ell_attend_dw,
+        ell_spmm,
+        ell_spmm_transpose,
+    )
+    from repro_torch.kernels.sddmm import ell_slot_transpose, sddmm
+
+    return dict(ell_spmm=ell_spmm, ell_spmm_transpose=ell_spmm_transpose,
+                sddmm=sddmm, ell_slot_transpose=ell_slot_transpose,
+                ell_attend_dw=ell_attend_dw)
+
+
+def zero_counts() -> None:
+    for wrapper in counters().values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in counters().items()}
+
+
+def check_counts(got: dict, want: dict, what: str) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    check(got == want, f"{what}: kernel launches {got}, expected {want}")
+
+
+def step_launches(model: str, L: int, C: int, T: int) -> dict:
+    """Launches of T training steps.  gcn: the forward per layer and chunk,
+    the transpose for layers 1.. (layer 0 aggregates the constant features).
+    gat: the attend forward, its transpose and its dw per layer and chunk
+    (layer 0's Hw depends on w), and one slot transpose per layer for the
+    attention column's gather (chunk 0 only)."""
+    if model == "gcn":
+        return dict(ell_spmm=L * C * T, ell_spmm_transpose=(L - 1) * C * T)
+    return dict(ell_spmm=L * C * T, ell_spmm_transpose=L * C * T,
+                ell_attend_dw=L * C * T, ell_slot_transpose=L * T)
+
+
+def reference_launches(model: str, L: int, T: int, backward: bool) -> dict:
+    """Launches of T reference steps (or sweeps: no backward).  The gcn
+    reference is plain throughout; gat's edge logits go through the SDDMM
+    kernel and its gradient through the slot transpose, as the reference
+    calls its Pallas SDDMM."""
+    if model == "gcn":
+        return {}
+    return dict(sddmm=L * T, ell_slot_transpose=L * T if backward else 0)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+JSONL = []  # the file every phase line is also appended to (--jsonl)
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    for path in JSONL:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def check(ok: bool, what: str) -> None:
@@ -65,6 +143,36 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(least_bytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the fp32 rate."""
+    bytes_ms = least_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return dict(least_bytes=least_bytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def held(name, kernel, plain, what, autograd=None):
+    """Two launches of the kernel against its plain version on the same
+    inputs: finite, within TOL, bitwise equal to each other; ``autograd``
+    (optional) is the same result through the differentiable wrapper."""
+    got, again = kernel(), kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(bool(torch.isfinite(got).all()), f"{what} {name}: non-finite output")
+    check(err <= TOL, f"{what} {name}: max |kernel - plain| {err} > {TOL}")
+    check(torch.equal(got, again), f"{what} {name}: two launches differ")
+    grad_err = None
+    if autograd is not None:
+        grad = autograd()
+        grad_err = float((grad - want).abs().max()) if grad.numel() else 0.0
+        check(grad_err <= TOL, f"{what} {name}: through autograd differs from "
+              f"the plain version by {grad_err}")
+    return want, dict(max_abs_err=err, bitwise_repeat=True,
+                      autograd_max_abs_err=grad_err)
+
+
 def ell_case(name, ids, mask, H, normalize, reps):
     """One ELL-SpMM case: the kernel against its plain version on the card,
     times of kernel / plain / one torch.sparse.mm call, and the bound."""
@@ -73,15 +181,10 @@ def ell_case(name, ids, mask, H, normalize, reps):
 
     V, K = ids.shape
     N, D = H.shape
-    got = ell_spmm(ids, mask, H, normalize=normalize)
-    again = ell_spmm(ids, mask, H, normalize=normalize)
-    want = ref.ell_spmm_ref(ids, mask, H, normalize=normalize)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    check(err <= TOL, f"{name} normalize={normalize}: max |kernel - plain| "
-          f"{err} > {TOL}")
-    check(torch.equal(got, again), f"{name}: two launches differ")
+    want, row = held(f"{name} normalize={normalize}",
+                     lambda: ell_spmm(ids, mask, H, normalize=normalize),
+                     lambda: ref.ell_spmm_ref(ids, mask, H, normalize=normalize),
+                     "ell_spmm")
     # the library yardstick: one sparse x dense product, the matrix built
     # once from ids/mask (1/deg folded into the values when normalizing;
     # repeated neighbors summed by coalesce, so it is a valid CSR)
@@ -103,15 +206,10 @@ def ell_case(name, ids, mask, H, normalize, reps):
     touched = int(torch.unique(ids[nz]).numel())
     least_bytes = touched * D * 4 + V * K * 8 + V * D * 4
     ops = 2 * nnz * D + (V * K + V * D if normalize else 0)
-    bytes_ms = least_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    row = dict(kernel="ell_spmm", case=name, normalize=normalize, V=V, K=K,
-               N=N, D=D, nnz=nnz, max_abs_err=err, tol=TOL,
-               bitwise_repeat=True, kernel_ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, library_max_abs_err=lib_err,
-               least_bytes=least_bytes, ops=ops,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    row.update(kernel="ell_spmm", case=name, normalize=normalize, V=V, K=K,
+               N=N, D=D, nnz=nnz, tol=TOL, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_max_abs_err=lib_err, **bound(least_bytes, ops))
     emit("kernel", **row)
     return row
 
@@ -186,21 +284,15 @@ def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None):
         return ell_spmm_transpose(ids, mask, ct, N, normalize=normalize,
                                   plan=plan)
 
-    got, again = kernel(), kernel()
-    want = ref.ell_spmm_transpose_ref(ids, mask, ct, N, normalize=normalize)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite dH")
-    check(err <= TOL, f"transpose {name} normalize={normalize}: max |kernel - "
-          f"plain| {err} > {TOL}")
-    check(torch.equal(got, again), f"transpose {name}: two launches differ")
-    H = torch.randn((N, D), device=ct.device).requires_grad_()
-    (grad,) = torch.autograd.grad(
-        ell_spmm(ids, mask, H, normalize=normalize, plan=plan), H, ct)
-    grad_err = float((grad - want).abs().max()) if grad.numel() else 0.0
-    check(grad_err <= TOL, f"transpose {name}: autograd through ell_spmm "
-          f"differs from the plain gradient by {grad_err}")
-    del H, grad
+    def autograd():
+        H = torch.randn((N, D), device=ct.device).requires_grad_()
+        return torch.autograd.grad(
+            ell_spmm(ids, mask, H, normalize=normalize, plan=plan), H, ct)[0]
+
+    want, row = held(f"{name} normalize={normalize}", kernel,
+                     lambda: ref.ell_spmm_transpose_ref(ids, mask, ct, N,
+                                                        normalize=normalize),
+                     "ell_spmm_transpose", autograd)
     # the library yardstick: one sparse x dense product with the transposed
     # matrix [N, V] (1/deg folded into the values when normalizing)
     nz = mask != 0
@@ -223,16 +315,11 @@ def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None):
     least_bytes = (touched * D * 4 + nnz * (8 + 4) + (N + 1) * 8 + N * D * 4
                    + (V * K * 4 if normalize else 0))
     ops = 2 * nnz * D + (V * K + V * D if normalize else 0)
-    bytes_ms = least_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    row = dict(kernel="ell_spmm_transpose", case=name, normalize=normalize,
-               V=V, K=K, N=N, D=D, nnz=nnz, max_abs_err=err, tol=TOL,
-               autograd_max_abs_err=grad_err, bitwise_repeat=True,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    row.update(kernel="ell_spmm_transpose", case=name, normalize=normalize,
+               V=V, K=K, N=N, D=D, nnz=nnz, tol=TOL, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
                library_max_abs_err=lib_err, plan_ms=plan_ms,
-               least_bytes=least_bytes, ops=ops,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               **bound(least_bytes, ops))
     emit("kernel", **row)
     return row
 
@@ -283,84 +370,322 @@ def transpose_phase(eng, device):
     return rows
 
 
-def sweep_phase(g, chunks, device):
+def sddmm_case(name, ids, mask, Hw, a_src, a_dst, reps):
+    """One SDDMM case: the forward kernel against its plain version on the
+    card, the times of both, and the bound.  No single PyTorch call computes
+    the masked LeakyReLU edge logits (library_ms null)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sddmm import sddmm
+
+    (V, K), (N, D) = ids.shape, Hw.shape
+    _, row = held(name, lambda: sddmm(ids, mask, Hw, a_src, a_dst),
+                  lambda: ref.sddmm_ref(ids, mask, Hw, a_src, a_dst), "sddmm")
+    nz = mask > 0
+    nnz = int(nz.sum())
+    # Hw rows the function needs: the V dst rows and every row an unmasked
+    # slot names, read once; a_src, a_dst, ids, mask read once, e written once
+    touched = int(torch.unique(ids[nz]).numel())
+    needed = int(torch.unique(torch.cat([
+        torch.arange(V, device=ids.device, dtype=torch.int32), ids[nz]])).numel())
+    least_bytes = needed * D * 4 + 2 * D * 4 + V * K * 12
+    ops = 2 * D * (touched + V) + 3 * nnz  # two dots; add, compare, scale
+    row.update(kernel="sddmm", case=name, V=V, K=K, N=N, D=D, nnz=nnz, tol=TOL,
+               kernel_ms=cuda_ms(lambda: sddmm(ids, mask, Hw, a_src, a_dst), reps),
+               plain_ms=cuda_ms(lambda: ref.sddmm_ref(ids, mask, Hw, a_src,
+                                                      a_dst), max(1, reps // 4)),
+               library_ms=None, **bound(least_bytes, ops))
+    emit("kernel", **row)
+    return row
+
+
+def slot_transpose_case(name, ids, mask, dz, N, reps, plan=None):
+    """One slot-transpose case: the kernel against its plain version on the
+    card, its gradient role through `ell_slot_gather` under autograd, times
+    of kernel / plain / one torch.sparse.mm call with the [N, V*K] selection
+    matrix, and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ell_spmm import ell_transpose_plan
+    from repro_torch.kernels.sddmm import ell_slot_gather, ell_slot_transpose
+
+    V, K = ids.shape
+    if plan is None:
+        plan = ell_transpose_plan(ids, mask, N)
+
+    def autograd():
+        col = torch.zeros(N, device=dz.device, requires_grad=True)
+        return torch.autograd.grad(ell_slot_gather(col, ids, mask, plan=plan),
+                                   col, dz)[0]
+
+    want, row = held(name, lambda: ell_slot_transpose(ids, mask, dz, N, plan=plan),
+                     lambda: ref.ell_slot_transpose_ref(ids, mask, dz, N),
+                     "ell_slot_transpose", autograd)
+    flat = torch.nonzero(mask.reshape(-1) != 0).reshape(-1)
+    sel = torch.sparse_coo_tensor(
+        torch.stack([ids.reshape(-1)[flat].long(), flat]),
+        torch.ones(flat.numel(), device=dz.device), size=(N, V * K),
+        check_invariants=True).coalesce().to_sparse_csr()
+    dz_col = dz.reshape(-1, 1)
+    lib_err = float((torch.sparse.mm(sel, dz_col)[:, 0] - want).abs().max())
+    nnz = int(plan[1].numel())
+    # the plan (slots and indptr) and dz at each listed slot read once, g
+    # written once; one add per listed slot
+    least_bytes = nnz * (8 + 4) + (N + 1) * 8 + N * 4
+    row.update(kernel="ell_slot_transpose", case=name, V=V, K=K, N=N, nnz=nnz,
+               tol=TOL,
+               kernel_ms=cuda_ms(lambda: ell_slot_transpose(ids, mask, dz, N,
+                                                            plan=plan), reps),
+               plain_ms=cuda_ms(lambda: ref.ell_slot_transpose_ref(ids, mask,
+                                                                   dz, N),
+                                max(1, reps // 4)),
+               library_ms=cuda_ms(lambda: torch.sparse.mm(sel, dz_col), reps),
+               library_max_abs_err=lib_err, **bound(least_bytes, nnz))
+    emit("kernel", **row)
+    return row
+
+
+def dw_case(name, ids, mask, ct, H, reps):
+    """One case of ell_attend's weight gradient: the dw kernel against its
+    plain version on the card, the same through `ell_attend` under autograd,
+    times of kernel / plain / one torch.sparse.sampled_addmm call over the
+    structure's CSR (which computes exactly dw on the unmasked slots), and
+    the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ell_spmm import ell_attend, ell_attend_dw
+
+    V, K = ids.shape
+    N, D = H.shape
+
+    def autograd():
+        w = mask.clone().requires_grad_()
+        return torch.autograd.grad(ell_attend(ids, w, H), w, ct)[0]
+
+    want, row = held(name, lambda: ell_attend_dw(ids, ct, H),
+                     lambda: ref.ell_attend_dw_ref(ids, ct, H), "ell_attend_dw",
+                     autograd)
+    nz = mask != 0
+    r, _ = nz.nonzero(as_tuple=True)
+    pattern = torch.sparse_coo_tensor(
+        torch.stack([r, ids[nz].long()]), torch.ones(r.numel(), device=H.device),
+        size=(V, N), check_invariants=True).coalesce().to_sparse_csr()
+    Ht = H.t()
+
+    def library():
+        return torch.sparse.sampled_addmm(pattern, ct, Ht, beta=0.0)
+
+    got_lib = library()
+    # the library's values, row by row of its CSR, against the plain dot
+    # products of the same (row, column) pairs
+    rows = torch.repeat_interleave(
+        torch.arange(V, device=H.device),
+        got_lib.crow_indices().diff())
+    cols = got_lib.col_indices()
+    lib_err = 0.0
+    for c0 in range(0, rows.numel(), 1 << 20):
+        rr, cc = rows[c0:c0 + (1 << 20)], cols[c0:c0 + (1 << 20)]
+        lib_err = max(lib_err, float(((ct[rr] * H[cc]).sum(1)
+                                      - got_lib.values()[c0:c0 + (1 << 20)])
+                                     .abs().max()))
+    del got_lib, rows, cols
+    # every H row some slot names read once (masked slots too: dw covers
+    # them), ct and ids read once, dw written once; a multiply-add per slot
+    # and feature
+    touched = int(torch.unique(ids).numel())
+    least_bytes = touched * D * 4 + V * D * 4 + V * K * 8
+    row.update(kernel="ell_attend_dw", case=name, V=V, K=K, N=N, D=D,
+               nnz=int(nz.sum()), tol=TOL,
+               kernel_ms=cuda_ms(lambda: ell_attend_dw(ids, ct, H), reps),
+               plain_ms=cuda_ms(lambda: ref.ell_attend_dw_ref(ids, ct, H),
+                                max(1, reps // 4)),
+               library_ms=cuda_ms(library, reps), library_max_abs_err=lib_err,
+               **bound(least_bytes, 2 * V * K * D))
+    emit("kernel", **row)
+    return row
+
+
+def padded_table(gen, rows, D, device):
+    """A gather table as the engine builds one: random rows and a zero pad
+    row last."""
+    H = torch.randn((rows, D), generator=gen)
+    H[-1] = 0.0
+    return H.to(device)
+
+
+def gat_kernel_phase(eng, device):
+    """Every case of the GAT kernels, from the main path's own layout and
+    widths down to the ragged and degenerate ones, and the ELL forward and
+    transpose kernels at the fused (odd) widths of the GAT exchange."""
+    gen = torch.Generator().manual_seed(2)
+    ids, mask, plan = eng._consts["ids"], eng._consts["mask"], eng._consts["plan"]
+    V, N = eng.Vp, eng.Vp + 1  # the gather table: every vertex + the pad row
+    rows = {"sddmm": [], "ell_slot_transpose": [], "ell_attend_dw": [],
+            "ell_spmm": [], "ell_spmm_transpose": []}
+
+    def attn(D):
+        return tuple((torch.randn(D, generator=gen) / D ** 0.5).to(device)
+                     for _ in range(2))
+
+    # SDDMM at the layer widths (256, then the last layer's 64)
+    for D in (256, 64):
+        rows["sddmm"].append(sddmm_case(f"gcn-paper layout D={D}", ids, mask,
+                                        padded_table(gen, N, D, device),
+                                        *attn(D), 10))
+    for case, (Vr, K, Nr, D, p) in {"ragged V=1003 D=37": (1003, 7, 1004, 37, 0.6),
+                                    "K=1": (4096, 1, 4097, 256, 0.9),
+                                    "K=100 D=257": (3000, 100, 5000, 257, 0.7)
+                                    }.items():
+        ids_r, mask_r, H_r = random_ell(gen, Vr, K, Nr, D, p, device)
+        rows["sddmm"].append(sddmm_case(case, ids_r, mask_r, H_r, *attn(D), 100))
+    ids_a, mask_a, H_a = random_ell(gen, 2048, 16, 3000, 64, 0.5, device)
+    mask_a[:512] = 0.0  # all-masked rows: every logit -1e30
+    rows["sddmm"].append(sddmm_case("all-masked rows", ids_a, mask_a, H_a,
+                                    *attn(64), 100))
+    # Hw 4 bytes off 16-byte alignment: the 4-byte path though D % 4 == 0
+    flat = torch.randn(3000 * 64 + 1, generator=gen).to(device)
+    rows["sddmm"].append(sddmm_case("misaligned Hw, D=64", ids_a, mask_a,
+                                    flat[1:].view(3000, 64), *attn(64), 100))
+
+    # the slot transpose over the engine's plan, then the ragged ones
+    dz = torch.randn(mask.shape, generator=gen).to(device) * mask
+    rows["ell_slot_transpose"].append(slot_transpose_case(
+        "gcn-paper layout", ids, mask, dz, N, 10, plan=plan))
+    for case, (Vr, K, Nr, p) in {"ragged V=1003": (1003, 7, 502, 0.6),
+                                 "K=1": (4096, 1, 4096, 0.9),
+                                 "K=100 (long segments)": (3000, 100, 5000, 0.7)
+                                 }.items():
+        ids_r, mask_r, _ = random_ell(gen, Vr, K, Nr, 1, p, device)
+        dz_r = torch.randn(mask_r.shape, generator=gen).to(device)
+        rows["ell_slot_transpose"].append(slot_transpose_case(
+            case, ids_r, mask_r, dz_r, Nr, 100))
+    dz_a = torch.randn(mask_a.shape, generator=gen).to(device)
+    rows["ell_slot_transpose"].append(slot_transpose_case(
+        "all-masked rows", ids_a, mask_a, dz_a, 3000, 100))
+
+    # dw at every width the path gives it: Hw's 256 and 64 (the attend at
+    # exchange_chunks 1 reads tab[:, 1:] copied), the fused 257 and 65, and
+    # the chunk widths 129 and 33 at exchange_chunks 2
+    w = (mask * torch.rand(mask.shape, generator=gen).to(device)).contiguous()
+    for D in (256, 257, 129, 64, 65, 33):
+        ct = torch.randn((V, D), generator=gen).to(device)
+        rows["ell_attend_dw"].append(dw_case(
+            f"gcn-paper layout D={D}", ids, w, ct, padded_table(gen, N, D, device),
+            10))
+        del ct
+    for case, (Vr, K, Nr, D, p) in {"ragged V=1003 D=37": (1003, 7, 502, 37, 0.6),
+                                    "K=1": (4096, 1, 4096, 256, 0.9),
+                                    "K=100 D=300": (3000, 100, 5000, 300, 0.7)
+                                    }.items():
+        ids_r, mask_r, H_r = random_ell(gen, Vr, K, Nr, D, p, device,
+                                        weighted=True)
+        rows["ell_attend_dw"].append(dw_case(
+            case, ids_r, mask_r, torch.randn((Vr, D), generator=gen).to(device),
+            H_r, 100))
+    ids_w, mask_w, H_w = random_ell(gen, 2048, 16, 3000, 64, 0.5, device,
+                                    weighted=True)
+    mask_w[:512] = 0.0
+    ct_w = torch.randn((2048, 64), generator=gen).to(device)
+    rows["ell_attend_dw"].append(dw_case("all-masked rows + weighted", ids_w,
+                                         mask_w, ct_w, H_w, 100))
+    flat = torch.randn(2048 * 64 + 1, generator=gen).to(device)
+    rows["ell_attend_dw"].append(dw_case("misaligned ct, D=64", ids_w, mask_w,
+                                         flat[1:].view(2048, 64), H_w, 100))
+
+    # the attend forward and its dH (the ported ELL kernels, weights in the
+    # mask lane) at the fused widths: 257 (the whole fused table) and 129
+    # (a chunk at exchange_chunks 2), both on the 4-byte path
+    for D in (257, 129):
+        table = padded_table(gen, N, D, device)
+        rows["ell_spmm"].append(ell_case(f"gcn-paper layout, weighted, D={D}",
+                                         ids, w, table, False, 10))
+        ct = torch.randn((V, D), generator=gen).to(device)
+        rows["ell_spmm_transpose"].append(transpose_case(
+            f"gcn-paper layout D={D}, weighted mask", ids, w, ct, N, False, 10,
+            plan=plan))
+        del table, ct
+    return rows
+
+
+def sweep_phase(g, chunks, device, model="gcn"):
     """The main path: SWEEPS timed layer-wise sweeps through
-    serve_gnn.run_sweep at full width, launches counted from 0."""
+    serve_gnn.run_sweep at full width, launches counted from 0; then the
+    reference sweep, its launches counted apart."""
     from repro_torch.core.models.gnn import init_gnn_params
-    from repro_torch.kernels.ell_spmm import ell_spmm
     from repro_torch.launch import serve_gnn
 
     t0 = time.perf_counter()
     args = serve_gnn.parse_args([
-        "--device", str(device), "--exec", "broadcast", "--model", "gcn",
+        "--device", str(device), "--exec", "broadcast", "--model", model,
         "--exchange-chunks", str(chunks), "--hidden", "256", "--layers", "3"])
     eng = serve_gnn.build_engine(args, g)
-    params = init_gnn_params("gcn", eng.dims, torch.Generator().manual_seed(0),
+    params = init_gnn_params(model, eng.dims, torch.Generator().manual_seed(0),
                              eng.device)
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ell_spmm.launches = 0
+    zero_counts()
     embs, walls = [], []
     for _ in range(SWEEPS):
         emb, wall = serve_gnn.run_sweep(eng, params)
         embs.append(emb)
         walls.append(wall)
-    launches = ell_spmm.launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    check(launches == L * chunks * SWEEPS,
-          f"ell_spmm launched {launches} times in {SWEEPS} sweeps, expected "
-          f"{L} layers x {chunks} chunks each")
+    # a sweep runs the forward kernel per layer and chunk and no backward
+    check_counts(launches, dict(ell_spmm=L * chunks * SWEEPS),
+                 f"{model} sweeps")
     emb = embs[-1]
     check(emb.shape == (g.num_vertices, eng.dims[-1]), f"shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
     bitwise = all(np.array_equal(e, embs[0]) for e in embs[1:])
     check(bitwise, "sweeps are not bitwise equal")
+    zero_counts()
     ref = eng.global_embeddings(eng.infer_full_graph(params=params,
                                                      reference=True))
+    ref_launches = read_counts()
+    check_counts(ref_launches, reference_launches(model, L, 1, backward=False),
+                 f"{model} reference sweep")
     err = float(np.max(np.abs(emb - ref)))
     check(err <= TOL, f"sweep vs reference sweep: {err} > {TOL}")
     median_s = float(np.median(walls))
-    emit("sweep", exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
+    emit("sweep" if model == "gcn" else f"{model}_sweep", model=model,
+         exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, sweeps=SWEEPS, walls_ms=[w * 1e3 for w in walls],
          median_ms=median_s * 1e3, vertices_per_s=g.num_vertices / median_s,
-         ell_spmm_launches=launches, launches_per_sweep=launches / SWEEPS,
+         launches=launches, reference_launches=ref_launches,
+         launches_per_sweep=launches["ell_spmm"] / SWEEPS,
          bitwise_equal_sweeps=bitwise, oracle_max_abs_err=err, oracle_tol=TOL,
          inference_bytes=eng.comm_stats.inference_bytes,
          max_memory_allocated=peak, setup_s=setup_s)
+    add_counts(launches, ref_launches)
     return eng, params, launches
 
 
-def train_phase(g, chunks, device):
+def train_phase(g, chunks, device, model="gcn"):
     """The training path: TRAIN_STEPS timed steps through
     train_gnn.run_training at full width, launches counted from 0; then a
-    second run from the same initial state, which must be bitwise equal, and
-    the single-device reference run (per-step loss gap <= TOL)."""
-    from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_transpose
+    second run from the same initial state with the single-device reference
+    run (per-step loss gap <= TOL), which must be bitwise equal to the first
+    in losses and in every parameter."""
+    from repro_torch.core.models.gnn import PARAM_KEYS
     from repro_torch.launch import train_gnn
 
+    lr = TRAIN_LR[model]
     t0 = time.perf_counter()
     args = train_gnn.parse_args([
         "--device", str(device), "--exec", "broadcast", "--protocol", "sync",
-        "--model", "gcn", "--exchange-chunks", str(chunks), "--hidden", "256",
-        "--layers", "3", "--lr", str(TRAIN_LR)])
+        "--model", model, "--exchange-chunks", str(chunks), "--hidden", "256",
+        "--layers", "3", "--lr", str(lr)])
     eng = train_gnn.build_engine(args, g)  # the transpose plan included
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    ell_spmm.launches = ell_spmm_transpose.launches = 0
+    zero_counts()
     run = train_gnn.run_training(eng, TRAIN_STEPS)
-    fwd, bwd = ell_spmm.launches, ell_spmm_transpose.launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    check(fwd == L * chunks * TRAIN_STEPS,
-          f"ell_spmm launched {fwd} times in {TRAIN_STEPS} steps, expected "
-          f"{L} layers x {chunks} chunks each")
-    # layer 0 aggregates the constant features: no backward through it
-    check(bwd == (L - 1) * chunks * TRAIN_STEPS,
-          f"ell_spmm_transpose launched {bwd} times in {TRAIN_STEPS} steps, "
-          f"expected {L - 1} layers x {chunks} chunks each")
+    step_want = step_launches(model, L, chunks, TRAIN_STEPS)
+    check_counts(launches, step_want, f"{model} training, {TRAIN_STEPS} steps")
     losses = run["losses"]
     check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -371,29 +696,38 @@ def train_phase(g, chunks, device):
     params, walls = run["state"]["params"], run["walls"]
     del run, logits
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     again = train_gnn.run_training(eng, TRAIN_STEPS, oracle_check=True)
+    again_launches = read_counts()
     ref_peak = torch.cuda.max_memory_allocated()
+    want = dict(step_want)
+    add_counts(want, reference_launches(model, L, TRAIN_STEPS, backward=True))
+    check_counts(again_launches, want, f"{model} training with its reference")
+    keys = PARAM_KEYS[model]
     bitwise = again["losses"] == losses and all(
         torch.equal(a[key], b[key]) for a, b in
         zip(params["layers"], again["state"]["params"]["layers"])
-        for key in ("w", "b"))
+        for key in keys)
     check(bitwise, "two training runs from the same state differ")
     gaps = [abs(a - b) for a, b in zip(losses, again["ref_losses"])]
     check(max(gaps) <= TOL, f"step vs reference step: {gaps} > {TOL}")
     median_s = float(np.median(walls))
-    emit("train", exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
-         dims=eng.dims, lr=TRAIN_LR, steps=TRAIN_STEPS, losses=losses,
+    emit("train" if model == "gcn" else f"{model}_train", model=model,
+         exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
+         dims=eng.dims, lr=lr, steps=TRAIN_STEPS, losses=losses,
          ref_losses=again["ref_losses"], loss_gaps=gaps, oracle_tol=TOL,
          walls_ms=[w * 1e3 for w in walls],
-         walls_second_run_ms=[w * 1e3 for w in again["walls"]], median_step_ms=median_s * 1e3,
-         steps_per_s=1.0 / median_s, train_acc=train_acc, test_acc=test_acc,
-         ell_spmm_launches=fwd, ell_spmm_transpose_launches=bwd,
+         walls_second_run_ms=[w * 1e3 for w in again["walls"]],
+         median_step_ms=median_s * 1e3, steps_per_s=1.0 / median_s,
+         train_acc=train_acc, test_acc=test_acc, launches=launches,
+         launches_with_reference=again_launches, param_keys=list(keys),
          bitwise_equal_runs=bitwise, max_memory_allocated=peak,
          max_memory_allocated_with_reference=ref_peak, setup_s=setup_s)
-    return eng, fwd, bwd
+    add_counts(launches, again_launches)
+    return eng, launches
 
 
-def profile_phase(phase, fn, kernels):
+def profile_phase(phase, fn, kernels, **fields):
     """torch.profiler trace of one call of fn, after one untraced warm-up
     cycle of the profiler: device busy time, idle share, the longest idle
     gaps, and the kernels that took the time.  ``kernels`` maps each kernel
@@ -438,12 +772,13 @@ def profile_phase(phase, fn, kernels):
         elif t > cur[1]:
             cur[1:] = [t, name]
     busy_us += cur[1] - cur[0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
     for kernel, launches in kernels.items():
         n = sum(c for name, (c, _) in by_name.items() if kernel in name)
         check(n == launches, f"{phase} trace holds {n} launches of {kernel}, "
               f"expected {launches}")
-    emit(phase, traced_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    emit(phase, **fields, traced_wall_ms=wall_us / 1e3,
+         device_busy_ms=busy_us / 1e3,
          device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
          longest_idle_gaps=[dict(us=g, after=a[:80], before=b[:80])
                             for g, a, b in sorted(gaps, reverse=True)[:3]],
@@ -453,7 +788,10 @@ def profile_phase(phase, fn, kernels):
          - sum(us for _, (_, us) in top) / 1e3)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--jsonl", help="also append every phase line to this file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
@@ -462,6 +800,9 @@ def main() -> int:
     from repro_torch.core.graph import er_graph
     from repro_torch.kernels import build
 
+    if args.jsonl:
+        os.makedirs(os.path.dirname(os.path.abspath(args.jsonl)), exist_ok=True)
+        JSONL.append(args.jsonl)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -471,7 +812,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    built = build.build(list(KERNEL_SOURCES))
+    built = build.build(list(SOURCES))  # one nvcc per source, all together
     emit("build", seconds=time.perf_counter() - t0, kernels=built)
 
     t0 = time.perf_counter()
@@ -481,39 +822,51 @@ def main() -> int:
     emit("graph", generator="er_graph", vertices=g.num_vertices,
          edges=g.num_edges, seconds=time.perf_counter() - t0)
 
-    launches = {"ell_spmm": 0, "ell_spmm_transpose": 0}
-    for chunks in (1, 2):
-        eng, params, n = sweep_phase(g, chunks, device)
-        launches["ell_spmm"] += n
-        if chunks == 1:
-            # kernel cases at the main path's own layout, counted apart
-            rows = {"ell_spmm": kernel_phase(eng, device),
-                    "ell_spmm_transpose": transpose_phase(eng, device)}
-            profile_phase("profile", lambda: eng.infer_full_graph(params=params),
-                          {"ell_spmm_kernel": len(eng.dims) - 1})
-        del eng, params
-        torch.cuda.empty_cache()
-    for chunks in (1, 2):
-        eng, fwd, bwd = train_phase(g, chunks, device)
-        launches["ell_spmm"] += fwd
-        launches["ell_spmm_transpose"] += bwd
-        if chunks == 1:
-            step, state = eng.make_step(), eng.init_state()
-            L = len(eng.dims) - 1  # layer 0 runs no backward kernel
-            profile_phase("train_profile", lambda: step(state),
-                          {"ell_spmm_kernel": L, "ell_spmm_transpose_kernel": L - 1})
-            del step, state
-        del eng
-        torch.cuda.empty_cache()
+    launches, rows = {}, {}
+    for model in ("gcn", "gat"):
+        for chunks in (1, 2):
+            eng, params, n = sweep_phase(g, chunks, device, model)
+            add_counts(launches, n)
+            if chunks == 1:
+                L = len(eng.dims) - 1
+                # kernel cases at the main path's own layout, counted apart
+                if model == "gcn":
+                    rows.update(ell_spmm=kernel_phase(eng, device),
+                                ell_spmm_transpose=transpose_phase(eng, device))
+                    profile_phase("profile",
+                                  lambda: eng.infer_full_graph(params=params),
+                                  {"ell_spmm_kernel": L}, exchange_chunks=1)
+                else:
+                    for name, extra in gat_kernel_phase(eng, device).items():
+                        rows[name] = rows.get(name, []) + extra
+            del eng, params
+            torch.cuda.empty_cache()
+    for model in ("gcn", "gat"):
+        for chunks in (1, 2):
+            eng, n = train_phase(g, chunks, device, model)
+            add_counts(launches, n)
+            if chunks == 1 or model == "gat":
+                step, state = eng.make_step(), eng.init_state()
+                L = len(eng.dims) - 1
+                expect = {f"{name}_kernel": count for name, count in
+                          step_launches(model, L, chunks, 1).items()}
+                profile_phase("train_profile" if model == "gcn"
+                              else f"{model}_train_profile",
+                              lambda: step(state), expect,
+                              exchange_chunks=chunks)
+                del step, state
+            del eng
+            torch.cuda.empty_cache()
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the main path")
 
-    replaces = {"ell_spmm": "src/repro/kernels/ell_spmm.py:26",
-                "ell_spmm_transpose": "src/repro/kernels/ell_spmm.py:98"}
     summary = []
-    for name, kernel_rows in rows.items():
-        main_row = kernel_rows[0]  # gcn-paper layout, D=256, normalize off
+    for name, (source, replaces) in KERNELS.items():
+        kernel_rows = rows[name]
+        main_row = kernel_rows[0]  # the gcn-paper layout at its main width
         summary.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCES["ell_spmm"],
-            replaces=replaces[name], launches=launches[name],
+            name=name, route="cuda", source=SOURCES[source],
+            replaces=replaces, launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
             ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

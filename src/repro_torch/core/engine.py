@@ -5,16 +5,19 @@ sweep on one card.
 The engine builds the partition family's layout (`partition/layout_api.py`),
 moves the ELL constants and the feature plane onto its device once, and runs
 each layer through the family's ExchangeBackend
-(`execution/exchange_api.py`): exchange (chunked), masked ELL multiply
-through the hand-written CUDA kernel, degree normalization, then the model's
-dense combine.  The training step (`make_step`) runs the same forward
-under autograd, so the ELL multiply's backward is the CUDA transpose kernel
-over a CSR plan built once here.  `make_reference_step` and
-`infer_full_graph(reference=True)` run an independent plain-PyTorch gather
-over the same padded space: the oracle every step and sweep is held to.
+(`execution/exchange_api.py`).  gcn: exchange (chunked), masked ELL multiply
+through the hand-written CUDA kernel, degree normalization, then the dense
+combine.  gat: the fused [a_src.Hw | Hw] exchange, the masked
+segment-softmax and the attention-weighted ELL sum (`ell_attend`).  The
+training step (`make_step`) runs the same forward under autograd, so every
+gather's backward is a CUDA kernel over a CSR transpose plan built once here
+(the transpose, ell_attend's dw, the slot transpose).  `make_reference_step`
+and `infer_full_graph(reference=True)` run an independent plain-PyTorch
+gather over the same padded space (gat's edge logits through the SDDMM
+kernel, as the reference's do): the oracle every step and sweep is held to.
 
-Ported: model gcn, partition family edge_cut, execution broadcast, batching
-full_graph, protocol sync, one rank.  Everything else raises
+Ported: models gcn and gat, partition family edge_cut, execution broadcast,
+batching full_graph, protocol sync, one rank.  Everything else raises
 NotImplementedError naming the slice it waits for.  The async protocols and
 telemetry arrive with their own slices.
 """
@@ -29,11 +32,22 @@ import torch.distributed as dist
 
 from repro_torch.core.execution.exchange_api import make_backend
 from repro_torch.core.graph import Graph
-from repro_torch.core.models.gnn import accuracy, init_gnn_params, softmax_xent
+from repro_torch.core.models.gnn import (
+    PARAM_KEYS,
+    accuracy,
+    init_gnn_params,
+    require_ported,
+    softmax_xent,
+)
 from repro_torch.core.partition.edge_cut import Partition
 from repro_torch.core.partition.layout_api import get_layout_builder
 from repro_torch.core.sampling.distributed import CommStats
-from repro_torch.kernels.ops import ell_spmm, ell_transpose_plan
+from repro_torch.kernels.ops import (
+    ell_attend,
+    ell_spmm,
+    ell_transpose_plan,
+    sddmm_ell,
+)
 
 EXECUTION_MODELS = ("broadcast", "ring", "p2p")
 GNN_MODELS = ("gcn", "sage", "gat", "gin")
@@ -66,13 +80,15 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _leaves(params: Dict) -> List[torch.Tensor]:
-    return [p_l[key] for p_l in params["layers"] for key in ("w", "b")]
+def _leaves(params: Dict, keys) -> List[torch.Tensor]:
+    """The params as one flat list, layer by layer, ``keys`` in order."""
+    return [p_l[key] for p_l in params["layers"] for key in keys]
 
 
-def _from_leaves(leaves) -> Dict:
+def _from_leaves(leaves, keys) -> Dict:
     it = iter(leaves)
-    return {"layers": [{"w": w, "b": b} for w, b in zip(it, it)]}
+    return {"layers": [dict(zip(keys, group))
+                       for group in zip(*[it] * len(keys))]}
 
 
 class _SlotGather(torch.autograd.Function):
@@ -99,6 +115,35 @@ class _SlotGather(torch.autograd.Function):
             (r,) = torch.nonzero(mask[:, j], as_tuple=True)
             d_table.index_add_(0, ids[r, j], mask[r, j, None] * ct[r])
         return None, None, d_table
+
+
+class _SlotAttend(torch.autograd.Function):
+    """The reference's attention-weighted gather,
+    sum_j pw[:, j] * table[ids[:, j]], one ELL slot at a time, with the
+    gradient to both the weights and the table slot by slot: d_pw[:, j] =
+    ct . table[ids[:, j]], and each unmasked slot's pw * ct index_add_-ed
+    into the table rows it read (pw vanishes on masked slots).  One slot at
+    a time keeps the gathered block at [V, D]; the [V, K, D] block at the
+    gcn-paper shape would be 40 GB."""
+
+    @staticmethod
+    def forward(ctx, ids, mask, pw, table):
+        ctx.save_for_backward(ids, mask, pw, table)
+        out = table.new_zeros((ids.shape[0], table.shape[1]))
+        for j in range(ids.shape[1]):
+            out += pw[:, j:j + 1] * table[ids[:, j]]
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, mask, pw, table = ctx.saved_tensors
+        d_pw = torch.empty_like(pw)
+        d_table = torch.zeros_like(table)
+        for j in range(ids.shape[1]):
+            d_pw[:, j] = (ct * table[ids[:, j]]).sum(1)
+            (r,) = torch.nonzero(mask[:, j], as_tuple=True)
+            d_table.index_add_(0, ids[r, j], pw[r, j, None] * ct[r])
+        return None, None, d_pw, d_table
 
 
 class DistGNNEngine:
@@ -132,10 +177,7 @@ class DistGNNEngine:
                 f"protocol={cfg.protocol!r}: only sync is ported; the "
                 "historical-embedding protocols arrive with their own slice "
                 "(ROADMAP queue 1 item 4)")
-        if cfg.model != "gcn":
-            raise NotImplementedError(
-                f"model={cfg.model!r}: only gcn is ported; sage/gat/gin "
-                "arrive with the model-axis slice")
+        require_ported(cfg.model)
         if cfg.batching != "full_graph":
             raise NotImplementedError(
                 f"batching={cfg.batching!r}: only full_graph is ported; the "
@@ -163,9 +205,9 @@ class DistGNNEngine:
         consts = lay.exchange_consts()
         ids = torch.from_numpy(consts["ids"]).to(self.device)
         mask = torch.from_numpy(consts["mask"]).to(self.device)
-        # the ELL backward's CSR transpose over the gather table's rows
+        # the CSR transpose of the ELL table over the gather table's rows
         # (every rank's block + the zero pad row): built once, read by
-        # every layer, chunk and step
+        # every backward of a gather over it (every layer, chunk and step)
         plan = ell_transpose_plan(ids, mask, self.k * self.nb + 1)
         self._consts = dict(
             ids=ids, mask=mask, plan=plan,
@@ -193,24 +235,57 @@ class DistGNNEngine:
         version on the CPU."""
         return ell_spmm(ids, mask, table, normalize=False, plan=plan)
 
+    def _ell_attend(self, ids, w, table, plan=None):
+        """sum_k w[v,k] * table[ids[v,k]] with gradients to both w and the
+        table: the GAT aggregation (the forward kernel with the weights in
+        the mask lane; backward the transpose kernel over ``plan`` and the
+        dw kernel), plain versions on the CPU."""
+        return ell_attend(ids, w, table, plan=plan)
+
+    def _sddmm(self, ids, mask, table, a_src, a_dst, plan=None):
+        """Masked GAT edge logits over the ELL structure (the CUDA SDDMM
+        kernel, its plain version on the CPU); dst row v must be table row v
+        (prefix contract)."""
+        return sddmm_ell(ids, mask, table, a_src, a_dst, plan=plan)
+
+    @staticmethod
+    def _gat_softmax(e_masked):
+        """Masked segment-softmax pieces over ELL slots: (weights, den) from
+        logits already masked to -1e30.  Rows with no real slots get
+        den == 0 (the caller falls back to the self row).  The stabilizer
+        carries no gradient: softmax is shift-invariant, so treating it as a
+        constant gives the exact gradient."""
+        m = torch.amax(e_masked, dim=1, keepdim=True).detach()
+        pw = torch.exp(e_masked - m) * (e_masked > -1e29)
+        return pw, pw.sum(1, keepdim=True)
+
     @staticmethod
     def _combine(model, p_l, nbr, h_self, last: bool):
         """Model-specific combine of the aggregated neighbor rows with the
-        RESIDENT self rows, shared by the sweep and the oracle."""
+        RESIDENT self rows, shared by the sweep and the oracle (gat has its
+        own program: the aggregation itself is attention-weighted)."""
         if model != "gcn":
             raise NotImplementedError(model)
         z = (nbr + h_self) @ p_l["w"] + p_l["b"]
         return z if last else torch.relu(z)
 
+    def _layer(self, p_l, H, cl, last: bool):
+        """One model-aware layer of the distributed forward: gat runs the
+        backend's attention program; gcn the backend's exchange-aggregate and
+        the shared combine."""
+        if self.cfg.model == "gat":
+            return self.backend.gat_layer(p_l, H, cl, last)
+        nbr = self.backend.aggregate(H, cl)
+        return self._combine(self.cfg.model, p_l, nbr, H, last)
+
     def _forward(self, params, X):
-        """The distributed forward: every layer through the family's
-        exchange-aggregate and the model's combine; returns the logits."""
+        """The distributed forward: every layer through `_layer`; returns
+        the logits."""
         cl = self._consts
         L = len(self.dims) - 1
         H = X
         for l, p_l in enumerate(params["layers"]):
-            nbr = self.backend.aggregate(H, cl)
-            H = self._combine(self.cfg.model, p_l, nbr, H, last=(l == L - 1))
+            H = self._layer(p_l, H, cl, last=(l == L - 1))
         return H
 
     def _make_reference_layer(self):
@@ -218,12 +293,33 @@ class DistGNNEngine:
         slot-by-slot gather of the global ELL table and its slot-by-slot
         scatter-add gradient (`_SlotGather`, written apart from the kernels,
         their plain versions and the transpose plan, so it checks all
-        three)."""
+        three).  gat: the edge logits through `_sddmm` (the SDDMM kernel and
+        its slot-transpose gradient, as the reference calls its Pallas
+        SDDMM), the softmax, and the plain slot-by-slot attention gather
+        `_SlotAttend` (so it checks the forward, transpose and dw
+        kernels)."""
         c = self.cfg
         ids_g = torch.from_numpy(self.ids_global).to(self.device)
+        ids_g32 = ids_g.int()
         mask, deg = self._consts["mask"], self._consts["deg"]
+        # the SDDMM gradient's transpose plan: the engine's, when its gather
+        # table is the global one (broadcast: every row + the pad row)
+        plan = (self._consts["plan"] if torch.equal(ids_g32, self._consts["ids"])
+                else None)
+
+        def gat_layer_ref(p_l, H, last):
+            Hw = H @ p_l["w"]
+            table = torch.cat([Hw, Hw.new_zeros((1, Hw.shape[1]))], 0)
+            e = self._sddmm(ids_g32, mask, table, p_l["a_src"], p_l["a_dst"],
+                            plan)
+            pw, den = self._gat_softmax(e)
+            num = _SlotAttend.apply(ids_g, mask, pw, table)
+            z = torch.where(den > 0, num / torch.clamp(den, min=1e-30), Hw)
+            return z if last else torch.relu(z)
 
         def layer_ref(p_l, H, last):
+            if c.model == "gat":
+                return gat_layer_ref(p_l, H, last)
             table = torch.cat([H, H.new_zeros((1, H.shape[1]))], 0)
             gathered = _SlotGather.apply(ids_g, mask, table)
             return self._combine(c.model, p_l, gathered / deg, H, last=last)
@@ -258,12 +354,13 @@ class DistGNNEngine:
         cl = self._consts
         lr = self.cfg.lr
         den = torch.clamp(cl["train_w"].sum(), min=1.0)
+        keys = PARAM_KEYS[self.cfg.model]
 
         def step(state):
             leaves = [p.detach().requires_grad_() for p in
-                      _leaves(state["params"])]
+                      _leaves(state["params"], keys)]
             with torch.enable_grad():
-                logits = self._forward(_from_leaves(leaves),
+                logits = self._forward(_from_leaves(leaves, keys),
                                        self.store.device_table())
                 lse = torch.logsumexp(logits, dim=-1)
                 ll = torch.gather(logits, -1, cl["y"][:, None])[:, 0]
@@ -272,7 +369,7 @@ class DistGNNEngine:
             with torch.no_grad():
                 loss = num / den
                 params2 = _from_leaves([p - lr * (g / den)
-                                        for p, g in zip(leaves, grads)])
+                                        for p, g in zip(leaves, grads)], keys)
             return (dict(params=params2, step=state["step"] + 1),
                     dict(loss=loss), logits.detach())
 
@@ -289,19 +386,20 @@ class DistGNNEngine:
         lr = self.cfg.lr
         layer_ref = self._make_reference_layer()
         L = len(self.dims) - 1
+        keys = PARAM_KEYS[self.cfg.model]
 
         def ref_step(state):
             leaves = [p.detach().requires_grad_() for p in
-                      _leaves(state["params"])]
+                      _leaves(state["params"], keys)]
             with torch.enable_grad():
                 H = self.store.device_table()
-                for l, p_l in enumerate(_from_leaves(leaves)["layers"]):
+                for l, p_l in enumerate(_from_leaves(leaves, keys)["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
                 loss = softmax_xent(H, cl["y"], cl["train_w"])
                 grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 params2 = _from_leaves([p - lr * g
-                                        for p, g in zip(leaves, grads)])
+                                        for p, g in zip(leaves, grads)], keys)
             return (dict(params=params2, step=state["step"] + 1),
                     dict(loss=loss.detach()), H.detach())
 

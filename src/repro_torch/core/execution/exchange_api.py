@@ -4,9 +4,10 @@ port's copy of the edge-cut broadcast part of
 
 `partition/layout_api.py` owns the static tables; a backend owns the
 per-layer dataflow that assembles the gather table and runs the masked ELL
-multiply.  A backend reads eng.{_ell, cfg, k} and nothing else.  Every step
+multiply (gcn) or the attention program (gat).  A backend reads
+eng.{_ell, _ell_attend, _gat_softmax, cfg, k} and nothing else.  Every step
 of it is differentiable: the training step runs it under autograd, and the
-ELL multiply's backward is the transpose kernel over the plan in
+backward of every gather over the ELL table reads the transpose plan in
 ``cl["plan"]``.
 """
 from __future__ import annotations
@@ -14,9 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.execution.pipeline_exchange import (
+    chunk_width,
     chunked_overlap,
+    feature_chunks,
     zero_pad_row,
 )
+from repro_torch.kernels.ops import ell_slot_gather
 
 
 class ExchangeBackend:
@@ -26,6 +30,11 @@ class ExchangeBackend:
     def aggregate(self, h_local, cl):
         """One layer's neighbor exchange + masked aggregation, normalized by
         the (global) degree: h_local [nb, D] -> agg [nb, D]."""
+        raise NotImplementedError
+
+    def gat_layer(self, p_l, H, cl, last: bool):
+        """One GAT layer: per-edge logits, masked segment-softmax and the
+        attention-weighted gather-sum; H [nb, d_in] -> [nb, d_out]."""
         raise NotImplementedError
 
 
@@ -51,6 +60,53 @@ class EdgeCutBackend(ExchangeBackend):
                               self.exchange_fn(cl),
                               lambda table: eng._ell(ids, mask, table, plan))
         return agg / deg
+
+    def gat_layer(self, p_l, H, cl, last: bool):
+        """Edge-cut GAT, broadcast (the reference's branch, exactly): ONE
+        fused exchange of F = [a_src.Hw | Hw] (width d_out + 1), the
+        attention column riding as column 0 of chunk 0; the softmax weights
+        come from chunk 0's table before any attend, every chunk is attended
+        whole, and the Hw columns are sliced back out.  Pad slots stay inert
+        and degree-0 rows fall back to their own Hw row.  The gather of the
+        attention column differentiates through the slot transpose over the
+        plan, not autograd's rule for ``col[ids]``."""
+        eng = self.eng
+        ids, mask, plan = cl["ids"], cl["mask"], cl["plan"]
+        exchange = self.exchange_fn(cl)
+        Hw = H @ p_l["w"]
+        s_dst = (Hw @ p_l["a_dst"])[:, None]
+        F = torch.cat([(Hw @ p_l["a_src"])[:, None], Hw], 1)
+        Dtot = F.shape[1]  # d_out + 1
+        C = feature_chunks(Dtot, eng.cfg.exchange_chunks)
+
+        def softmax_from(tab0):
+            s_nbr = ell_slot_gather(tab0[:, 0], ids, mask, plan=plan)
+            e = torch.where(mask > 0, torch.nn.functional.leaky_relu(
+                s_dst + s_nbr, 0.2), -1e30)
+            return eng._gat_softmax(e)
+
+        if C <= 1:
+            tab = exchange(F)
+            pw, den = softmax_from(tab)
+            num = eng._ell_attend(ids, pw, tab[:, 1:].contiguous(), plan)
+        else:
+            Dc = chunk_width(Dtot, C)
+            if C * Dc != Dtot:
+                F = torch.nn.functional.pad(F, (0, C * Dc - Dtot))
+
+            def table(c):
+                return exchange(F[:, c * Dc:(c + 1) * Dc].contiguous())
+
+            tab0 = table(0)
+            pw, den = softmax_from(tab0)
+            out = torch.cat([eng._ell_attend(ids, pw, tab0, plan)]
+                            + [eng._ell_attend(ids, pw, table(c), plan)
+                               for c in range(1, C)], 1)
+            # column 0 is the shipped s-column's attend (unused); pad
+            # columns attend to zero
+            num = out[:, 1:Dtot]
+        z = torch.where(den > 0, num / torch.clamp(den, min=1e-30), Hw)
+        return z if last else torch.relu(z)
 
 
 BACKENDS = {

@@ -1,12 +1,14 @@
 """GNN parameters (the port's counterpart of `repro/core/models/gnn.py`).
 
 Parameters are a plain dict of tensors keyed like the JAX tree,
-``{"layers": [{"w": [d_in, d_out], "b": [d_out]}, ...]}``.  Two ways in:
-`init_gnn_params` draws fresh weights from a `torch.Generator` (the JAX
-scheme's distribution, not its bits), and `params_from_numpy` carries the
-reference's own weights over after ``jax.tree.map(np.asarray, params)``.
-GCN only: the other models arrive with the model-axis slice.  The loss and
-the accuracy are copies of the reference's `softmax_xent` and `accuracy`.
+``{"layers": [{key: tensor, ...}, ...]}`` with the keys of `PARAM_KEYS`:
+gcn ``{"w": [d_in, d_out], "b": [d_out]}``, gat ``{"w": [d_in, d_out],
+"a_src": [d_out], "a_dst": [d_out]}``.  Two ways in: `init_gnn_params` draws
+fresh weights from a `torch.Generator` (the JAX scheme's distribution, not
+its bits), and `params_from_numpy` carries the reference's own weights over
+after ``jax.tree.map(np.asarray, params)``.  sage and gin arrive with the
+rest of the model-axis slice.  The loss and the accuracy are copies of the
+reference's `softmax_xent` and `accuracy`.
 """
 from __future__ import annotations
 
@@ -17,32 +19,49 @@ import numpy as np
 import torch
 
 
-def _require_gcn(model: str) -> None:
-    if model != "gcn":
+# each ported model's per-layer parameter keys, in a fixed order (the
+# order the training step flattens them in)
+PARAM_KEYS = {"gcn": ("w", "b"), "gat": ("w", "a_src", "a_dst")}
+
+
+def require_ported(model: str) -> None:
+    if model not in PARAM_KEYS:
         raise NotImplementedError(
-            f"model={model!r}: only gcn is ported; sage/gat/gin arrive with "
-            "the model-axis slice")
+            f"model={model!r}: {'/'.join(PARAM_KEYS)} are ported; sage and "
+            "gin arrive with the rest of the model-axis slice (ROADMAP queue "
+            "1 item 5)")
 
 
 def init_gnn_params(model: str, dims: Sequence[int], generator: torch.Generator,
                     device) -> Dict:
-    """dims = [in, hidden, ..., out]; one layer per consecutive pair:
-    w ~ normal / sqrt(fan_in), b = 0.  Drawn on the CPU generator, so the
-    same seed gives the same weights on every device."""
-    _require_gcn(model)
+    """dims = [in, hidden, ..., out]; one layer per consecutive pair, as the
+    reference draws them: w ~ normal / sqrt(fan_in); gcn's b = 0; gat's
+    a_src, a_dst ~ normal / sqrt(d_out) of shape [d_out], no bias.  Drawn on
+    the CPU generator, so the same seed gives the same weights on every
+    device."""
+    require_ported(model)
+
+    def dense(di, do):
+        return torch.randn((di, do), generator=generator) / math.sqrt(di)
+
     layers = []
     for di, do in zip(dims[:-1], dims[1:]):
-        w = torch.randn((di, do), generator=generator) / math.sqrt(di)
-        layers.append({"w": w.to(device), "b": torch.zeros(do, device=device)})
+        p = {"w": dense(di, do)}
+        if model == "gcn":
+            p["b"] = torch.zeros(do)
+        else:
+            p["a_src"], p["a_dst"] = dense(do, 1)[:, 0], dense(do, 1)[:, 0]
+        layers.append({key: t.to(device) for key, t in p.items()})
     return {"layers": layers}
 
 
 def params_from_numpy(tree: Dict, device) -> Dict:
-    """The weight carry-over: a GCN params tree of numpy arrays (the JAX
-    params after ``jax.tree.map(np.asarray, ...)``) as float32 tensors."""
+    """The weight carry-over: a params tree of numpy arrays (the JAX params
+    after ``jax.tree.map(np.asarray, ...)``), any model's keys, as float32
+    tensors."""
     return {"layers": [
-        {key: torch.from_numpy(np.array(p[key], np.float32)).to(device)
-         for key in ("w", "b")}
+        {key: torch.from_numpy(np.array(a, np.float32)).to(device)
+         for key, a in p.items()}
         for p in tree["layers"]]}
 
 

@@ -1,4 +1,5 @@
-// ELLPACK SpMM (GNN neighbor aggregation) and its transpose for Hopper (sm_90a).
+// ELLPACK SpMM (GNN neighbor aggregation), its transpose and the weight gradient
+// of the attention-weighted form, for Hopper (sm_90a).
 //
 // Forward, `ell_spmm_launch`:
 //
@@ -228,6 +229,85 @@ ell_spmm_transpose_kernel(const long long* __restrict__ indptr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Weight gradient of the attention-weighted sum, `ell_attend_dw_launch`:
+//
+//   dw[v, k] = ct[v, :] . H[ids[v, k], :]      for every slot, masked or not
+//
+//   ids  int32 [V, K]   every id in [0, N) (a masked slot names a valid row:
+//                       the zero pad row on the engine's layouts)
+//   ct   f32   [V, D]   the cotangent of out = sum_k w[v, k] * H[ids[v, k]]
+//   H    f32   [N, D]
+//   dw   f32   [V, K]
+//
+// Replaces the dw half of the gradient rule `_ell_attend_bwd`
+// (src/repro/kernels/ell_spmm.py:129, dw at :137), where XLA gathers
+// H[ids] as a [V, K, D] block and reduces it against ct; `ell_attend`'s dH
+// is the transpose kernel above with the weights in the mask lane.
+//
+//   * one warp per row v, kWarps rows per block; the warp walks the slots
+//     kDwSlots at a time, so the gathers of several H rows are in flight
+//     together; each lane sums its columns of ct[v] * H[id] in increasing
+//     order, 16 bytes per lane (float4) when D % 4 == 0 and both pointers
+//     are 16-byte aligned, else 4 bytes per lane;
+//   * the warp reduces each slot's partial sums in a fixed butterfly, so dw
+//     is bitwise equal across launches.
+//
+// Bound on this card: bytes.  The function must read every H row some slot
+// names once, ct, ids once and write dw once, against 2*V*K*D flops.  Like
+// the forward, a gather that misses L2 re-reads an H row for every slot that
+// names it (V*K*D*4 bytes).
+
+constexpr int kDwSlots = 4;  // slots of a row whose gathers are issued together
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float dot_into(float acc, const float4 a, const float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ float dot_into(float acc, const float a, const float b) {
+  return fmaf(a, b, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ell_attend_dw_kernel(const int* __restrict__ ids, const T* __restrict__ ct,
+                     const T* __restrict__ H, float* __restrict__ dw,
+                     long long V, int K, int DW /* row width in units of T */) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long v = (long long)blockIdx.x * kWarps + warp;
+  if (v >= V) return;  // whole warps leave together: the shuffles stay full
+  const T* crow = ct + v * (long long)DW;
+  const int* my_ids = ids + v * (long long)K;
+  float* my_dw = dw + v * (long long)K;
+  for (int k0 = 0; k0 < K; k0 += kDwSlots) {
+    float p[kDwSlots];
+#pragma unroll
+    for (int j = 0; j < kDwSlots; ++j) {
+      p[j] = 0.f;
+      if (k0 + j < K) {
+        const T* hrow = H + (long long)__ldg(my_ids + k0 + j) * DW;
+        for (int c = lane; c < DW; c += 32) p[j] = dot_into(p[j], __ldg(crow + c), __ldg(hrow + c));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDwSlots; ++j) p[j] = warp_sum(p[j]);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < kDwSlots; ++j)
+        if (k0 + j < K) my_dw[k0 + j] = p[j];
+    }
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  V >= 1 and D >= 1: the wrapper
@@ -266,6 +346,25 @@ extern "C" int ell_spmm_transpose_launch(const void* indptr, const void* slots,
     ell_spmm_transpose_kernel<float><<<blocks, kThreads, 0, s>>>(
         indptr_i, slots_i, mask_f, static_cast<const float*>(ct),
         static_cast<float*>(dH), N, K, D);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the weight gradient.  V >= 1 and K >= 1: the wrapper
+// returns early for empty shapes.  Returns cudaGetLastError() after the launch.
+extern "C" int ell_attend_dw_launch(const void* ids, const void* ct, const void* H,
+                                    void* dw, long long V, int K, int D, void* stream) {
+  const bool vec4 = (D % 4 == 0) && ((uintptr_t)ct % 16 == 0) && ((uintptr_t)H % 16 == 0);
+  const int* ids_i = static_cast<const int*>(ids);
+  float* dw_f = static_cast<float*>(dw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
+  if (vec4) {
+    ell_attend_dw_kernel<float4><<<blocks, kThreads, 0, s>>>(
+        ids_i, static_cast<const float4*>(ct), static_cast<const float4*>(H), dw_f, V, K, D / 4);
+  } else {
+    ell_attend_dw_kernel<float><<<blocks, kThreads, 0, s>>>(
+        ids_i, static_cast<const float*>(ct), static_cast<const float*>(H), dw_f, V, K, D);
   }
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 the THROUGHPUT tier, ``DistGNNEngine.infer_full_graph``, one O(L)
 layer-wise sweep that produces final-layer embeddings for EVERY vertex.
 
-Params come from `init_gnn_params` (seeded); training arrives with its own
-slice, and the latency tier (`GNNQueryEngine`) with a later one.
+Params come from `init_gnn_params` (seeded, for the chosen model); the
+latency tier (`GNNQueryEngine`) arrives with a later slice.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_gnn --model gat --device cpu --oracle-check
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ log = get_logger("repro_torch.serve_gnn")
 # what the port runs today; the rest of the reference's choices arrive with
 # later slices
 PORTED_EXECUTION_MODELS = ("broadcast",)
-PORTED_GNN_MODELS = ("gcn",)
+PORTED_GNN_MODELS = ("gcn", "gat")
 
 
 def build_engine(args, g):

@@ -5,6 +5,7 @@ and the layer-wise inference sweep as checks.
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --oracle-check --infer
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --model gat --device cpu --oracle-check
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ log = get_logger("repro_torch.train_gnn")
 # later slices
 PORTED_EXECUTION_MODELS = ("broadcast",)
 PORTED_PROTOCOLS = ("sync",)
-PORTED_GNN_MODELS = ("gcn",)
+PORTED_GNN_MODELS = ("gcn", "gat")
 ORACLE_TOL = 1e-4  # the repo's oracle bound for every step and sweep
 
 
