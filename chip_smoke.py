@@ -6,9 +6,14 @@
 Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
 (nvcc, sm_90a, one process per source, all started together), holds each
 kernel against its plain PyTorch version on the card, then drives the port's
-paths at the full width of the gcn-paper workload (a 2**20-vertex graph,
-dims [256, 256, 256, 64], random seeded weights), for exchange_chunks 1 and 2
-each and for the models gcn and gat: the layer-wise inference sweep
+paths.  First the kernel API's language-model kernels at model width:
+`ops.flash_attention` at llama3.2-1b's (32 heads of dim 64, train_4k's 4096
+tokens; bf16 causal and non-causal, fp32 causal) and `ops.wkv` at
+rwkv6-3b's (40 heads of key dim 64, chunk 64, four 4096-token sequences).
+Then the GNN paths at the full width of the gcn-paper workload (a
+2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
+exchange_chunks 1 and 2 each and for the models gcn and gat: the layer-wise
+inference sweep
 (`launch/serve_gnn.run_sweep`) and the full-graph training step
 (`launch/train_gnn.run_training`; lr 0.1 for gcn, 1.0 for gat), each held to
 its single-device reference, with every kernel's launches counted from 0
@@ -36,6 +41,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_TENSOR_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-4
 SWEEPS = 3
 TRAIN_STEPS = 5
@@ -44,7 +50,9 @@ TRAIN_STEPS = 5
 # vertices) and diverged at 20
 TRAIN_LR = {"gcn": 0.1, "gat": 1.0}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
-           "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu"}
+           "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "wkv_chunk": "src/repro_torch/kernels/csrc/wkv_chunk.cu"}
 # each kernel: its source, and the TPU kernel (or gradient rule) it replaces
 KERNELS = {
     "ell_spmm": ("ell_spmm", "src/repro/kernels/ell_spmm.py:26"),
@@ -52,7 +60,21 @@ KERNELS = {
     "sddmm": ("sddmm", "src/repro/kernels/sddmm.py:16"),
     "ell_slot_transpose": ("sddmm", "src/repro/kernels/sddmm.py:109"),
     "ell_attend_dw": ("ell_spmm", "src/repro/kernels/ell_spmm.py:137"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:20"),
+    "wkv": ("wkv_chunk", "src/repro/kernels/wkv_chunk.py:26"),
 }
+# fp32 flash: the JAX tier's tolerance (tests/test_kernels.py), as
+# (atol, rtol).  bf16 flash: kernel and plain each round every p to bf16
+# (2**-8 relative) and the output once more, so |kernel - plain| <= 2**-7
+# (|plain| + P.|V|): held with the scale P.|V| (flash_case)
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
+# the JAX tier's bf16 tolerance, kept only to show what it lets pass
+FLASH_JAX_BF16_TOL = (3e-2, 3e-2)
+WKV_TOL = (1e-4, 1e-3)
+# bf16 wkv outputs: kernel and plain both compute in fp32 and round once to
+# bf16, which may land one bf16 step (2**-7 relative) apart
+WKV_BF16_TOL = (1e-4, 2.0 ** -7)
 
 
 # torch.sparse (the library yardstick only) warns that it is in beta
@@ -67,11 +89,14 @@ def counters() -> dict:
         ell_spmm,
         ell_spmm_transpose,
     )
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.sddmm import ell_slot_transpose, sddmm
+    from repro_torch.kernels.wkv_chunk import wkv
 
     return dict(ell_spmm=ell_spmm, ell_spmm_transpose=ell_spmm_transpose,
                 sddmm=sddmm, ell_slot_transpose=ell_slot_transpose,
-                ell_attend_dw=ell_attend_dw)
+                ell_attend_dw=ell_attend_dw, flash_attention=flash_attention,
+                wkv=wkv)
 
 
 def zero_counts() -> None:
@@ -143,25 +168,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(least_bytes: int, ops: int) -> dict:
+def bound(least_bytes: int, ops: int, rate: float = FP32_FLOPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the fp32 rate."""
+    memory rate and the operations over ``rate`` (fp32 unless given)."""
     bytes_ms = least_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
     return dict(least_bytes=least_bytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def held(name, kernel, plain, what, autograd=None):
+def excess(got, want, tol, scale=None) -> float:
+    """How far |got - want| exceeds atol + rtol * scale anywhere (scale
+    |want| unless given); <= 0 is within ``tol``."""
+    atol, rtol = tol
+    if not got.numel():
+        return -atol
+    scale = want.float().abs() if scale is None else scale
+    return float(((got.float() - want.float()).abs() - rtol * scale).max()) - atol
+
+
+def held(name, kernel, plain, what, autograd=None, tol=(TOL, 0.0), scale=None):
     """Two launches of the kernel against its plain version on the same
-    inputs: finite, within TOL, bitwise equal to each other; ``autograd``
+    inputs: finite, within ``tol`` = (atol, rtol) elementwise
+    (|kernel - plain| <= atol + rtol * scale, scale |plain| unless
+    ``scale(plain)`` gives it), bitwise equal to each other; ``autograd``
     (optional) is the same result through the differentiable wrapper."""
     got, again = kernel(), kernel()
     want = plain()
     torch.cuda.synchronize()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     check(bool(torch.isfinite(got).all()), f"{what} {name}: non-finite output")
-    check(err <= TOL, f"{what} {name}: max |kernel - plain| {err} > {TOL}")
+    over = excess(got, want, tol, None if scale is None else scale(want))
+    check(over <= 0, f"{what} {name}: |kernel - plain| exceeds {tol[0]} + "
+          f"{tol[1]} x scale by up to {over} (max abs {err})")
     check(torch.equal(got, again), f"{what} {name}: two launches differ")
     grad_err = None
     if autograd is not None:
@@ -169,8 +208,8 @@ def held(name, kernel, plain, what, autograd=None):
         grad_err = float((grad - want).abs().max()) if grad.numel() else 0.0
         check(grad_err <= TOL, f"{what} {name}: through autograd differs from "
               f"the plain version by {grad_err}")
-    return want, dict(max_abs_err=err, bitwise_repeat=True,
-                      autograd_max_abs_err=grad_err)
+    return want, dict(max_abs_err=err, tol=list(tol), excess=over,
+                      bitwise_repeat=True, autograd_max_abs_err=grad_err)
 
 
 def ell_case(name, ids, mask, H, normalize, reps):
@@ -604,6 +643,235 @@ def gat_kernel_phase(eng, device):
     return rows
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def attention_pairs(S: int, T: int, causal: bool) -> int:
+    """The (query, key) pairs the mask leaves: key k <= query q when causal."""
+    if not causal:
+        return S * T
+    return sum(min(q + 1, T) for q in range(S))
+
+
+def flash_case(name, q, k, v, causal, reps):
+    """One flash-attention case: the kernel against its plain version on
+    the card at the JAX tier's tolerance for the dtype, times of kernel /
+    plain / one scaled_dot_product_attention call (the yardstick only: the
+    port never calls it), and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    tol = FLASH_TOL[q.dtype]
+    scale = None
+    if q.dtype == torch.bfloat16:
+        def scale(want):  # |plain| + P.|V|
+            return want.float().abs() + ref.flash_attention_ref(
+                q, k, v.abs(), causal=causal).float()
+    want, row = held(name, lambda: flash_attention(q, k, v, causal=causal),
+                     lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                     "flash_attention", tol=tol, scale=scale)
+    if scale is not None:
+        # the same launch held to 2**-7 |plain| alone, to show what P.|V| adds
+        row["excess_without_pv"] = excess(
+            flash_attention(q, k, v, causal=causal), want, tol)
+    if scale is not None and not causal and T > 1:
+        # a kernel that drops the last key (a ragged-tail fault): the bf16
+        # tolerance must reject it; the JAX tier's is shown beside it
+        wrong = ref.flash_attention_ref(q, k[:, :, :-1], v[:, :, :-1], causal=False)
+        row.update(wrong_variant="last key dropped",
+                   wrong_variant_excess=excess(wrong, want, tol, scale(want)),
+                   wrong_variant_excess_jax_tol=excess(wrong, want,
+                                                       FLASH_JAX_BF16_TOL))
+        check(row["wrong_variant_excess"] > 0,
+              f"flash_attention {name}: the bf16 tolerance lets a kernel that "
+              f"drops the last key pass ({row['wrong_variant_excess']})")
+        del wrong
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+
+    lib_err = float((library().float() - want.float()).abs().max())
+    # q, k, v read once and o written once; a multiply-add for each of
+    # q.k and p.v per unmasked pair and head dim
+    elem = q.element_size()
+    least_bytes = elem * B * H * D * (2 * S + 2 * T)
+    ops = 4 * B * H * D * attention_pairs(S, T, causal)
+    rate = BF16_TENSOR_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    row.update(kernel="flash_attention", case=name, B=B, H=H, S=S, T=T, D=D,
+               causal=causal, dtype=dtype_name(q.dtype),
+               kernel_ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                                 reps),
+               plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal=causal), max(1, reps // 10)),
+               library_ms=cuda_ms(library, reps), library_max_abs_err=lib_err,
+               **bound(least_bytes, ops, rate))
+    emit("kernel", **row)
+    return row
+
+
+def qkv(gen, B, H, kv_heads, S, T, D, dtype, device):
+    """q [B,H,S,D]; k, v drawn with kv_heads heads and expanded to H, as
+    the reference's grouped-query attention hands them to the kernel."""
+    q = torch.randn((B, H, S, D), generator=gen, device=device)
+    k, v = (torch.randn((B, kv_heads, T, D), generator=gen, device=device)
+            .repeat_interleave(H // kv_heads, dim=1) for _ in range(2))
+    return tuple(t.to(dtype).contiguous() for t in (q, k, v))
+
+
+def attention_phase(device):
+    """The kernel API's flash_attention at llama3.2-1b width (32 heads of
+    dim 64, the 8 kv heads expanded) and the train_4k sequence length:
+    the main path (bf16 causal, bf16 non-causal, fp32 causal) through
+    `ops.flash_attention` with launches counted from 0, then every kernel
+    case, counted apart."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.llama3_2_1b import CONFIG, smoke_config
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    gen = torch.Generator(device=device).manual_seed(3)
+    B, H, kv, D = 1, CONFIG.num_heads, CONFIG.num_kv_heads, CONFIG.head_dim
+    S = INPUT_SHAPES["train_4k"].seq_len
+    main = [(torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)]
+    inputs = {dtype: qkv(gen, B, H, kv, S, S, D, dtype, device)
+              for dtype in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = [ops.flash_attention(*inputs[dtype], causal=causal)
+            for dtype, causal in main]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, dict(flash_attention=len(main)), "attention")
+    for (dtype, causal), out in zip(main, outs):
+        check(out.shape == (B, H, S, D) and out.dtype == dtype,
+              f"attention {dtype} causal={causal}: {out.shape} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), "attention: non-finite output")
+    del outs
+    rows = []
+    for dtype, causal in main:
+        rows.append(flash_case(f"llama3.2-1b train_4k {dtype_name(dtype)} "
+                               f"causal={causal}",
+                               *inputs[dtype], causal, 20))
+    del inputs
+    torch.cuda.empty_cache()
+    # qwen1.5-32b's attention width (src/repro/configs/qwen1_5_32b.py: 40
+    # heads of dim 128), the ragged, S != T and D = 32 (the smoke config's
+    # head dim) cases
+    small = smoke_config()
+    for case, (Hc, kvc, Sc, Tc, Dc, dtype, causal) in {
+            "qwen1.5-32b width D=128 S=2048": (40, 8, 2048, 2048, 128,
+                                               torch.bfloat16, True),
+            "D=128 S=2048 fp32": (40, 8, 2048, 2048, 128, torch.float32, False),
+            "ragged S=T=1000": (H, kv, 1000, 1000, D, torch.bfloat16, True),
+            "ragged S=T=1000 fp32": (H, kv, 1000, 1000, D, torch.float32, True),
+            "S=512 T=1536": (H, kv, 512, 1536, D, torch.bfloat16, False),
+            "S=512 T=1536 fp32": (H, kv, 512, 1536, D, torch.float32, False),
+            "smoke width D=32": (small.num_heads, small.num_kv_heads, 1024, 1024,
+                                 small.head_dim, torch.bfloat16, True),
+            "smoke width D=32 fp32": (small.num_heads, small.num_kv_heads, 1024,
+                                      1024, small.head_dim, torch.float32, False),
+    }.items():
+        rows.append(flash_case(case, *qkv(gen, B, Hc, kvc, Sc, Tc, Dc, dtype,
+                                          device), causal, 20))
+    emit("attention", model=CONFIG.name, B=B, H=H, S=S, D=D,
+         cases=[f"{dtype_name(dtype)} causal={causal}" for dtype, causal in main],
+         launches=launches, ms={r["case"]: r["kernel_ms"] for r in rows[:3]},
+         seconds=time.perf_counter() - t0)
+    return rows, launches
+
+
+def wkv_case(name, r, k, v, g, u, chunk, reps, tol=WKV_TOL, want=None):
+    """One WKV case: the kernel against the plain per-step recurrence on the
+    clipped g (no single PyTorch call computes it: library_ms null), the
+    times of both, and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv_chunk import G_MIN, wkv
+
+    B, H, S, K = r.shape
+
+    def plain():
+        return want if want is not None else ref.wkv_chunk_ref(
+            r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+
+    want, row = held(name, lambda: wkv(r, k, v, g, u, chunk=chunk), plain, "wkv",
+                     tol=tol)
+    # r, k, v, g, u read once and y written once; per step the recurrence's
+    # flops, whatever the chunk: r . state (2K^2), the decay, k (x) v and the
+    # sum (3K^2), the bonus (r u k) v (4K)
+    least_bytes = r.element_size() * (5 * B * H * S * K + H * K)
+    ops = B * H * S * (5 * K * K + 4 * K)
+    row.update(kernel="wkv", case=name, B=B, H=H, S=S, K=K, chunk=chunk,
+               dtype=dtype_name(r.dtype),
+               kernel_ms=cuda_ms(lambda: wkv(r, k, v, g, u, chunk=chunk), reps),
+               plain_ms=cuda_ms(lambda: ref.wkv_chunk_ref(
+                   r, k, v, torch.clamp(g, G_MIN, 0.0), u), 1),
+               library_ms=None, **bound(least_bytes, ops))
+    emit("kernel", **row)
+    return want, row
+
+
+def wkv_phase(device):
+    """The kernel API's wkv at rwkv6-3b width (40 heads of key dim 64,
+    chunk 64) over four train_4k sequences, fp32, inputs drawn as
+    tests/test_kernels.py draws them: the main path through `ops.wkv` with
+    launches counted from 0, then every kernel case, counted apart."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.rwkv6_3b import CONFIG
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, H, K, C = 4, CONFIG.ssm_heads, CONFIG.ssm_state, CONFIG.ssm_chunk
+    S = INPUT_SHAPES["train_4k"].seq_len
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    r, k, v = (draw((B, H, S, K), 0.5) for _ in range(3))
+    g = -torch.exp(draw((B, H, S, K), 0.5) - 1.0)
+    u = draw((H, K), 0.1)
+    torch.cuda.synchronize()
+    zero_counts()
+    y = ops.wkv(r, k, v, g, u, chunk=C)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, dict(wkv=1), "wkv")
+    check(y.shape == (B, H, S, K) and y.dtype == r.dtype, f"wkv {y.shape}")
+    check(bool(torch.isfinite(y).all()), "wkv: non-finite output")
+    rows = []
+    want, row = wkv_case(f"rwkv6-3b train_4k x{B} chunk={C}", r, k, v, g, u, C, 10)
+    rows.append(row)
+    # the chunk only regroups the same sums: 16 and 32 within the tolerance
+    # of the plain version, and of chunk 64's output
+    for chunk in (16, 32):
+        got = ops.wkv(r, k, v, g, u, chunk=chunk)
+        gap = float(((got - y).abs() - WKV_TOL[1] * y.abs()).max())
+        check(gap <= WKV_TOL[0], f"wkv chunk {chunk} vs {C}: {gap}")
+        rows.append(wkv_case(f"chunk={chunk}", r, k, v, g, u, chunk, 10,
+                             want=want)[1])
+    del want, y
+    # g at the clip floor everywhere: finite at chunk 64 and past the 74 at
+    # which the reference's factorised form overflows
+    floor = torch.full_like(g, -1.2)
+    want, row = wkv_case("g = -1.2 (clip floor)", r, k, v, floor, u, C, 10)
+    rows.append(row)
+    rows.append(wkv_case("g = -1.2, chunk=128", r, k, v, floor, u, 128, 10,
+                         want=want)[1])
+    del floor, want
+    rows.append(wkv_case("g below the clip floor", r, k, v, g * 8.0, u, C, 10)[1])
+    rows.append(wkv_case("bf16 inputs", *(t.bfloat16() for t in (r, k, v, g, u)),
+                         C, 10, tol=WKV_BF16_TOL)[1])
+    emit("wkv", model=CONFIG.name, B=B, H=H, S=S, K=K, chunk=C,
+         launches=launches, ms=rows[0]["kernel_ms"],
+         seconds=time.perf_counter() - t0)
+    return rows, launches
+
+
 def sweep_phase(g, chunks, device, model="gcn"):
     """The main path: SWEEPS timed layer-wise sweeps through
     serve_gnn.run_sweep at full width, launches counted from 0; then the
@@ -815,6 +1083,15 @@ def main(argv=None) -> int:
     built = build.build(list(SOURCES))  # one nvcc per source, all together
     emit("build", seconds=time.perf_counter() - t0, kernels=built)
 
+    launches, rows = {}, {}
+    # the kernel API's language-model kernels at model width, each driven
+    # with the counts from 0, then their kernel cases
+    rows["flash_attention"], n = attention_phase(device)
+    add_counts(launches, n)
+    rows["wkv"], n = wkv_phase(device)
+    add_counts(launches, n)
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     g = er_graph(CONFIG.num_vertices, avg_degree=CONFIG.avg_degree,
                  feature_dim=CONFIG.feature_dim,
@@ -822,7 +1099,6 @@ def main(argv=None) -> int:
     emit("graph", generator="er_graph", vertices=g.num_vertices,
          edges=g.num_edges, seconds=time.perf_counter() - t0)
 
-    launches, rows = {}, {}
     for model in ("gcn", "gat"):
         for chunks in (1, 2):
             eng, params, n = sweep_phase(g, chunks, device, model)
@@ -863,7 +1139,7 @@ def main(argv=None) -> int:
     summary = []
     for name, (source, replaces) in KERNELS.items():
         kernel_rows = rows[name]
-        main_row = kernel_rows[0]  # the gcn-paper layout at its main width
+        main_row = kernel_rows[0]  # the main path's own shape and width
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[source],
             replaces=replaces, launches=launches[name],

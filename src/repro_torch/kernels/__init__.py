@@ -5,6 +5,8 @@ attention-weighted sum with the weights in the mask lane), ell_spmm_transpose
 (its gradient with respect to the rows) and ell_attend_dw (the weighted sum's
 gradient with respect to the weights); in `csrc/sddmm.cu`, sddmm (GAT edge
 logits) and ell_slot_transpose (the per-slot scalar transpose of its
-gradient).  Built with nvcc at first use (`build.py`); dispatched on the
-tensor's device (`ops.py`).
+gradient); in `csrc/flash_attention.cu`, flash_attention (softmax
+attention forward, causal or not, fp32 and bf16); in `csrc/wkv_chunk.cu`,
+wkv (the chunked RWKV6 WKV forward).  Built with nvcc at first use
+(`build.py`); dispatched on the tensor's device (`ops.py`).
 """

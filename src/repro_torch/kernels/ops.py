@@ -4,7 +4,9 @@
 `repro` picks Pallas or its jnp oracle from the default backend.  Here each
 wrapper dispatches on the device of the tensors it is given: the plain
 PyTorch version for CPU tensors, the hand-written kernel for CUDA tensors,
-never the plain version for a CUDA tensor.
+never the plain version for a CUDA tensor.  `flash_attention` and `wkv`
+take the reference's signature without `force_pallas`; `wkv` clips g to
+[-1.2, 0] on both paths.
 """
 from repro_torch.kernels.ell_spmm import (
     ell_attend,
@@ -13,13 +15,16 @@ from repro_torch.kernels.ell_spmm import (
     ell_spmm_transpose,
     ell_transpose_plan,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.sddmm import (
     ell_slot_gather,
     ell_slot_transpose,
     sddmm,
     sddmm_ell,
 )
+from repro_torch.kernels.wkv_chunk import wkv
 
 __all__ = ["ell_attend", "ell_attend_dw", "ell_slot_gather",
            "ell_slot_transpose", "ell_spmm", "ell_spmm_transpose",
-           "ell_transpose_plan", "sddmm", "sddmm_ell"]
+           "ell_transpose_plan", "flash_attention", "sddmm", "sddmm_ell",
+           "wkv"]

@@ -94,3 +94,44 @@ def ell_slot_transpose_ref(ids: torch.Tensor, mask: torch.Tensor,
     r, k = torch.nonzero(mask, as_tuple=True)
     g = torch.zeros((N,), dtype=dz.dtype, device=dz.device)
     return g.index_add_(0, ids[r, k].long(), dz[r, k])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(D)) . v, q [B,H,S,D], k and v [B,H,T,D] ->
+    [B,H,S,D] in q's dtype.  Scores in fp32 (bf16 inputs upcast first, so
+    every product is exact); with ``causal``, key k_idx is seen by query
+    q_idx only if k_idx <= q_idx (masked scores -1e30); softmax in fp32; p
+    rounded to v's dtype before P.V, which accumulates in fp32."""
+    S, T = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s / (q.shape[-1] ** 0.5)
+    if causal:
+        seen = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(seen, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RWKV6 WKV, the per-step recurrence: r, k, v, g [B,H,S,K] (g the log
+    decay, <= 0), u [H,K] the bonus -> y [B,H,S,K] in r's dtype.  Per (b, h),
+    from a zero [K, K] state in fp32:
+
+        y_t = r_t . (state + u (x) (k_t (x) v_t))
+        state <- e^{g_t} * state + k_t (x) v_t
+
+    Products summed elementwise in fp32 (no matmul, so no TF32 either)."""
+    B, H, S, K = r.shape
+    rf, kf, vf, gf = (x.reshape(B * H, S, K).float() for x in (r, k, v, g))
+    uf = u.float().expand(B, H, K).reshape(B * H, K, 1)
+    wf = torch.exp(gf)
+    state = torch.zeros((B * H, K, K), dtype=torch.float32, device=r.device)
+    y = torch.empty((B * H, S, K), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]
+        y[:, t] = (rf[:, t, :, None] * (state + uf * kv)).sum(1)
+        state = wf[:, t, :, None] * state + kv
+    return y.reshape(B, H, S, K).to(r.dtype)

@@ -1,0 +1,348 @@
+"""The port's kernel API for the language-model kernels
+(`repro_torch.kernels.ops.flash_attention` and `wkv`) against the JAX
+package: flash attention against `repro.kernels.ref.flash_attention_ref`
+over the cases of `tests/test_kernels.py::test_flash_attention`, and the
+chunked WKV against `wkv_chunk_pallas` (interpret mode) and `wkv_chunk_ref`
+over the cases of `test_wkv_chunk`, with the same tolerances.  The Pallas
+flash kernel itself cannot run here: this jax's `pallas` has no `load`,
+which `_flash_kernel` calls, so the flash cases hold the port to the
+reference's plain version.  Also: the copied model configs equal the
+reference's, CPU calls launch nothing, the input guards, and a missing nvcc.
+
+On a CPU-only host the wrappers take their plain versions (the CUDA kernels
+have no CPU mode) and the CUDA-only tests skip.  On a host with a card they
+hold each kernel to its plain version:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_lm_kernels.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import base as tbase
+from repro_torch.configs import llama3_2_1b as tllama
+from repro_torch.configs import rwkv6_3b as trwkv
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wkv_chunk as twkv
+
+# the JAX tier's tolerances (tests/test_kernels.py): atol = rtol
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 kernel against its plain version: each rounds every p to bf16 (2**-8
+# relative) and the output once more, so |kernel - plain| <= atol + 2**-7
+# (|plain| + P.|V|)
+FLASH_BF16_CARD_ATOL, FLASH_BF16_CARD_RTOL = 1e-3, 2.0 ** -7
+WKV_ATOL, WKV_RTOL = 1e-4, 1e-3
+# bf16 outputs: both sides compute in fp32 and round once to bf16, which
+# may land one bf16 step apart (2**-7 relative)
+WKV_BF16_RTOL = 2.0 ** -7
+
+FLASH_CASES = [(1, 2, 128, 64), (2, 4, 256, 64), (1, 1, 512, 128)]
+WKV_CASES = [(1, 2, 64, 16, 16), (2, 3, 128, 32, 32), (1, 1, 128, 64, 64)]
+
+
+def _jax():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ref as jref
+
+    return jnp, jref
+
+
+def _full_precision():
+    """Where JAX runs on a card, its fp32 einsum defaults to TF32: hold the
+    reference to full fp32 (a no-op on the CPU)."""
+    import jax
+
+    return jax.default_matmul_precision("highest")
+
+
+def _qkv(B, H, S, T, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, T, D)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+def _wkv_inputs(B, H, S, K, seed=0, g_scale=1.0):
+    """Drawn as `tests/test_kernels.py::test_wkv_chunk` draws them."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, S, K)).astype(np.float32) * 0.5
+               for _ in range(3))
+    g = (-np.exp(rng.standard_normal((B, H, S, K)) * 0.5 - 1.0)
+         * g_scale).astype(np.float32)
+    u = (rng.standard_normal((H, K)) * 0.1).astype(np.float32)
+    return r, k, v, g, u
+
+
+def _torch_dtype(name):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+@pytest.mark.parametrize("B,H,S,D", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax_reference(B, H, S, D, causal, dtype):
+    jnp, jref = _jax()
+    q, k, v = _qkv(B, H, S, S, D)
+    with _full_precision():
+        want = jref.flash_attention_ref(*(jnp.asarray(a, getattr(jnp, dtype))
+                                          for a in (q, k, v)), causal=causal)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(_torch_dtype(dtype))
+                                for a in (q, k, v)), causal=causal)
+    assert got.dtype == _torch_dtype(dtype) and got.shape == (B, H, S, D)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def test_flash_attention_with_more_keys_than_queries():
+    """S != T: non-causal against the JAX reference; causal (k <= q on
+    absolute indices, which the reference's tril(S, S) cannot express)
+    against a float64 numpy softmax."""
+    jnp, jref = _jax()
+    q, k, v = _qkv(1, 2, 96, 160, 32, seed=3)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=False)
+    with _full_precision():
+        want = jref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                        causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=True)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) / np.sqrt(32)
+    s = np.where(np.arange(160)[None, :] <= np.arange(96)[:, None], s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def _jax_wkv(r, k, v, g, u, chunk):
+    jnp, jref = _jax()
+    from repro.kernels.wkv_chunk import wkv_chunk_pallas
+
+    args = [jnp.asarray(a) for a in (r, k, v, g, u)]
+    with _full_precision():
+        pallas = wkv_chunk_pallas(*args, chunk=chunk, interpret=True)
+        oracle = jref.wkv_chunk_ref(*args[:3], jnp.clip(args[3], -1.2, 0.0),
+                                    args[4])
+    return np.asarray(pallas), np.asarray(oracle)
+
+
+@pytest.mark.parametrize("B,H,S,K,chunk", WKV_CASES)
+def test_wkv_matches_pallas_and_reference(B, H, S, K, chunk):
+    inputs = _wkv_inputs(B, H, S, K)
+    got = ops.wkv(*(torch.from_numpy(a) for a in inputs), chunk=chunk).numpy()
+    for want in _jax_wkv(*inputs, chunk):
+        np.testing.assert_allclose(got, want, atol=WKV_ATOL, rtol=WKV_RTOL)
+
+
+def test_wkv_clips_the_decay_below_its_floor():
+    """g reaching far below -1.2: both packages hold it at -1.2, so the
+    result equals the reference's on the clipped g."""
+    inputs = _wkv_inputs(1, 2, 64, 16, seed=4, g_scale=8.0)
+    assert inputs[3].min() < -3.0
+    got = ops.wkv(*(torch.from_numpy(a) for a in inputs), chunk=16).numpy()
+    for want in _jax_wkv(*inputs, 16):
+        np.testing.assert_allclose(got, want, atol=WKV_ATOL, rtol=WKV_RTOL)
+    clipped = list(inputs)
+    clipped[3] = np.clip(inputs[3], -1.2, 0.0)
+    again = ops.wkv(*(torch.from_numpy(a) for a in clipped), chunk=16).numpy()
+    np.testing.assert_array_equal(got, again)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "rwkv6-3b"])
+@pytest.mark.parametrize("which", ["CONFIG", "smoke_config"])
+def test_config_copies_equal_the_reference(name, which):
+    pytest.importorskip("jax")
+    import importlib
+
+    module = name.replace("-", "_").replace(".", "_")
+    ref_mod = importlib.import_module(f"repro.configs.{module}")
+    port_mod = {"llama3.2-1b": tllama, "rwkv6-3b": trwkv}[name]
+    want, got = (getattr(m, which) for m in (ref_mod, port_mod))
+    want, got = (c() if callable(c) else c for c in (want, got))
+    fields = [f.name for f in dataclasses.fields(got)]
+    assert len(fields) >= 15
+    for field in fields:
+        assert getattr(got, field) == getattr(want, field), field
+
+
+def test_train_4k_shape_equals_the_reference():
+    pytest.importorskip("jax")
+    from repro.configs.base import INPUT_SHAPES
+
+    assert tbase.INPUT_SHAPES["train_4k"] == tbase.ShapeConfig(
+        *dataclasses.astuple(INPUT_SHAPES["train_4k"]))
+
+
+def test_cpu_calls_take_plain_versions_and_launch_nothing():
+    before = ops.flash_attention.launches, ops.wkv.launches
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 64, 64, 32))
+    torch.testing.assert_close(ops.flash_attention(q, k, v),
+                               tref.flash_attention_ref(q, k, v, causal=True),
+                               rtol=0, atol=0)
+    inputs = [torch.from_numpy(a) for a in _wkv_inputs(1, 2, 32, 16)]
+    ops.wkv(*inputs, chunk=16)
+    assert (ops.flash_attention.launches, ops.wkv.launches) == before
+
+
+def _bad_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 64, 64, 32))
+    r, kk, vv, g, u = (torch.from_numpy(a) for a in _wkv_inputs(1, 2, 64, 16))
+    flash, wkv = ops.flash_attention, ops.wkv
+    return {
+        "flash rank 3": (lambda: flash(q[0], k[0], v[0]), ValueError),
+        "flash k, v shapes differ": (lambda: flash(q, k, v[:, :, :32]), ValueError),
+        "flash head dim differs": (lambda: flash(q, k[..., :16], v[..., :16]),
+                                   ValueError),
+        "flash heads differ": (lambda: flash(q, k[:, :1], v[:, :1]), ValueError),
+        "flash dtypes mixed": (lambda: flash(q, k.bfloat16(), v), TypeError),
+        "flash float64": (lambda: flash(q.double(), k.double(), v.double()),
+                          TypeError),
+        "flash neither cpu nor cuda": (lambda: flash(q.to("meta"), k.to("meta"),
+                                                     v.to("meta")), ValueError),
+        "flash kernel D=48": (lambda: tflash._check_kernel(
+            *(torch.zeros(1, 2, 64, 48) for _ in range(3))), ValueError),
+        "flash kernel needs a gradient": (lambda: tflash._check_kernel(
+            q.clone().requires_grad_(), k, v), NotImplementedError),
+        "flash kernel not contiguous": (lambda: tflash._check_kernel(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v), ValueError),
+        "wkv rank 3": (lambda: wkv(r[0], kk[0], vv[0], g[0], u), ValueError),
+        "wkv shapes differ": (lambda: wkv(r, kk[:, :, :32], vv, g, u), ValueError),
+        "wkv u shape": (lambda: wkv(r, kk, vv, g, u[:1]), ValueError),
+        "wkv dtypes mixed": (lambda: wkv(r, kk, vv, g.bfloat16(), u), TypeError),
+        "wkv S % chunk": (lambda: wkv(r, kk, vv, g, u, chunk=24), ValueError),
+        "wkv kernel K=24": (lambda: twkv._check_kernel(
+            *(torch.zeros(1, 2, 64, 24) for _ in range(4)), torch.zeros(2, 24),
+            64), ValueError),
+        "wkv kernel chunk 256": (lambda: twkv._check_kernel(
+            *(torch.zeros(1, 1, 256, 16) for _ in range(4)), torch.zeros(1, 16),
+            256), ValueError),
+        "wkv kernel needs a gradient": (lambda: twkv._check_kernel(
+            r, kk, vv, g, u.clone().requires_grad_(), 16), NotImplementedError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_inputs()))
+def test_wrappers_reject_what_the_kernels_do_not_take(case):
+    call, exc = _bad_inputs()[case]
+    with pytest.raises(exc):
+        call()
+
+
+@pytest.mark.parametrize("source", ["flash_attention", "wkv_chunk"])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, source):
+    """A missing compiler is an error, never a silent fallback."""
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build([source])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in fp32
+    return torch.device("cuda")
+
+
+CUDA_FLASH_CASES = [  # B, H, S, T, D, causal, dtype
+    (1, 4, 256, 256, 64, True, "bfloat16"),
+    (1, 4, 256, 256, 64, False, "bfloat16"),
+    (1, 4, 256, 256, 64, True, "float32"),
+    (1, 2, 256, 256, 128, True, "bfloat16"),
+    (1, 2, 256, 256, 128, False, "float32"),
+    (2, 3, 1000, 1000, 64, True, "bfloat16"),
+    (2, 3, 1000, 1000, 64, True, "float32"),
+    (1, 2, 130, 515, 64, False, "bfloat16"),
+    (1, 2, 512, 1536, 64, False, "float32"),
+    (1, 2, 200, 77, 64, True, "float32"),
+    (1, 4, 192, 192, 32, True, "bfloat16"),
+    (1, 4, 192, 192, 32, False, "float32"),
+    (1, 2, 64, 0, 64, True, "bfloat16"),  # no key: the output is 0
+]
+
+
+@pytest.mark.parametrize("B,H,S,T,D,causal,dtype", CUDA_FLASH_CASES)
+def test_cuda_flash_kernel_matches_plain_on_card(cuda_device, B, H, S, T, D,
+                                                 causal, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, _torch_dtype(dtype))
+               for a in _qkv(B, H, S, T, D))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 2
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    if dtype == "float32":
+        tol = FLASH_TOL[dtype]
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=tol, rtol=tol)
+        return
+    scale = (want.float().abs()
+             + tref.flash_attention_ref(q, k, v.abs(), causal=causal).float())
+    over = ((got.float() - want.float()).abs()
+            - (FLASH_BF16_CARD_ATOL + FLASH_BF16_CARD_RTOL * scale))
+    assert over.numel() == 0 or float(over.max()) <= 0, float(over.max())
+
+
+CUDA_WKV_CASES = [  # B, H, S, K, chunk, dtype, g_scale
+    (1, 2, 64, 16, 16, "float32", 1.0),
+    (2, 3, 128, 32, 32, "float32", 1.0),
+    (1, 2, 256, 64, 64, "float32", 1.0),
+    (1, 2, 256, 64, 128, "float32", 1.0),
+    (1, 2, 100, 64, 50, "float32", 1.0),
+    (2, 2, 128, 64, 64, "bfloat16", 1.0),
+    (1, 2, 128, 64, 64, "float32", 8.0),
+]
+
+
+@pytest.mark.parametrize("B,H,S,K,chunk,dtype,g_scale", CUDA_WKV_CASES)
+def test_cuda_wkv_kernel_matches_plain_on_card(cuda_device, B, H, S, K, chunk,
+                                               dtype, g_scale):
+    r, k, v, g, u = (torch.from_numpy(a).to(cuda_device, _torch_dtype(dtype))
+                     for a in _wkv_inputs(B, H, S, K, g_scale=g_scale))
+    before = ops.wkv.launches
+    got = ops.wkv(r, k, v, g, u, chunk=chunk)
+    again = ops.wkv(r, k, v, g, u, chunk=chunk)
+    want = tref.wkv_chunk_ref(r, k, v, torch.clamp(g, -1.2, 0.0), u)
+    torch.cuda.synchronize()
+    assert ops.wkv.launches == before + 2
+    assert got.dtype == r.dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    atol = WKV_ATOL
+    rtol = WKV_RTOL if dtype == "float32" else WKV_BF16_RTOL
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_cuda_wkv_is_finite_at_the_clip_floor(cuda_device, chunk):
+    """g = -1.2 everywhere: the reference's factorised form overflows fp32
+    from chunk 74 on; the kernel's pairwise decays stay finite."""
+    r, k, v, _, u = (torch.from_numpy(a).to(cuda_device)
+                     for a in _wkv_inputs(1, 2, 256, 64))
+    g = torch.full_like(r, -1.2)
+    got = ops.wkv(r, k, v, g, u, chunk=chunk)
+    want = tref.wkv_chunk_ref(r, k, v, g, u)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=WKV_ATOL, rtol=WKV_RTOL)
+
+
+def test_cuda_wkv_chunk_invariance(cuda_device):
+    """The same result for chunks 16, 32 and 64 (the chunking is exact)."""
+    r, k, v, g, u = (torch.from_numpy(a).to(cuda_device)
+                     for a in _wkv_inputs(1, 2, 192, 64, seed=7))
+    outs = [ops.wkv(r, k, v, g, u, chunk=c).cpu().numpy() for c in (16, 32, 64)]
+    for other in outs[1:]:
+        np.testing.assert_allclose(other, outs[0], atol=WKV_ATOL, rtol=WKV_RTOL)
