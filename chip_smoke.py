@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -43,6 +44,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_TENSOR_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-4
+# device clock cycles (about 0.2 ms) that cover the host's enqueueing of one
+# call in `cuda_ms(..., queued=True)`: a kernel wrapper takes 0.03-0.07 ms
+HOST_CALL_CYCLES = 400_000
 SWEEPS = 3
 TRAIN_STEPS = 5
 # the loss falls at every step at this width: gcn overshoots from lr 0.3;
@@ -156,10 +160,17 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps launches, after one warm-up."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds of fn() over reps back-to-back calls, after one
+    warm-up, between two events.  A kernel of a few microseconds is timed at
+    the host's rate of calls: this is what a caller pays per call.  With
+    ``queued`` the calls wait behind a device-side sleep long enough for the
+    host to enqueue them all, so the events time the device work alone."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(reps * HOST_CALL_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -533,9 +544,13 @@ def dw_case(name, ids, mask, ct, H, reps):
     row.update(kernel="ell_attend_dw", case=name, V=V, K=K, N=N, D=D,
                nnz=int(nz.sum()), tol=TOL,
                kernel_ms=cuda_ms(lambda: ell_attend_dw(ids, ct, H), reps),
+               kernel_device_ms=cuda_ms(lambda: ell_attend_dw(ids, ct, H), reps,
+                                        queued=True),
                plain_ms=cuda_ms(lambda: ref.ell_attend_dw_ref(ids, ct, H),
                                 max(1, reps // 4)),
-               library_ms=cuda_ms(library, reps), library_max_abs_err=lib_err,
+               library_ms=cuda_ms(library, reps),
+               library_device_ms=cuda_ms(library, reps, queued=True),
+               library_max_abs_err=lib_err,
                **bound(least_bytes, 2 * V * K * D))
     emit("kernel", **row)
     return row
@@ -601,9 +616,10 @@ def gat_kernel_phase(eng, device):
 
     # dw at every width the path gives it: Hw's 256 and 64 (the attend at
     # exchange_chunks 1 reads tab[:, 1:] copied), the fused 257 and 65, and
-    # the chunk widths 129 and 33 at exchange_chunks 2
+    # the chunk widths 129 and 33 at exchange_chunks 2; then 128 and 32 (the
+    # kernel's lane groups of 32 and 8 at one float4 a lane)
     w = (mask * torch.rand(mask.shape, generator=gen).to(device)).contiguous()
-    for D in (256, 257, 129, 64, 65, 33):
+    for D in (256, 257, 129, 64, 65, 33, 128, 32):
         ct = torch.randn((V, D), generator=gen).to(device)
         rows["ell_attend_dw"].append(dw_case(
             f"gcn-paper layout D={D}", ids, w, ct, padded_table(gen, N, D, device),
@@ -690,6 +706,9 @@ def flash_case(name, q, k, v, causal, reps):
               f"drops the last key pass ({row['wrong_variant_excess']})")
         del wrong
 
+    def kernel():
+        return flash_attention(q, k, v, causal=causal)
+
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal)
@@ -703,11 +722,17 @@ def flash_case(name, q, k, v, causal, reps):
     rate = BF16_TENSOR_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     row.update(kernel="flash_attention", case=name, B=B, H=H, S=S, T=T, D=D,
                causal=causal, dtype=dtype_name(q.dtype),
-               kernel_ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                                 reps),
+               kernel_ms=cuda_ms(kernel, reps),
+               # the per-call time again, as the median of 7 readings: the
+               # host's rate of calls varies from reading to reading
+               kernel_call_ms=statistics.median(cuda_ms(kernel, reps)
+                                                for _ in range(7)),
+               kernel_device_ms=cuda_ms(kernel, reps, queued=True),
                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), max(1, reps // 10)),
-               library_ms=cuda_ms(library, reps), library_max_abs_err=lib_err,
+               library_ms=cuda_ms(library, reps),
+               library_device_ms=cuda_ms(library, reps, queued=True),
+               library_max_abs_err=lib_err,
                **bound(least_bytes, ops, rate))
     emit("kernel", **row)
     return row
@@ -775,6 +800,13 @@ def attention_phase(device):
                                  small.head_dim, torch.bfloat16, True),
             "smoke width D=32 fp32": (small.num_heads, small.num_kv_heads, 1024,
                                       1024, small.head_dim, torch.float32, False),
+            # around the query and key tiles: 127 and 129 rows and keys
+            "tile edges S=T=129": (H, kv, 129, 129, D, torch.bfloat16, True),
+            "tile edges S=127 T=129": (H, kv, 127, 129, D, torch.bfloat16, False),
+            "tile edges S=129 T=127 fp32": (H, kv, 129, 127, D, torch.float32,
+                                            True),
+            "tile edges S=T=127 D=128 fp32": (40, 8, 127, 127, 128,
+                                              torch.float32, False),
     }.items():
         rows.append(flash_case(case, *qkv(gen, B, Hc, kvc, Sc, Tc, Dc, dtype,
                                           device), causal, 20))

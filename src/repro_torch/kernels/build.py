@@ -2,15 +2,18 @@
 
 Each source `csrc/<name>.cu` exposes a plain C interface and compiles into
 its own shared library `_build/<name>-<hash>.so`, keyed by the hash of the
-source and the compiler flags, so an edited source is rebuilt and an
-unchanged one is built once per checkout.  The build runs at first use, never
-at import: the CPU-only test hosts have no nvcc.
+source, of every header of `csrc/` it includes (directly or through another
+header) and of the full compiler command line, so an edited source or
+header is rebuilt and an unchanged one is built once per checkout.  The
+build runs at first use, never at import: the CPU-only test hosts have no
+nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,17 +38,36 @@ def _nvcc() -> str:
                        "kernels are built on a host with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> List[Path]:
+    """src and every header of its directory it includes with quotes,
+    directly or through another header, each once, in include order."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or (path != src and not path.exists()):
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: List[str]) -> Dict[str, dict]:
     """Compile every named source that has no library yet, all nvcc
     processes started together.  Returns, per name, the library path, the
-    build seconds (0 when it was already built) and ptxas' resource lines."""
+    build seconds (0 when it was already built) and ptxas' resource lines
+    (registers, then stack and spills, per kernel)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     info, running = {}, {}
     for name in names:
@@ -67,8 +89,8 @@ def build(names: List[str]) -> Dict[str, dict]:
             continue
         os.replace(tmp, so)
         info[name] = dict(library=str(so), seconds=seconds,
-                          ptxas=[l for l in (out + err).splitlines()
-                                 if "ptxas" in l])
+                          ptxas=[l.strip() for l in (out + err).splitlines()
+                                 if "ptxas" in l or "spill" in l])
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return info

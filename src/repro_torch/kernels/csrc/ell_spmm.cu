@@ -245,26 +245,35 @@ ell_spmm_transpose_kernel(const long long* __restrict__ indptr,
 // H[ids] as a [V, K, D] block and reduces it against ct; `ell_attend`'s dH
 // is the transpose kernel above with the weights in the mask lane.
 //
-//   * one warp per row v, kWarps rows per block; the warp walks the slots
-//     kDwSlots at a time, so the gathers of several H rows are in flight
-//     together; each lane sums its columns of ct[v] * H[id] in increasing
-//     order, 16 bytes per lane (float4) when D % 4 == 0 and both pointers
-//     are 16-byte aligned, else 4 bytes per lane;
-//   * the warp reduces each slot's partial sums in a fixed butterfly, so dw
-//     is bitwise equal across launches.
+//   * one warp per row v, kWarps rows per block.  Each slot takes a group of
+//     G lanes, G a power of two sized to the row width W (in 16-byte float4
+//     units when D % 4 == 0 and both pointers are 16-byte aligned, else in
+//     4-byte floats): the largest G whose last pass over the row leaves at
+//     most an eighth of the group's lanes idle (`pick_group`).  So a warp
+//     covers 32 / G slots per step: at D = 64 (W = 16) a half-warp per
+//     slot, at the odd fused widths 33, 65, 129, 257 (the 4-byte path)
+//     groups of 4, 8, 16 and 32 lanes with 9 floats a lane;
+//   * the warp loads its row's ids 32 at a time, coalesced (lane j holds
+//     ids[v, k0 + j]), and hands each group its slot's id by shuffle, so no
+//     gather waits on an id load; ct[v] is read once per row into registers
+//     (U = 1, 2 or 9 units a lane, the units past the row's predicated off)
+//     and serves every slot;
+//   * the gathers of kSteps slot steps are issued together before any
+//     product (kSteps * U >= 8 loads a lane where the row leaves room), so
+//     8 or more independent loads of H are in flight per lane;
+//   * each lane sums its units in increasing order and the group reduces in
+//     a fixed xor butterfly, so dw is bitwise equal across launches; steps
+//     past the row's last slot (K = 1, a row's tail) are not reduced.
+//   Rows wider than 9 * 32 units take the general form: a full warp per
+//   slot, a loop over the units, ct read from L1.
 //
 // Bound on this card: bytes.  The function must read every H row some slot
 // names once, ct, ids once and write dw once, against 2*V*K*D flops.  Like
 // the forward, a gather that misses L2 re-reads an H row for every slot that
 // names it (V*K*D*4 bytes).
 
-constexpr int kDwSlots = 4;  // slots of a row whose gathers are issued together
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+constexpr int kDwMaxUnits = 9;  // units a lane keeps in registers per slot
+constexpr int kDwInFlight = 8;  // loads of H a lane issues together, at least
 
 __device__ __forceinline__ float dot_into(float acc, const float4 a, const float4 b) {
   acc = fmaf(a.x, b.x, acc);
@@ -276,34 +285,124 @@ __device__ __forceinline__ float dot_into(float acc, const float a, const float 
   return fmaf(a, b, acc);
 }
 
-template <typename T>
+// G lanes per slot and U units per lane (U = 0: the general form, a loop
+// over the units); kSteps slot steps of 32 / G slots each are in flight
+template <typename T, int G, int U>
 __global__ void __launch_bounds__(kThreads)
 ell_attend_dw_kernel(const int* __restrict__ ids, const T* __restrict__ ct,
                      const T* __restrict__ H, float* __restrict__ dw,
                      long long V, int K, int DW /* row width in units of T */) {
+  constexpr int kPerStep = 32 / G;  // slots a warp covers per step
+  constexpr int kWant = (kDwInFlight + (U > 0 ? U : 1) - 1) / (U > 0 ? U : 1);
+  constexpr int kSteps = kWant < G ? kWant : G;  // kSteps * kPerStep <= 32
+  constexpr int kBatch = kSteps * kPerStep;  // slots per pass, divides 32
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int sub = lane / G, col = lane % G;
   const long long v = (long long)blockIdx.x * kWarps + warp;
   if (v >= V) return;  // whole warps leave together: the shuffles stay full
   const T* crow = ct + v * (long long)DW;
   const int* my_ids = ids + v * (long long)K;
   float* my_dw = dw + v * (long long)K;
-  for (int k0 = 0; k0 < K; k0 += kDwSlots) {
-    float p[kDwSlots];
+
+  T c[U > 0 ? U : 1];
+  if constexpr (U > 0) {
 #pragma unroll
-    for (int j = 0; j < kDwSlots; ++j) {
-      p[j] = 0.f;
-      if (k0 + j < K) {
-        const T* hrow = H + (long long)__ldg(my_ids + k0 + j) * DW;
-        for (int c = lane; c < DW; c += 32) p[j] = dot_into(p[j], __ldg(crow + c), __ldg(hrow + c));
+    for (int u = 0; u < U; ++u) {
+      const int i = col + u * G;
+      if (i < DW) c[u] = __ldg(crow + i); else set_zero(c[u]);
+    }
+  }
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int id_lane = k0 + lane < K ? __ldg(my_ids + k0 + lane) : 0;
+    const int n = min(32, K - k0);
+    for (int s0 = 0; s0 < n; s0 += kBatch) {
+      float p[kSteps];
+      if constexpr (U > 0) {
+        T h[kSteps][U];
+#pragma unroll
+        for (int r = 0; r < kSteps; ++r) {
+          const int slot = s0 + r * kPerStep + sub;
+          const int id = __shfl_sync(0xffffffffu, id_lane, slot);
+          const T* hrow = H + (long long)id * DW;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = col + u * G;
+            if (slot < n && i < DW) h[r][u] = __ldg(hrow + i); else set_zero(h[r][u]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kSteps; ++r) {
+          p[r] = 0.f;
+#pragma unroll
+          for (int u = 0; u < U; ++u) p[r] = dot_into(p[r], c[u], h[r][u]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kSteps; ++r) {
+          const int slot = s0 + r * kPerStep + sub;
+          const int id = __shfl_sync(0xffffffffu, id_lane, slot);
+          const T* hrow = H + (long long)id * DW;
+          p[r] = 0.f;
+          if (slot < n)
+            for (int i = col; i < DW; i += G) p[r] = dot_into(p[r], __ldg(crow + i), __ldg(hrow + i));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kSteps; ++r) {
+        // a step past the row's last slot: skipped by the whole warp
+        if (kSteps > 1 && s0 + r * kPerStep >= n) break;
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1) p[r] += __shfl_xor_sync(0xffffffffu, p[r], o);
+        const int slot = s0 + r * kPerStep + sub;
+        if (col == 0 && slot < n) my_dw[k0 + slot] = p[r];
       }
     }
-#pragma unroll
-    for (int j = 0; j < kDwSlots; ++j) p[j] = warp_sum(p[j]);
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < kDwSlots; ++j)
-        if (k0 + j < K) my_dw[k0 + j] = p[j];
+  }
+}
+
+// The group size for a row of W units: the largest power of two G <= 32
+// with ceil(W / G) <= kDwMaxUnits whose last pass leaves at most an eighth
+// of the G * ceil(W / G) lane-units idle, else the one that idles least;
+// 0 when even G = 32 needs more than kDwMaxUnits units a lane
+int pick_group(int W) {
+  int best = 0, best_idle = 1 << 30;
+  for (int G = 32; G >= 1; G >>= 1) {
+    const int units = (W + G - 1) / G;
+    if (units > kDwMaxUnits) break;
+    const int idle = units * G - W;
+    if (idle * 8 <= units * G) return G;
+    if (idle < best_idle) best = G, best_idle = idle;
+  }
+  return best;
+}
+
+template <typename T, int G>
+void launch_dw_g(const int* ids, const T* ct, const T* H, float* dw, long long V,
+                 int K, int DW, cudaStream_t s) {
+  const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
+  const int units = (DW + G - 1) / G;
+  if (units <= 1)
+    ell_attend_dw_kernel<T, G, 1><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
+  else if (units <= 2)
+    ell_attend_dw_kernel<T, G, 2><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
+  else  // 3-9 units: the lanes past the row's units are predicated off
+    ell_attend_dw_kernel<T, G, kDwMaxUnits><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
+}
+
+template <typename T>
+void launch_dw(const int* ids, const T* ct, const T* H, float* dw, long long V, int K,
+               int DW, cudaStream_t s) {
+  switch (pick_group(DW)) {
+    case 1: return launch_dw_g<T, 1>(ids, ct, H, dw, V, K, DW, s);
+    case 2: return launch_dw_g<T, 2>(ids, ct, H, dw, V, K, DW, s);
+    case 4: return launch_dw_g<T, 4>(ids, ct, H, dw, V, K, DW, s);
+    case 8: return launch_dw_g<T, 8>(ids, ct, H, dw, V, K, DW, s);
+    case 16: return launch_dw_g<T, 16>(ids, ct, H, dw, V, K, DW, s);
+    case 32: return launch_dw_g<T, 32>(ids, ct, H, dw, V, K, DW, s);
+    default: {
+      const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
+      ell_attend_dw_kernel<T, 32, 0><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
     }
   }
 }
@@ -358,14 +457,12 @@ extern "C" int ell_attend_dw_launch(const void* ids, const void* ct, const void*
   const int* ids_i = static_cast<const int*>(ids);
   float* dw_f = static_cast<float*>(dw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
-  if (vec4) {
-    ell_attend_dw_kernel<float4><<<blocks, kThreads, 0, s>>>(
-        ids_i, static_cast<const float4*>(ct), static_cast<const float4*>(H), dw_f, V, K, D / 4);
-  } else {
-    ell_attend_dw_kernel<float><<<blocks, kThreads, 0, s>>>(
-        ids_i, static_cast<const float*>(ct), static_cast<const float*>(H), dw_f, V, K, D);
-  }
+  if (vec4)
+    launch_dw<float4>(ids_i, static_cast<const float4*>(ct), static_cast<const float4*>(H),
+                      dw_f, V, K, D / 4, s);
+  else
+    launch_dw<float>(ids_i, static_cast<const float*>(ct), static_cast<const float*>(H),
+                     dw_f, V, K, D, s);
   return (int)cudaGetLastError();
 }
 

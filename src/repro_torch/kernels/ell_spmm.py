@@ -21,6 +21,7 @@ kernel on the current stream or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -220,11 +221,14 @@ def ell_attend_dw(ids: torch.Tensor, ct: torch.Tensor,
     if V == 0 or K == 0:
         return dw
     lib = _library()
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    with torch.cuda.device(H.device):
+    # H's device and its current stream, switched to only when H lies on
+    # another device: a short kernel's call is paid for in host time
+    index = H.device.index
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         err = lib.ell_attend_dw_launch(ids.data_ptr(), ct.data_ptr(),
                                        H.data_ptr(), dw.data_ptr(), V, K, D,
-                                       stream)
+                                       torch._C._cuda_getCurrentRawStream(index))
     _raise_on(lib, err, "ell_attend_dw")
     ell_attend_dw.launches += 1
     return dw

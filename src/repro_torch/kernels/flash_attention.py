@@ -15,6 +15,7 @@ tensor launches the kernel on the current stream or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -93,12 +94,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * H * S == 0:
         return o
     lib = _library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    # q's device and its current stream, switched to only when q lies on
+    # another device: a short kernel's call is paid for in host time
+    index = q.device.index
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H, S, T,
             D, int(q.dtype == torch.bfloat16), int(causal), float(D ** -0.5),
-            stream)
+            torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} ({lib.flash_attention_error_string(err).decode()})")

@@ -236,6 +236,28 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build(["ell_spmm"])
 
 
+def test_library_path_follows_headers_and_flags(monkeypatch, tmp_path):
+    """The built library is keyed by the source, every csrc header it
+    includes (through another header too) and the nvcc flags: editing any
+    of them names a new library, so no stale build survives the edit."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "c.cuh").write_text("int c;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "c.cuh").write_text("int c2;\n")  # not included
+    assert build.library_path("k") == first
+    seen = {first}
+    for header in ("b.cuh", "a.cuh"):
+        (tmp_path / header).write_text((tmp_path / header).read_text() + "// edit\n")
+        assert build.library_path("k") not in seen
+        seen.add(build.library_path("k"))
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
+    assert build.library_path("k") not in seen
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -501,7 +523,16 @@ def test_cuda_sddmm_and_slot_transpose_match_plain_on_card(cuda_device, V, K,
                                atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("V,K,N,D,kind", ATTEND_CASES)
+# the dw kernel's lane groups (1-32 lanes a slot, 1, 2 or 9 units a lane,
+# 96 the 3 units of a group of 8 with the rest predicated off, and the
+# general form past 288 units), rows of 33 and 100 slots (ids staged in
+# more than one pass of 32)
+DW_CUDA_CASES = ATTEND_CASES + [
+    (257, 33, 400, D, "binary") for D in (1, 4, 8, 16, 31, 32, 33, 96, 128, 300)
+] + [(257, 100, 400, D, "weighted") for D in (4, 33, 128)]
+
+
+@pytest.mark.parametrize("V,K,N,D,kind", DW_CUDA_CASES)
 def test_cuda_dw_kernel_matches_plain_on_card(cuda_device, V, K, N, D, kind):
     ids, _, _, H = (t.to(cuda_device) for t in _t(*_attend_inputs(
         V, K, N, D, kind)))
@@ -517,6 +548,28 @@ def test_cuda_dw_kernel_matches_plain_on_card(cuda_device, V, K, N, D, kind):
         assert torch.equal(got, again)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=TOL, rtol=TOL)
+
+
+def test_cuda_dw_kernel_general_form_on_card(cuda_device):
+    """Rows past 288 units a lane group can keep in registers (D = 1200 on
+    the 16-byte path, 1200 and 300 on the 4-byte path) take the kernel's
+    general form.  ct is drawn with variance 1/D, so each dw is a unit-scale
+    dot product, the scale the fp32 tolerance is set for: with unit ct the
+    1200-term sums reach |dw| ~ 100, where two fp32 summation orders part by
+    more than 1e-5."""
+    V, K, N = 257, 100, 400
+    for D in (300, 1200):
+        ids, _, _, H = (t.to(cuda_device) for t in _t(*_attend_inputs(
+            V, K, N, D, "weighted")))
+        ct = torch.randn((V, D), device=cuda_device) * D ** -0.5
+        flat = torch.randn(V * D + 1, device=cuda_device) * D ** -0.5
+        for c in (ct, flat[1:].view(V, D)):
+            got, again = (ell_attend_dw(ids, c, H) for _ in range(2))
+            want = tref.ell_attend_dw_ref(ids, c, H)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("V,K,N,D,kind", SDDMM_CASES[::2])

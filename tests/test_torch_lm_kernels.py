@@ -267,6 +267,14 @@ CUDA_FLASH_CASES = [  # B, H, S, T, D, causal, dtype
     (1, 4, 192, 192, 32, True, "bfloat16"),
     (1, 4, 192, 192, 32, False, "float32"),
     (1, 2, 64, 0, 64, True, "bfloat16"),  # no key: the output is 0
+] + [
+    # around the kernel's query tiles (128 rows bf16, 64 fp32) and key tiles
+    # (64 keys, 32 at fp32 D = 128): S and T of 127-129, T within one key
+    # tile (shorter than the ring), causal with S != T, no key at all
+    (1, 3, S, T, D, causal, dtype)
+    for dtype in ("bfloat16", "float32") for D in (32, 64, 128)
+    for S, T, causal in ((127, 127, True), (128, 129, False), (129, 128, True),
+                         (129, 257, True), (257, 33, False), (129, 0, True))
 ]
 
 
