@@ -48,6 +48,13 @@ TOL = 1e-4
 # call in `cuda_ms(..., queued=True)`: a kernel wrapper takes 0.03-0.07 ms
 HOST_CALL_CYCLES = 400_000
 SWEEPS = 3
+TRACE_ATTEMPTS = 3  # traces of one profile phase, until one holds every launch
+# widths that reach every lane group of the ELL forward (G lanes a slot, U
+# units a lane: csrc/ell_spmm.cu `with_lane_group`) in units of 4 or 16
+# bytes: W = 1, 3, 2, 6, 4, 11, 8, 21, 16, 41, 32, 64, 81 and the general
+# form past 288 units
+LANE_GROUP_WIDTHS = (1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
+                     64, 84, 128, 164, 256, 324, 1200)
 TRAIN_STEPS = 5
 # the loss falls at every step at this width: gcn overshoots from lr 0.3;
 # gat fell at every step from 0.05 to 10 on the CPU at this width (2**14
@@ -245,10 +252,17 @@ def ell_case(name, ids, mask, H, normalize, reps):
                                   size=(V, N), check_invariants=True
                                   ).coalesce().to_sparse_csr()
     lib_err = float((torch.sparse.mm(csr, H) - want).abs().max())
-    kernel_ms = cuda_ms(lambda: ell_spmm(ids, mask, H, normalize=normalize), reps)
+
+    def kernel():
+        return ell_spmm(ids, mask, H, normalize=normalize)
+
+    def library():
+        return torch.sparse.mm(csr, H)
+
+    kernel_ms = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(lambda: ref.ell_spmm_ref(ids, mask, H, normalize=normalize),
                        max(1, reps // 4))
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, H), reps)
+    library_ms = cuda_ms(library, reps)
     # least work the function needs on these inputs: every H row some
     # unmasked slot names read once, ids + mask read once, out written once;
     # a multiply-add per unmasked slot and feature (+ the degree divide)
@@ -258,7 +272,9 @@ def ell_case(name, ids, mask, H, normalize, reps):
     ops = 2 * nnz * D + (V * K + V * D if normalize else 0)
     row.update(kernel="ell_spmm", case=name, normalize=normalize, V=V, K=K,
                N=N, D=D, nnz=nnz, tol=TOL, kernel_ms=kernel_ms,
+               kernel_device_ms=cuda_ms(kernel, reps, queued=True),
                plain_ms=plain_ms, library_ms=library_ms,
+               library_device_ms=cuda_ms(library, reps, queued=True),
                library_max_abs_err=lib_err, **bound(least_bytes, ops))
     emit("kernel", **row)
     return row
@@ -275,7 +291,8 @@ def random_ell(gen, V, K, N, D, p, device, weighted=False):
 
 def kernel_phase(eng, device):
     """Every ELL-SpMM case of the contract, from the main path's own shape
-    down to the ragged and degenerate ones."""
+    down to the ragged and degenerate ones, and every lane-group shape of
+    the kernel.  The GAT widths are in `gat_kernel_phase`."""
     gen = torch.Generator().manual_seed(0)
     ids, mask = eng._consts["ids"], eng._consts["mask"]
     X = eng.store.device_table()
@@ -285,6 +302,9 @@ def kernel_phase(eng, device):
     weights = torch.rand(mask.shape, generator=gen).to(device)
     rows.append(ell_case("gcn-paper layout, weighted mask", ids,
                          (mask * weights).contiguous(), table, False, 10))
+    # gcn at exchange_chunks 2: a table of 128 columns
+    rows.append(ell_case("gcn-paper layout D=128", ids, mask,
+                         table[:, :128].contiguous(), False, 10))
     for D in (37, 36):
         for normalize in (False, True):
             rows.append(ell_case(f"ragged V=1003 D={D}",
@@ -306,6 +326,18 @@ def kernel_phase(eng, device):
     flat = torch.randn(3000 * 64 + 1, generator=gen).to(device)
     H_off = flat[1:].view(3000, 64)
     rows.append(ell_case("misaligned H, D=64", ids_w, mask_w, H_off, False, 100))
+    # every lane-group shape: each width twice, H aligned (the 16-byte path
+    # where D % 4 == 0) and 4 bytes off alignment (the 4-byte path); 40 slots
+    # a row, so the ids are loaded in two passes of 32
+    ids_g, mask_g, _ = random_ell(gen, 2048, 40, 3000, 1, 0.6, device,
+                                  weighted=True)
+    for D in LANE_GROUP_WIDTHS:
+        flat = torch.randn(3000 * D + 1, generator=gen).to(device)
+        for off in (0, 1):
+            rows.append(ell_case(
+                f"lane group D={D}" + (", misaligned H" if off else ""),
+                ids_g, mask_g, flat[off:off + 3000 * D].view(3000, D),
+                off == 0, 20))
     return rows
 
 
@@ -448,11 +480,15 @@ def sddmm_case(name, ids, mask, Hw, a_src, a_dst, reps):
     return row
 
 
-def slot_transpose_case(name, ids, mask, dz, N, reps, plan=None):
+def slot_transpose_case(name, ids, mask, dz, N, reps, plan=None,
+                        diagnose=False):
     """One slot-transpose case: the kernel against its plain version on the
     card, its gradient role through `ell_slot_gather` under autograd, times
     of kernel / plain / one torch.sparse.mm call with the [N, V*K] selection
-    matrix, and the bound."""
+    matrix, and the bound.  With ``diagnose``, what the random reads of dz
+    cost: the kernel's device time over the same plan with every slot
+    folded into the first 2**23 of dz (32 MB, held in the L2), and one
+    torch.index_select of dz at the plan's slots."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ell_spmm import ell_transpose_plan
     from repro_torch.kernels.sddmm import ell_slot_gather, ell_slot_transpose
@@ -477,18 +513,31 @@ def slot_transpose_case(name, ids, mask, dz, N, reps, plan=None):
     dz_col = dz.reshape(-1, 1)
     lib_err = float((torch.sparse.mm(sel, dz_col)[:, 0] - want).abs().max())
     nnz = int(plan[1].numel())
+
+    def kernel(plan=plan):
+        return ell_slot_transpose(ids, mask, dz, N, plan=plan)
+
+    def library():
+        return torch.sparse.mm(sel, dz_col)
+
     # the plan (slots and indptr) and dz at each listed slot read once, g
     # written once; one add per listed slot
     least_bytes = nnz * (8 + 4) + (N + 1) * 8 + N * 4
     row.update(kernel="ell_slot_transpose", case=name, V=V, K=K, N=N, nnz=nnz,
-               tol=TOL,
-               kernel_ms=cuda_ms(lambda: ell_slot_transpose(ids, mask, dz, N,
-                                                            plan=plan), reps),
+               tol=TOL, kernel_ms=cuda_ms(kernel, reps),
+               kernel_device_ms=cuda_ms(kernel, reps, queued=True),
                plain_ms=cuda_ms(lambda: ref.ell_slot_transpose_ref(ids, mask,
                                                                    dz, N),
                                 max(1, reps // 4)),
-               library_ms=cuda_ms(lambda: torch.sparse.mm(sel, dz_col), reps),
+               library_ms=cuda_ms(library, reps),
+               library_device_ms=cuda_ms(library, reps, queued=True),
                library_max_abs_err=lib_err, **bound(least_bytes, nnz))
+    if diagnose:
+        folded = (plan[0], plan[1] % (1 << 23))
+        row.update(dz_in_l2_device_ms=cuda_ms(lambda: kernel(folded), reps,
+                                              queued=True),
+                   gather_device_ms=cuda_ms(lambda: torch.index_select(
+                       dz.reshape(-1), 0, plan[1]), reps, queued=True))
     emit("kernel", **row)
     return row
 
@@ -601,7 +650,7 @@ def gat_kernel_phase(eng, device):
     # the slot transpose over the engine's plan, then the ragged ones
     dz = torch.randn(mask.shape, generator=gen).to(device) * mask
     rows["ell_slot_transpose"].append(slot_transpose_case(
-        "gcn-paper layout", ids, mask, dz, N, 10, plan=plan))
+        "gcn-paper layout", ids, mask, dz, N, 10, plan=plan, diagnose=True))
     for case, (Vr, K, Nr, p) in {"ragged V=1003": (1003, 7, 502, 0.6),
                                  "K=1": (4096, 1, 4096, 0.9),
                                  "K=100 (long segments)": (3000, 100, 5000, 0.7)
@@ -613,6 +662,18 @@ def gat_kernel_phase(eng, device):
     dz_a = torch.randn(mask_a.shape, generator=gen).to(device)
     rows["ell_slot_transpose"].append(slot_transpose_case(
         "all-masked rows", ids_a, mask_a, dz_a, 3000, 100))
+    # a hub row: 10,000 unmasked slots name row 7, so its segment spans many
+    # staged chunks.  dz is drawn at scale 1/100, so that the hub's
+    # 10,000-term sum is unit-scale, the scale the 1e-4 tolerance is set for
+    # (at unit dz the sum reaches ~100, where two fp32 summation orders part
+    # by about 1e-4)
+    ids_h, mask_h, _ = random_ell(gen, 4096, 8, 3000, 1, 0.6, device)
+    hub = torch.randperm(4096 * 8, generator=gen)[:10000].to(device)
+    ids_h.view(-1)[hub] = 7
+    mask_h.view(-1)[hub] = 1.0
+    dz_h = (torch.randn(mask_h.shape, generator=gen) / 100).to(device)
+    rows["ell_slot_transpose"].append(slot_transpose_case(
+        "hub row of 10,000 slots", ids_h, mask_h, dz_h, 3000, 100))
 
     # dw at every width the path gives it: Hw's 256 and 64 (the attend at
     # exchange_chunks 1 reads tab[:, 1:] copied), the fused 257 and 65, and
@@ -644,18 +705,22 @@ def gat_kernel_phase(eng, device):
     rows["ell_attend_dw"].append(dw_case("misaligned ct, D=64", ids_w, mask_w,
                                          flat[1:].view(2048, 64), H_w, 100))
 
-    # the attend forward and its dH (the ported ELL kernels, weights in the
-    # mask lane) at the fused widths: 257 (the whole fused table) and 129
-    # (a chunk at exchange_chunks 2), both on the 4-byte path
-    for D in (257, 129):
+    # the attend forward (the ELL forward, weights in the mask lane) at every
+    # width the path gives it: the fused tables' 257 and 65, the chunks' 129
+    # and 33 at exchange_chunks 2 (all on the 4-byte path), and the last
+    # layer's 64 after the `tab[:, 1:]` copy at exchange_chunks 1 (its 256
+    # is the gcn phase's weighted case); dH (the transpose) at 257 and 129
+    for D in (257, 129, 65, 33, 64):
         table = padded_table(gen, N, D, device)
         rows["ell_spmm"].append(ell_case(f"gcn-paper layout, weighted, D={D}",
                                          ids, w, table, False, 10))
-        ct = torch.randn((V, D), generator=gen).to(device)
-        rows["ell_spmm_transpose"].append(transpose_case(
-            f"gcn-paper layout D={D}, weighted mask", ids, w, ct, N, False, 10,
-            plan=plan))
-        del table, ct
+        if D in (257, 129):
+            ct = torch.randn((V, D), generator=gen).to(device)
+            rows["ell_spmm_transpose"].append(transpose_case(
+                f"gcn-paper layout D={D}, weighted mask", ids, w, ct, N,
+                False, 10, plan=plan))
+            del ct
+        del table
     return rows
 
 
@@ -1027,13 +1092,10 @@ def train_phase(g, chunks, device, model="gcn"):
     return eng, launches
 
 
-def profile_phase(phase, fn, kernels, **fields):
+def trace(fn):
     """torch.profiler trace of one call of fn, after one untraced warm-up
-    cycle of the profiler: device busy time, idle share, the longest idle
-    gaps, and the kernels that took the time.  ``kernels`` maps each kernel
-    that must appear to its launches in one call, which the trace must
-    hold exactly (a trace that lost events would understate the busy
-    time)."""
+    cycle of the profiler: each device span (start, end, name), the count
+    and microseconds by kernel name, and the call's wall microseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1050,7 +1112,7 @@ def profile_phase(phase, fn, kernels, **fields):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         prof.step()
-    check(len(traced) == 1, f"{phase}: expected one traced cycle")
+    check(len(traced) == 1, "expected one traced cycle")
     spans, by_name = [], {}
     for e in traced[0]:
         # device work only: the profiler's own step range is mirrored onto
@@ -1061,6 +1123,25 @@ def profile_phase(phase, fn, kernels, **fields):
         spans.append((e.time_range.start, e.time_range.end, e.name))
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return spans, by_name, wall_us
+
+
+def profile_phase(phase, fn, kernels, **fields):
+    """A trace of one call of fn (`trace`): device busy time, idle share,
+    the longest idle gaps, and the kernels that took the time.  ``kernels``
+    maps each kernel that must appear to its launches in one call, which the
+    trace must hold exactly (a trace that lost events would understate the
+    busy time).  The profiler now and then drops a kernel record from a
+    trace: a trace that falls short is taken again, up to TRACE_ATTEMPTS
+    times, and the phase fails if none holds every launch."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        spans, by_name, wall_us = trace(fn)
+        held_launches = {kernel: sum(c for name, (c, _) in by_name.items()
+                                     if kernel in name) for kernel in kernels}
+        if held_launches == kernels:
+            break
+    check(held_launches == kernels, f"{phase}: {TRACE_ATTEMPTS} traces, the "
+          f"last holds launches {held_launches}, expected {kernels}")
     check(bool(spans), "the profiler recorded no device activity")
     busy_us, gaps, cur = 0.0, [], None
     for s, t, name in sorted(spans):  # union of the device intervals
@@ -1073,11 +1154,7 @@ def profile_phase(phase, fn, kernels, **fields):
             cur[1:] = [t, name]
     busy_us += cur[1] - cur[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
-    for kernel, launches in kernels.items():
-        n = sum(c for name, (c, _) in by_name.items() if kernel in name)
-        check(n == launches, f"{phase} trace holds {n} launches of {kernel}, "
-              f"expected {launches}")
-    emit(phase, **fields, traced_wall_ms=wall_us / 1e3,
+    emit(phase, **fields, trace_attempts=attempt, traced_wall_ms=wall_us / 1e3,
          device_busy_ms=busy_us / 1e3,
          device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
          longest_idle_gaps=[dict(us=g, after=a[:80], before=b[:80])

@@ -176,7 +176,7 @@ class DistGNNEngine:
             raise NotImplementedError(
                 f"protocol={cfg.protocol!r}: only sync is ported; the "
                 "historical-embedding protocols arrive with their own slice "
-                "(ROADMAP queue 1 item 4)")
+                "(the async_hist slice, ROADMAP queue 1 item 6)")
         require_ported(cfg.model)
         if cfg.batching != "full_graph":
             raise NotImplementedError(

@@ -28,8 +28,8 @@ def require_ported(model: str) -> None:
     if model not in PARAM_KEYS:
         raise NotImplementedError(
             f"model={model!r}: {'/'.join(PARAM_KEYS)} are ported; sage and "
-            "gin arrive with the rest of the model-axis slice (ROADMAP queue "
-            "1 item 5)")
+            "gin arrive with the rest of the model-axis slice (the sage/gin "
+            "slice, ROADMAP queue 1 item 2)")
 
 
 def init_gnn_params(model: str, dims: Sequence[int], generator: torch.Generator,

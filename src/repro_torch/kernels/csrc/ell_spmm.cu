@@ -13,36 +13,67 @@
 // Replaces the Pallas TPU kernel `_ell_spmm_kernel` / `ell_spmm_pallas`
 // (src/repro/kernels/ell_spmm.py:26,38).  That kernel keeps a whole [N, 128]
 // column panel of H resident in VMEM for each grid step; Hopper's 227 KB of
-// shared memory cannot hold one, so the design here is a row gather instead:
-//
-//   * a block owns a tile of kWarps rows, one row per warp, and stages the
-//     tile's ids and mask in shared memory kSlots slots at a time (the tile's
-//     ids are contiguous in memory, so the staging loads coalesce);
-//   * each warp walks its row's slots in increasing k and gathers the H row
-//     of every slot whose mask is non-zero, 16 bytes per lane (float4) when
-//     D % 4 == 0 and the pointers are 16-byte aligned, else 4 bytes per lane;
-//     one warp covers 32 * kVecPerLane vectors of the row per pass over the
-//     slots, and wider rows take further passes;
-//   * the sum stays in registers and runs in a fixed k order, so the result
-//     is deterministic: bitwise equal across launches.
-//
-// Row offsets are 64-bit: ids * D passes 2**31 on larger graphs.
+// shared memory cannot hold one, so the design here is a row gather.  (A
+// panel in the 50 MB L2 holds 8 floats of 2**20 rows: D = 256 would re-read
+// ids and mask 32 times, 10.2 GB, and gather 32-byte sectors from the L2.)
 //
 // Bound on this card: bytes.  The function must read H's rows once, ids and
 // mask once and write out once: N*D*4 + V*K*8 + V*D*4 bytes at 3.35 TB/s,
 // against 2*nnz*D flops, far below the fp32 rate.  A gather that misses L2
-// re-reads an H row for every edge that names it, so the time this kernel can
-// reach sits between that bound and nnz*D*4 bytes over the same rate.
+// re-reads an H row for every edge that names it; the L2 (50 MB) holds about
+// 5 % of a 2**20 x 256 table.  So at the gcn-paper layout (16,777,199 edges,
+// D = 256) the gather alone is 17.18 GB, with ids and mask (0.32 GB) and out
+// (1.07 GB) 18.57 GB: 5.54 ms at 3.35 TB/s.  At the odd fused widths a row
+// spans 33-34 sectors of 32 bytes, not 32 (about 5.8 ms at D = 257).
+//
+// The design sizes the lanes to the row, as the dw kernel below does:
+//
+//   * one warp per row v, kWarps rows per block.  Each slot takes a group of
+//     G lanes and each lane keeps U units of the row in registers (units of
+//     16 bytes, float4, when D % 4 == 0 and both pointers are 16-byte
+//     aligned, else 4-byte floats); G and U come from `pick_group`, so one
+//     pass covers the row wherever U <= kMaxUnits: D = 257 one pass of 9
+//     floats a lane (a warp-wide loop of 64 floats a pass would take 5
+//     passes and re-read ids and mask in each), D = 129, 65 and 33 groups
+//     of 16, 8 and 4 lanes, D = 64 (16 float4) two slots a step, D = 128
+//     and 256 a warp of 1 and 2 float4 a lane.  32 / G slots are in flight
+//     a step;
+//   * the warp loads the row's ids and mask 32 at a time, coalesced (lane j
+//     holds slot k0 + j), and hands each group its slot's id and weight by
+//     shuffle: no block-wide staging, no __syncthreads; the degree is summed
+//     from the same loads;
+//   * the gathers of kSteps slot steps are issued before any FMA: at least
+//     kInFlight independent loads of H a lane on the 16-byte path, twice as
+//     many on the 4-byte path (D = 257 two steps of 9 floats a lane); a
+//     masked slot's loads are predicated off (its weight, 0, adds nothing),
+//     not branched around;
+//   * each lane sums its group's slots in increasing k, and the groups
+//     combine in a fixed xor butterfly at the row's end, so the result is
+//     bitwise equal across launches;
+//   * rows wider than kMaxUnits * 32 units take the general form: G = 32,
+//     U = kMaxUnits, one pass over the slots per 288 units of the row.
+//
+// Registers (nvcc -Xptxas -v, sm_90a) of the instantiations the GNN paths
+// launch, as <unit, G, U>: <float4, 32, 2> (D = 256) 40, <float4, 32, 1>
+// (D = 128) 32, <float4, 16, 1> (D = 64) 32, <float, 32, 9> (D = 257) 48,
+// <float, 16, 9> (D = 129), <float, 8, 9> (D = 65) and <float, 4, 9>
+// (D = 33) 62 each; none of the 26 instantiations spills.
+//
+// Row offsets are 64-bit: ids * D passes 2**31 on larger graphs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kWarps = 8;         // rows per block, one per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kSlots = 64;        // slots of each row staged per pass
-constexpr int kVecPerLane = 2;    // vectors of the row each lane sums per pass
+constexpr int kVecPerLane = 2;    // transpose: vectors of the row each lane sums per pass
+constexpr int kMaxUnits = 9;      // units of a row a lane keeps in registers per slot
+constexpr int kInFlight = 8;      // loads of H a lane issues together, at least
+constexpr unsigned int kFull = 0xffffffffu;
 
 __device__ __forceinline__ void set_zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
 __device__ __forceinline__ void set_zero(float& a) { a = 0.f; }
@@ -55,69 +86,150 @@ __device__ __forceinline__ void fma_into(float4& acc, float m, const float4 h) {
 }
 __device__ __forceinline__ void fma_into(float& acc, float m, const float h) { acc = fmaf(m, h, acc); }
 
+// acc += the same units of the lane `o` apart
+__device__ __forceinline__ void add_xor(float4& acc, int o) {
+  acc.x += __shfl_xor_sync(kFull, acc.x, o);
+  acc.y += __shfl_xor_sync(kFull, acc.y, o);
+  acc.z += __shfl_xor_sync(kFull, acc.z, o);
+  acc.w += __shfl_xor_sync(kFull, acc.w, o);
+}
+__device__ __forceinline__ void add_xor(float& acc, int o) { acc += __shfl_xor_sync(kFull, acc, o); }
+
 __device__ __forceinline__ float4 divide(const float4 a, float d) {
   return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
 }
 __device__ __forceinline__ float divide(const float a, float d) { return a / d; }
 
-template <typename T, bool kNormalize>
+// slot steps a lane keeps in flight with U units a slot: enough for
+// `loads` loads, and at most G, so that a pass of kSteps * 32 / G slots
+// divides 32
+__host__ __device__ constexpr int steps_in_flight(int G, int U, int loads) {
+  return (loads + U - 1) / U < G ? (loads + U - 1) / U : G;
+}
+
+// The group size for a row of W units: the largest power of two G <= 32
+// with ceil(W / G) <= kMaxUnits whose last pass leaves at most an eighth
+// of the G * ceil(W / G) lane-units idle, else the one that idles least;
+// 0 when even G = 32 needs more than kMaxUnits units a lane
+int pick_group(int W) {
+  int best = 0, best_idle = 1 << 30;
+  for (int G = 32; G >= 1; G >>= 1) {
+    const int units = (W + G - 1) / G;
+    if (units > kMaxUnits) break;
+    const int idle = units * G - W;
+    if (idle * 8 <= units * G) return G;
+    if (idle < best_idle) best = G, best_idle = idle;
+  }
+  return best;
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+template <int G, typename F>
+void with_units(int W, F&& f) {
+  const int units = (W + G - 1) / G;
+  if (units <= 1) return f(Int<G>{}, Int<1>{});
+  // two units a lane only with a whole warp a slot: for G < 32, twice the
+  // group with one unit a lane idles the same lanes and pick_group takes it
+  if constexpr (G == 32) {
+    if (units <= 2) return f(Int<G>{}, Int<2>{});
+  }
+  // 3-9 units: the lanes past the row's units are predicated off
+  f(Int<G>{}, Int<kMaxUnits>{});
+}
+
+// Calls f(Int<G>, Int<U>) with the lane group of a row of W units: G from
+// pick_group, U the tier of {1, 2 (G = 32 only), kMaxUnits} that covers
+// ceil(W / G); for rows past kMaxUnits * 32 units, f(Int<32>, Int<0>): the
+// general form.  So 13 lane groups a unit type, and the general form
+template <typename F>
+void with_lane_group(int W, F&& f) {
+  switch (pick_group(W)) {
+    case 1: return with_units<1>(W, f);
+    case 2: return with_units<2>(W, f);
+    case 4: return with_units<4>(W, f);
+    case 8: return with_units<8>(W, f);
+    case 16: return with_units<16>(W, f);
+    case 32: return with_units<32>(W, f);
+    default: return f(Int<32>{}, Int<0>{});
+  }
+}
+
+// G lanes per slot, U units per lane; the row in passes of G * U units
+// (one pass unless the row is wider: the general form)
+template <typename T, int G, int U>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int* __restrict__ ids, const float* __restrict__ mask,
                 const T* __restrict__ H, T* __restrict__ out,
-                long long V, int K, int DW /* row width in units of T */) {
-  __shared__ int s_ids[kWarps * kSlots];
-  __shared__ float s_mask[kWarps * kSlots];
-
+                long long V, int K, int DW /* row width in units of T */,
+                bool normalize) {
+  constexpr int kPerStep = 32 / G;  // slots a warp covers per step
+  // kInFlight loads of 16 bytes, twice as many of 4 bytes: one slot step of
+  // 9 floats a lane is 36 bytes in flight, too few to cover the gather's
+  // latency
+  constexpr int kSteps = steps_in_flight(G, U, sizeof(T) == 16 ? kInFlight : 2 * kInFlight);
+  constexpr int kBatch = kSteps * kPerStep;  // slots per pass, divides 32
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row0 = (long long)blockIdx.x * kWarps;
-  const long long left = V - row0;
-  const int rows = left < kWarps ? (int)left : kWarps;
-  const bool live = warp < rows;
-  const int* my_ids = s_ids + warp * kSlots;
-  const float* my_mask = s_mask + warp * kSlots;
+  const int sub = lane / G, col = lane % G;
+  const long long v = (long long)blockIdx.x * kWarps + warp;
+  if (v >= V) return;  // whole warps leave together: the shuffles stay full
+  const int* my_ids = ids + v * (long long)K;
+  const float* my_mask = mask + v * (long long)K;
+  T* orow = out + v * (long long)DW;
 
-  for (int c0 = 0; c0 < DW; c0 += 32 * kVecPerLane) {
-    T acc[kVecPerLane];
+  for (int c0 = 0; c0 < DW; c0 += G * U) {
+    T acc[U];
 #pragma unroll
-    for (int r = 0; r < kVecPerLane; ++r) set_zero(acc[r]);
-    float deg = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += kSlots) {
-      const int kt = (K - k0) < kSlots ? (K - k0) : kSlots;
-      __syncthreads();  // every warp is done reading the previous stage
-      for (int i = threadIdx.x; i < rows * kt; i += kThreads) {
-        const int r = i / kt;
-        const int j = i - r * kt;
-        const long long src = (row0 + r) * (long long)K + k0 + j;
-        s_ids[r * kSlots + j] = ids[src];
-        s_mask[r * kSlots + j] = mask[src];
-      }
-      __syncthreads();
-      if (live) {
-#pragma unroll 4
-        for (int j = 0; j < kt; ++j) {
-          const float m = my_mask[j];  // the same for the whole warp
-          if (kNormalize) deg += m;
-          if (m != 0.f) {
-            const T* hrow = H + (long long)my_ids[j] * DW;
+    for (int u = 0; u < U; ++u) set_zero(acc[u]);
+    float deg = 0.f;  // this lane's slots' weights
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const bool in = k0 + lane < K;
+      const int id_lane = in ? __ldg(my_ids + k0 + lane) : 0;
+      const float m_lane = in ? __ldg(my_mask + k0 + lane) : 0.f;
+      deg += m_lane;
+      const int n = min(32, K - k0);
+      for (int s0 = 0; s0 < n; s0 += kBatch) {
+        float m[kSteps];
+        T h[kSteps][U];
 #pragma unroll
-            for (int r = 0; r < kVecPerLane; ++r) {
-              const int col = c0 + r * 32 + lane;
-              if (col < DW) fma_into(acc[r], m, __ldg(hrow + col));
-            }
+        for (int r = 0; r < kSteps; ++r) {
+          const int slot = s0 + r * kPerStep + sub;  // < 32; past the row: weight 0
+          const int id = __shfl_sync(kFull, id_lane, slot);
+          m[r] = __shfl_sync(kFull, m_lane, slot);
+          const T* hrow = H + (long long)id * DW + c0 + col;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (m[r] != 0.f && c0 + col + u * G < DW) h[r][u] = __ldg(hrow + u * G);
+            else set_zero(h[r][u]);
           }
+        }
+#pragma unroll
+        for (int r = 0; r < kSteps; ++r) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) fma_into(acc[u], m[r], h[r][u]);
         }
       }
     }
-
-    if (live) {
-      T* orow = out + (row0 + warp) * (long long)DW;
-      const float d = fmaxf(deg, 1.f);
+    // group `sub` holds the sum of slots sub, sub + 32/G, ...: combine the
+    // groups in a fixed butterfly; every group ends with the row's sum
 #pragma unroll
-      for (int r = 0; r < kVecPerLane; ++r) {
-        const int col = c0 + r * 32 + lane;
-        if (col < DW) orow[col] = kNormalize ? divide(acc[r], d) : acc[r];
+    for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) add_xor(acc[u], o);
+    }
+    float d = 1.f;
+    if (normalize) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) deg += __shfl_xor_sync(kFull, deg, o);
+      d = fmaxf(deg, 1.f);
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = c0 + col + u * G;
+        if (i < DW) orow[i] = normalize ? divide(acc[u], d) : acc[u];
       }
     }
   }
@@ -127,13 +239,12 @@ template <typename T>
 void launch(const int* ids, const float* mask, const void* H, void* out,
             long long V, int K, int DW, bool normalize, cudaStream_t stream) {
   const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
-  if (normalize) {
-    ell_spmm_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        ids, mask, static_cast<const T*>(H), static_cast<T*>(out), V, K, DW);
-  } else {
-    ell_spmm_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        ids, mask, static_cast<const T*>(H), static_cast<T*>(out), V, K, DW);
-  }
+  with_lane_group(DW, [&](auto g, auto u) {
+    constexpr int G = decltype(g)::value;
+    constexpr int U = decltype(u)::value > 0 ? decltype(u)::value : kMaxUnits;
+    ell_spmm_kernel<T, G, U><<<blocks, kThreads, 0, stream>>>(
+        ids, mask, static_cast<const T*>(H), static_cast<T*>(out), V, K, DW, normalize);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -272,9 +383,6 @@ ell_spmm_transpose_kernel(const long long* __restrict__ indptr,
 // the forward, a gather that misses L2 re-reads an H row for every slot that
 // names it (V*K*D*4 bytes).
 
-constexpr int kDwMaxUnits = 9;  // units a lane keeps in registers per slot
-constexpr int kDwInFlight = 8;  // loads of H a lane issues together, at least
-
 __device__ __forceinline__ float dot_into(float acc, const float4 a, const float4 b) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -293,8 +401,7 @@ ell_attend_dw_kernel(const int* __restrict__ ids, const T* __restrict__ ct,
                      const T* __restrict__ H, float* __restrict__ dw,
                      long long V, int K, int DW /* row width in units of T */) {
   constexpr int kPerStep = 32 / G;  // slots a warp covers per step
-  constexpr int kWant = (kDwInFlight + (U > 0 ? U : 1) - 1) / (U > 0 ? U : 1);
-  constexpr int kSteps = kWant < G ? kWant : G;  // kSteps * kPerStep <= 32
+  constexpr int kSteps = steps_in_flight(G, U > 0 ? U : 1, kInFlight);
   constexpr int kBatch = kSteps * kPerStep;  // slots per pass, divides 32
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -361,50 +468,14 @@ ell_attend_dw_kernel(const int* __restrict__ ids, const T* __restrict__ ct,
   }
 }
 
-// The group size for a row of W units: the largest power of two G <= 32
-// with ceil(W / G) <= kDwMaxUnits whose last pass leaves at most an eighth
-// of the G * ceil(W / G) lane-units idle, else the one that idles least;
-// 0 when even G = 32 needs more than kDwMaxUnits units a lane
-int pick_group(int W) {
-  int best = 0, best_idle = 1 << 30;
-  for (int G = 32; G >= 1; G >>= 1) {
-    const int units = (W + G - 1) / G;
-    if (units > kDwMaxUnits) break;
-    const int idle = units * G - W;
-    if (idle * 8 <= units * G) return G;
-    if (idle < best_idle) best = G, best_idle = idle;
-  }
-  return best;
-}
-
-template <typename T, int G>
-void launch_dw_g(const int* ids, const T* ct, const T* H, float* dw, long long V,
-                 int K, int DW, cudaStream_t s) {
-  const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
-  const int units = (DW + G - 1) / G;
-  if (units <= 1)
-    ell_attend_dw_kernel<T, G, 1><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
-  else if (units <= 2)
-    ell_attend_dw_kernel<T, G, 2><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
-  else  // 3-9 units: the lanes past the row's units are predicated off
-    ell_attend_dw_kernel<T, G, kDwMaxUnits><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
-}
-
 template <typename T>
 void launch_dw(const int* ids, const T* ct, const T* H, float* dw, long long V, int K,
                int DW, cudaStream_t s) {
-  switch (pick_group(DW)) {
-    case 1: return launch_dw_g<T, 1>(ids, ct, H, dw, V, K, DW, s);
-    case 2: return launch_dw_g<T, 2>(ids, ct, H, dw, V, K, DW, s);
-    case 4: return launch_dw_g<T, 4>(ids, ct, H, dw, V, K, DW, s);
-    case 8: return launch_dw_g<T, 8>(ids, ct, H, dw, V, K, DW, s);
-    case 16: return launch_dw_g<T, 16>(ids, ct, H, dw, V, K, DW, s);
-    case 32: return launch_dw_g<T, 32>(ids, ct, H, dw, V, K, DW, s);
-    default: {
-      const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
-      ell_attend_dw_kernel<T, 32, 0><<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
-    }
-  }
+  const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
+  with_lane_group(DW, [&](auto g, auto u) {
+    ell_attend_dw_kernel<T, decltype(g)::value, decltype(u)::value>
+        <<<blocks, kThreads, 0, s>>>(ids, ct, H, dw, V, K, DW);
+  });
 }
 
 }  // namespace

@@ -46,14 +46,44 @@
 // Replaces the scatter-add of the SDDMM gradient rule `_sddmm_bwd`
 // (src/repro/kernels/sddmm.py:100, scatter at :109), where XLA adds dz into
 // g_src[ids].  A scatter on this card needs float atomics, whose order changes
-// from run to run; here one thread owns row u and sums its segment in the
-// plan's increasing slot order, so the result is bitwise deterministic.  A row
-// with an empty segment (the zero pad row of a gather table among them) gets
-// 0, so g needs no clearing pass.  The engine also uses it as the gradient of
-// the gather s_col[ids] of the fused attention column.
+// from run to run; here each row's segment is summed in the plan's increasing
+// slot order, so the result is bitwise deterministic.  The engine also uses it
+// as the gradient of the gather s_col[ids] of the fused attention column.
 //
 // Bound on this card: bytes.  The plan (nnz*8 + (N+1)*8), dz at the listed
-// slots (nnz*4) and g (N*4), against nnz adds.
+// slots (nnz*4) and g (N*4), against nnz adds.  dz is read at random: each
+// read fetches a 32-byte sector for its 4 bytes.  At the gcn-paper layout
+// (nnz 16.8 M, N 2**20) that is 134 MB of slots, 8 MB of indptr, 537 MB of
+// dz sectors and 4 MB of g, about 0.68 GB or 0.2 ms at 3.35 TB/s.
+//
+// The design (one thread per row walking its segment took a chain of ~16
+// dependent loads a row, and neighbouring threads read segments ~128 bytes
+// apart, 32 sectors a warp load):
+//
+//   * a warp owns a tile of 32 consecutive rows, lane r row u0 + r.  Their
+//     segments form one contiguous stretch of the plan;
+//   * the warp reads the stretch in chunks of kStage entries, lanes on
+//     neighbouring entries (coalesced 8-byte loads of slots); each lane
+//     issues its kStage / 32 gathers dz[slots[p]] together and stages the
+//     values in the warp's stretch of shared memory;
+//   * each lane then sums its row's part of the chunk in the plan's order,
+//     reading kSumUnroll staged values ahead of its adds, and carries the sum
+//     across chunks (a hub row's segment may span many; the next chunk's
+//     slots load while one is summed): the same additions in the same order
+//     as a serial walk, so the same bits.  80 registers (nvcc -Xptxas -v,
+//     sm_90a), 16 KB of shared memory a block, no spill.
+//     An empty segment, the pad row's among them, writes 0, so g needs no
+//     clearing pass.  No atomics, no block-wide barrier.
+//
+// What holds it: the random reads of dz.  At the gcn-paper layout dz is
+// 160 MB, over three times the L2, and each of its sectors holds about 3.4
+// listed slots, each read at another time, so most reads go to device
+// memory: chip_smoke.py times the kernel at the layout beside the same
+// reads folded into 32 MB of dz (`dz_in_l2_device_ms`) and one
+// torch.index_select of dz at the plan's slots (`gather_device_ms`).
+// Passes over bands of dz small enough for the L2, one launch a band, were
+// slower: each pass re-reads the plan's bounds and carries the sums through
+// memory.
 //
 // Offsets are 64-bit throughout: V*K and N*D pass 2**31 on larger graphs.
 
@@ -122,17 +152,76 @@ sddmm_slot_kernel(const int* __restrict__ ids, const float* __restrict__ mask,
   e[i] = out;
 }
 
+constexpr int kStage = 512;  // plan entries a warp stages per chunk
+constexpr int kPerLane = kStage / 32;
+constexpr int kSumUnroll = 16;  // staged values a lane reads ahead of its adds
+
+// the slots of the chunk starting at c (lane j holds entries c + j, c + 32 + j, ...)
+__device__ __forceinline__ void load_slots(long long (&s)[kPerLane],
+                                           const long long* __restrict__ slots,
+                                           long long c, long long p1, int lane) {
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const long long p = c + j * 32 + lane;
+    s[j] = p < p1 ? __ldg(slots + p) : 0;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 ell_slot_transpose_kernel(const long long* __restrict__ indptr,
                           const long long* __restrict__ slots,
                           const float* __restrict__ dz, float* __restrict__ g,
                           long long N) {
-  const long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (u >= N) return;
-  const long long p1 = indptr[u + 1];
+  __shared__ float s_val[kWarps][kStage];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long u0 = ((long long)blockIdx.x * kWarps + warp) * 32;
+  if (u0 >= N) return;  // whole warps leave together: the shuffles stay full
+  const long long u = u0 + lane;
+  // this lane's segment [a, b) (empty past the last row) and the tile's
+  // stretch [p0, p1)
+  const long long a = __ldg(indptr + (u < N ? u : N));
+  const long long b = __ldg(indptr + (u < N ? u + 1 : N));
+  const long long p0 = __shfl_sync(0xffffffffu, a, 0);
+  const long long p1 = __shfl_sync(0xffffffffu, b, 31);
+  float* val = s_val[warp];
   float acc = 0.f;
-  for (long long p = indptr[u]; p < p1; ++p) acc += __ldg(dz + slots[p]);
-  g[u] = acc;
+  long long s[kPerLane];
+  load_slots(s, slots, p0, p1, lane);
+  for (long long c0 = p0; c0 < p1; c0 += kStage) {
+    float x[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) x[j] = c0 + j * 32 + lane < p1 ? __ldg(dz + s[j]) : 0.f;
+    __syncwarp();  // every lane is done summing the previous chunk
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) val[j * 32 + lane] = x[j];
+    __syncwarp();
+    // the next chunk's slots (a long segment's) load while this one is summed
+    load_slots(s, slots, c0 + kStage, p1, lane);
+    // this lane's part of the chunk, [lo, hi) (empty when its segment ends
+    // before the chunk or starts after it), added in the plan's order
+    const long long lo = (a > c0 ? a : c0) - c0;
+    const long long hi = (b < c0 + kStage ? b : c0 + kStage) - c0;
+    int i = (int)lo;
+    if (i + kSumUnroll <= hi) {  // blocks of kSumUnroll, the next one read during the adds
+      float y[kSumUnroll];
+#pragma unroll
+      for (int j = 0; j < kSumUnroll; ++j) y[j] = val[i + j];
+      for (i += kSumUnroll; i + kSumUnroll <= hi; i += kSumUnroll) {
+        float z[kSumUnroll];
+#pragma unroll
+        for (int j = 0; j < kSumUnroll; ++j) z[j] = val[i + j];
+#pragma unroll
+        for (int j = 0; j < kSumUnroll; ++j) acc += y[j];
+#pragma unroll
+        for (int j = 0; j < kSumUnroll; ++j) y[j] = z[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kSumUnroll; ++j) acc += y[j];
+    }
+    for (; i < hi; ++i) acc += val[i];
+  }
+  if (u < N) g[u] = acc;
 }
 
 }  // namespace
@@ -176,7 +265,8 @@ extern "C" int ell_slot_transpose_launch(const void* indptr, const void* slots,
                                          const void* dz, void* g, long long N,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = (unsigned int)((N + kThreads - 1) / kThreads);
+  const long long rows = (long long)kWarps * 32;  // a warp's tile of 32 rows
+  const unsigned int blocks = (unsigned int)((N + rows - 1) / rows);
   ell_slot_transpose_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const long long*>(indptr), static_cast<const long long*>(slots),
       static_cast<const float*>(dz), static_cast<float*>(g), N);

@@ -5,7 +5,8 @@ versions; its gradient against `jax.vjp` of the reference's differentiable
 numpy construction.  The GAT kernels likewise: `sddmm_ell` against the
 Pallas SDDMM and `jax.vjp` of the reference's `sddmm_ell`, `ell_attend` and
 both its gradients against `jax.vjp` of the reference's `ell_attend`, and
-the slot transpose against a numpy construction.
+the slot transpose against a numpy construction (a hub row and empty rows
+among the cases).
 
 On a CPU-only host the wrapper takes its plain version (the CUDA kernel has
 no CPU mode) and the CUDA-only tests skip.  On a host with a card the
@@ -51,6 +52,14 @@ CASES = [  # V, K, N, D, mask kind, normalize
     # K and D past one shared-memory stage (64 slots) and one column pass
     # (256 floats) of the CUDA kernel
     (300, 100, 400, 300, "weighted", True),
+    # the widths of the GAT exchange and a single column, 40 slots a row (the
+    # CUDA forward loads ids in two passes of 32; its lane groups are 1, 4, 8,
+    # 16 and 32 lanes a slot at these widths)
+    (200, 40, 300, 1, "binary", True),
+    (200, 40, 300, 33, "weighted", False),
+    (200, 40, 300, 65, "all_masked_rows", True),
+    (200, 40, 300, 129, "weighted", True),
+    (200, 40, 300, 257, "binary", False),
 ]
 
 
@@ -84,6 +93,12 @@ def _inputs(V, K, N, D, kind, seed=0):
         mask *= rng.random((V, K)).astype(np.float32)
     elif kind == "all_masked_rows":
         mask[: V // 4] = 0.0
+    elif kind == "hub_row":  # row 1 is named by 1000 unmasked slots
+        hub = rng.choice(V * K, 1000, replace=False)
+        ids.reshape(-1)[hub] = 1
+        mask.reshape(-1)[hub] = 1.0
+    elif kind == "empty_rows":  # no slot names an odd row
+        ids -= ids % 2
     H = rng.standard_normal((N, D)).astype(np.float32)
     return ids, mask, H
 
@@ -281,6 +296,60 @@ def test_cuda_kernel_matches_plain_on_card(cuda_device, V, K, N, D, kind,
                                atol=TOL, rtol=TOL)
 
 
+# widths that reach every lane group of the forward (G lanes a slot, U
+# units a lane: `with_lane_group` in csrc/ell_spmm.cu) on the 4-byte path
+# (odd widths, and every width with H 4 bytes off alignment) and on the
+# 16-byte path (D % 4 == 0, H aligned), the general form past 288 units
+LANE_GROUP_WIDTHS = [1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
+                     64, 84, 128, 164, 256, 324, 1200]
+
+
+@pytest.mark.parametrize("D", LANE_GROUP_WIDTHS)
+def test_cuda_forward_lane_groups_on_card(cuda_device, D):
+    V, K, N = 257, 40, 400
+    ids, mask, _ = (torch.from_numpy(a).to(cuda_device)
+                    for a in _inputs(V, K, N, 1, "weighted"))
+    flat = torch.randn(N * D + 1, device=cuda_device)
+    for H in (flat[:-1].view(N, D), flat[1:].view(N, D)):
+        for normalize in (False, True):
+            before = ell_spmm.launches
+            got, again = (ell_spmm(ids, mask, H, normalize=normalize)
+                          for _ in range(2))
+            want = tref.ell_spmm_ref(ids, mask, H, normalize=normalize)
+            torch.cuda.synchronize()
+            assert ell_spmm.launches == before + 2
+            assert torch.equal(got, again)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=TOL, rtol=TOL)
+
+
+def test_cuda_slot_transpose_hub_row_on_card(cuda_device):
+    """A hub row named by 10,000 slots spans many of the kernel's staged
+    chunks, and the odd rows are named by none: the hub's sum carried across
+    chunks in the plan's order, bitwise equal across launches, every empty
+    row 0.  dz is drawn at scale 1/100 so that the hub's sum is unit-scale,
+    the scale the fp32 tolerance is set for."""
+    V, K, N = 4096, 8, 3000
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, N, (V, K)).astype(np.int32)
+    ids -= ids % 2
+    mask = (rng.random((V, K)) < 0.6).astype(np.float32)
+    hub = rng.choice(V * K, 10000, replace=False)
+    ids.reshape(-1)[hub], mask.reshape(-1)[hub] = 6, 1.0
+    dz = (rng.standard_normal((V, K)) / 100).astype(np.float32)
+    ids_c, mask_c, dz_c = (t.to(cuda_device) for t in _t(ids, mask, dz))
+    plan = ell_transpose_plan(ids_c, mask_c, N)
+    before = ell_slot_transpose.launches
+    got, again = (ell_slot_transpose(ids_c, mask_c, dz_c, N, plan=plan)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert ell_slot_transpose.launches == before + 2
+    assert torch.equal(got, again)
+    assert not got[1::2].any()
+    np.testing.assert_allclose(got.cpu().numpy(), _numpy_slot_transpose(
+        ids, mask, dz, N), atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("V,K,N,D,kind,normalize", CASES)
 def test_cuda_transpose_kernel_matches_plain_on_card(cuda_device, V, K, N, D,
                                                      kind, normalize):
@@ -420,7 +489,13 @@ def _numpy_slot_transpose(ids, mask, dz, N):
     return g
 
 
-@pytest.mark.parametrize("V,K,N,D,kind,normalize", CASES[::2])
+# the ELL cases, a hub row (one segment of 1000 slots) and rows that no slot
+# names (empty segments)
+SLOT_CASES = CASES[::2] + [(300, 12, 400, 8, "hub_row", True),
+                           (300, 12, 400, 8, "empty_rows", True)]
+
+
+@pytest.mark.parametrize("V,K,N,D,kind,normalize", SLOT_CASES)
 def test_slot_transpose_and_gather_match_numpy(V, K, N, D, kind, normalize):
     ids, mask, _ = _inputs(V, K, N, D, kind)
     dz = np.random.default_rng(3).standard_normal((V, K)).astype(np.float32)
@@ -428,6 +503,10 @@ def test_slot_transpose_and_gather_match_numpy(V, K, N, D, kind, normalize):
     assert got.shape == (N,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), _numpy_slot_transpose(
         ids, mask, dz, N), atol=TOL, rtol=TOL)
+    if kind == "hub_row":
+        assert int(((ids == 1) & (mask != 0)).sum()) >= 1000
+    if kind == "empty_rows":
+        assert not got[1::2].any()
     # the gather col[ids] on the unmasked slots has it as its gradient
     col = torch.from_numpy(np.random.default_rng(4).standard_normal(
         N).astype(np.float32)).requires_grad_()
