@@ -49,10 +49,10 @@ TOL = 1e-4
 HOST_CALL_CYCLES = 400_000
 SWEEPS = 3
 TRACE_ATTEMPTS = 3  # traces of one profile phase, until one holds every launch
-# widths that reach every lane group of the ELL forward (G lanes a slot, U
-# units a lane: csrc/ell_spmm.cu `with_lane_group`) in units of 4 or 16
-# bytes: W = 1, 3, 2, 6, 4, 11, 8, 21, 16, 41, 32, 64, 81 and the general
-# form past 288 units
+# widths that reach every lane group of the ELL forward and transpose (G
+# lanes an entry, U units a lane: csrc/ell_spmm.cu `with_lane_group`) in
+# units of 4 or 16 bytes: W = 1, 3, 2, 6, 4, 11, 8, 21, 16, 41, 32, 64, 81
+# and the general form past 288 units
 LANE_GROUP_WIDTHS = (1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
                      64, 84, 128, 164, 256, 324, 1200)
 TRAIN_STEPS = 5
@@ -341,11 +341,17 @@ def kernel_phase(eng, device):
     return rows
 
 
-def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None):
+def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None,
+                   diagnose=False):
     """One case of the ELL-SpMM backward: the transpose kernel against its
     plain version on the card, a gradient through `ell_spmm` under autograd,
     times of kernel / plain / one torch.sparse.mm call with the transposed
-    matrix, and the bound."""
+    matrix, and the bound.  With ``diagnose`` (normalize off), what the
+    plan's indirection costs: the device time of one torch.index_select of
+    the weights at the plan's slots (the kernel's random weight reads
+    alone), and of the forward kernel over the same entries laid out as an
+    ELL table [N, max segment] (every segment's rows and weights in plan
+    order), with whether its output equals the transpose's bit for bit."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ell_spmm import (
         ell_spmm,
@@ -384,10 +390,14 @@ def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None):
                                     size=(N, V), check_invariants=True
                                     ).coalesce().to_sparse_csr()
     lib_err = float((torch.sparse.mm(csr_t, ct) - want).abs().max())
+
+    def library():
+        return torch.sparse.mm(csr_t, ct)
+
     kernel_ms = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(lambda: ref.ell_spmm_transpose_ref(
         ids, mask, ct, N, normalize=normalize), max(1, reps // 4))
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr_t, ct), reps)
+    library_ms = cuda_ms(library, reps)
     # least work the function needs on these inputs: every ct row some
     # unmasked slot names read once, the plan and each listed slot's mask
     # read once (the whole mask when normalizing, for the degrees), dH
@@ -399,17 +409,49 @@ def transpose_case(name, ids, mask, ct, N, normalize, reps, plan=None):
     ops = 2 * nnz * D + (V * K + V * D if normalize else 0)
     row.update(kernel="ell_spmm_transpose", case=name, normalize=normalize,
                V=V, K=K, N=N, D=D, nnz=nnz, tol=TOL, kernel_ms=kernel_ms,
+               kernel_device_ms=cuda_ms(kernel, reps, queued=True),
                plain_ms=plain_ms, library_ms=library_ms,
+               library_device_ms=cuda_ms(library, reps, queued=True),
                library_max_abs_err=lib_err, plan_ms=plan_ms,
                **bound(least_bytes, ops))
+    if diagnose:
+        row.update(transposed_ell_diagnosis(ids, mask, ct, N, plan, reps))
     emit("kernel", **row)
     return row
+
+
+def transposed_ell_diagnosis(ids, mask, ct, N, plan, reps):
+    """transpose_case's ``diagnose`` fields."""
+    from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_transpose
+
+    indptr, slots = plan
+    counts = indptr.diff()
+    owner = torch.repeat_interleave(torch.arange(N, device=ct.device), counts)
+    pos = torch.arange(slots.numel(), device=ct.device) - indptr[owner]
+    width = max(1, int(counts.max()))
+    ids_t = torch.zeros((N, width), dtype=torch.int32, device=ct.device)
+    mask_t = torch.zeros((N, width), device=ct.device)
+    ids_t[owner, pos] = (slots // ids.shape[1]).int()
+    mask_t[owner, pos] = mask.reshape(-1)[slots]
+    del owner, pos
+    got = ell_spmm_transpose(ids, mask, ct, N, normalize=False, plan=plan)
+    return dict(
+        weights_gather_device_ms=cuda_ms(
+            lambda: torch.index_select(mask.reshape(-1), 0, slots), reps,
+            queued=True),
+        transposed_ell_width=width,
+        transposed_ell_forward_device_ms=cuda_ms(
+            lambda: ell_spmm(ids_t, mask_t, ct, normalize=False), reps,
+            queued=True),
+        transposed_ell_forward_bitwise_equal=bool(torch.equal(
+            ell_spmm(ids_t, mask_t, ct, normalize=False), got)))
 
 
 def transpose_phase(eng, device):
     """Every case of the ELL-SpMM backward: the main path's own layout at
     the layer width (256) and the chunk width (128), then the weighted,
-    ragged and degenerate ones."""
+    ragged and degenerate ones, every lane-group shape and a hub row.  The
+    GAT widths are in `gat_kernel_phase`."""
     gen = torch.Generator().manual_seed(1)
     ids, mask, plan = eng._consts["ids"], eng._consts["mask"], eng._consts["plan"]
     N = eng.Vp + 1  # the gather table's rows: every vertex + the zero pad row
@@ -417,7 +459,8 @@ def transpose_phase(eng, device):
     for D, normalize in ((256, False), (256, True), (128, False)):
         ct = torch.randn((eng.Vp, D), generator=gen).to(device)
         rows.append(transpose_case(f"gcn-paper layout D={D}", ids, mask, ct,
-                                   N, normalize, 10, plan=plan))
+                                   N, normalize, 10, plan=plan,
+                                   diagnose=not normalize))
     weights = torch.rand(mask.shape, generator=gen).to(device)
     ct = torch.randn((eng.Vp, 256), generator=gen).to(device)
     rows.append(transpose_case("gcn-paper layout D=256, weighted mask", ids,
@@ -449,6 +492,34 @@ def transpose_phase(eng, device):
     ct_off = flat[1:].view(2048, 64)
     rows.append(transpose_case("misaligned ct, D=64", ids_w, mask_w, ct_off,
                                3000, False, 100))
+    # an odd width 4 bytes off alignment: the 4-byte path, misaligned rows
+    flat = torch.randn(2048 * 257 + 1, generator=gen).to(device)
+    rows.append(transpose_case("misaligned ct, D=257", ids_w, mask_w,
+                               flat[1:].view(2048, 257), 3000, True, 100))
+    # every lane-group shape of the shared row gather (the forward's
+    # widths): each width with ct aligned (the 16-byte path where D % 4 ==
+    # 0) and 4 bytes off; 40 slots a row, so a segment holds ~16 entries
+    ids_g, mask_g, _ = random_ell(gen, 2048, 40, 3000, 1, 0.6, device,
+                                  weighted=True)
+    for D in LANE_GROUP_WIDTHS:
+        flat = torch.randn(2048 * D + 1, generator=gen).to(device)
+        for off in (0, 1):
+            rows.append(transpose_case(
+                f"lane group D={D}" + (", misaligned ct" if off else ""),
+                ids_g, mask_g, flat[off:off + 2048 * D].view(2048, D), 3000,
+                off == 0, 20))
+    # a hub row: 10,000 unmasked slots name row 7, a segment of 313 loads of
+    # 32 entries.  ct is drawn at scale 1/100, so that the hub's 10,000-term
+    # sum is unit-scale, the scale the 1e-4 tolerance is set for
+    for D in (64, 257):
+        ids_h, mask_h, _ = random_ell(gen, 4096, 8, 3000, 1, 0.6, device)
+        hub = torch.randperm(4096 * 8, generator=gen)[:10000].to(device)
+        ids_h.view(-1)[hub] = 7
+        mask_h.view(-1)[hub] = 1.0
+        rows.append(transpose_case(
+            f"hub row of 10,000 slots, D={D}", ids_h, mask_h,
+            (torch.randn((4096, D), generator=gen) / 100).to(device), 3000,
+            False, 100))
     return rows
 
 
@@ -705,22 +776,21 @@ def gat_kernel_phase(eng, device):
     rows["ell_attend_dw"].append(dw_case("misaligned ct, D=64", ids_w, mask_w,
                                          flat[1:].view(2048, 64), H_w, 100))
 
-    # the attend forward (the ELL forward, weights in the mask lane) at every
-    # width the path gives it: the fused tables' 257 and 65, the chunks' 129
-    # and 33 at exchange_chunks 2 (all on the 4-byte path), and the last
-    # layer's 64 after the `tab[:, 1:]` copy at exchange_chunks 1 (its 256
-    # is the gcn phase's weighted case); dH (the transpose) at 257 and 129
+    # the attend forward (the ELL forward, weights in the mask lane) and its
+    # dH (the transpose) at every width the path gives them: the fused
+    # tables' 257 and 65, the chunks' 129 and 33 at exchange_chunks 2 (all
+    # on the 4-byte path), and the last layer's 64 after the `tab[:, 1:]`
+    # copy at exchange_chunks 1 (their 256 is the gcn phases' weighted case)
     for D in (257, 129, 65, 33, 64):
         table = padded_table(gen, N, D, device)
         rows["ell_spmm"].append(ell_case(f"gcn-paper layout, weighted, D={D}",
                                          ids, w, table, False, 10))
-        if D in (257, 129):
-            ct = torch.randn((V, D), generator=gen).to(device)
-            rows["ell_spmm_transpose"].append(transpose_case(
-                f"gcn-paper layout D={D}, weighted mask", ids, w, ct, N,
-                False, 10, plan=plan))
-            del ct
         del table
+        ct = torch.randn((V, D), generator=gen).to(device)
+        rows["ell_spmm_transpose"].append(transpose_case(
+            f"gcn-paper layout D={D}, weighted mask", ids, w, ct, N, False, 10,
+            plan=plan, diagnose=True))
+        del ct
     return rows
 
 

@@ -26,7 +26,10 @@
 // (1.07 GB) 18.57 GB: 5.54 ms at 3.35 TB/s.  At the odd fused widths a row
 // spans 33-34 sectors of 32 bytes, not 32 (about 5.8 ms at D = 257).
 //
-// The design sizes the lanes to the row, as the dw kernel below does:
+// The design sizes the lanes to the row, as the dw kernel below does.  Its
+// row gather, `gather_row`, serves the transpose below too: the two differ
+// only in where lane j finds its entry (the ELL row here, the CSR segment
+// of the plan there).
 //
 //   * one warp per row v, kWarps rows per block.  Each slot takes a group of
 //     G lanes and each lane keeps U units of the row in registers (units of
@@ -55,9 +58,9 @@
 //
 // Registers (nvcc -Xptxas -v, sm_90a) of the instantiations the GNN paths
 // launch, as <unit, G, U>: <float4, 32, 2> (D = 256) 40, <float4, 32, 1>
-// (D = 128) 32, <float4, 16, 1> (D = 64) 32, <float, 32, 9> (D = 257) 48,
+// (D = 128) and <float4, 16, 1> (D = 64) 32, <float, 32, 9> (D = 257),
 // <float, 16, 9> (D = 129), <float, 8, 9> (D = 65) and <float, 4, 9>
-// (D = 33) 62 each; none of the 26 instantiations spills.
+// (D = 33) 58 each; none of the 26 instantiations spills.
 //
 // Row offsets are 64-bit: ids * D passes 2**31 on larger graphs.
 
@@ -70,7 +73,6 @@ namespace {
 
 constexpr int kWarps = 8;         // rows per block, one per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kVecPerLane = 2;    // transpose: vectors of the row each lane sums per pass
 constexpr int kMaxUnits = 9;      // units of a row a lane keeps in registers per slot
 constexpr int kInFlight = 8;      // loads of H a lane issues together, at least
 constexpr unsigned int kFull = 0xffffffffu;
@@ -156,63 +158,112 @@ void with_lane_group(int W, F&& f) {
   }
 }
 
-// G lanes per slot, U units per lane; the row in passes of G * U units
-// (one pass unless the row is wider: the general form)
-template <typename T, int G, int U>
-__global__ void __launch_bounds__(kThreads)
-ell_spmm_kernel(const int* __restrict__ ids, const float* __restrict__ mask,
-                const T* __restrict__ H, T* __restrict__ out,
-                long long V, int K, int DW /* row width in units of T */,
-                bool normalize) {
-  constexpr int kPerStep = 32 / G;  // slots a warp covers per step
-  // kInFlight loads of 16 bytes, twice as many of 4 bytes: one slot step of
+// Where lane j of a warp finds the j-th entry of its output row: the row of
+// the gathered table and the entry's weight.  The forward walks the ELL row
+// v (ids[v, :], mask[v, :]); the transpose the CSR segment of row u of dH.
+// An entry at or past `count` reads nothing and has weight 0.
+// kGateOnWeight: an entry's gathers wait for its weight and skip weight 0.
+// That pays on the ELL row, where most slots past a row's degree are
+// masked; a plan lists only weighted slots, and its weights are a load
+// that depends on the slot's, so the transpose gathers every listed entry
+// at once and skips weight 0 at the FMA.
+struct EllRow {
+  using Id = int;
+  static constexpr bool kGateOnWeight = true;
+  const int* ids;
+  const float* mask;
+  int count;
+  __device__ __forceinline__ void load(int j, Id& id, float& m) const {
+    const bool in = j < count;
+    id = in ? __ldg(ids + j) : 0;
+    m = in ? __ldg(mask + j) : 0.f;
+  }
+};
+
+// A slot s = v*K + k is read whole and divided in 64 bits, so a table may
+// hold 2**31 slots or more; the row v < V and the segment's length are kept
+// in 32 bits (the wrapper holds V and the plan's length below 2**31): in
+// 64 bits they ran slower at the narrow 4-byte widths (more registers, two
+// shuffles an entry), where the divide itself cost nothing.  The plan
+// and the weights are read once: streaming loads (evict first), so that
+// they do not push the gathered rows of ct out of the L2.  The loads are
+// predicated, not branched around
+struct CsrSegment {
+  using Id = int;
+  static constexpr bool kGateOnWeight = false;
+  const long long* slots;
+  const float* mask;
+  int count;
+  int K;
+  __device__ __forceinline__ void load(int j, Id& v, float& m) const {
+    const bool in = j < count;
+    const long long s = in ? __ldcs(slots + j) : 0;
+    v = (int)(s / K);
+    m = in ? __ldcs(mask + s) : 0.f;
+  }
+};
+
+// The row gather the forward and the transpose share: one warp writes
+//   orow[:] = sum over the entries e of weight(e) * rows[row(e), :]
+// (/ max(sum of the weights, 1) when `normalize`), with G lanes an entry and
+// U units a lane; the row in passes of G * U units (one pass unless the
+// row is wider: the general form).  The entries are loaded 32 at a time
+template <typename T, int G, int U, typename Entries>
+__device__ __forceinline__ void gather_row(const Entries& e, const T* __restrict__ rows,
+                                           T* __restrict__ orow, int DW, bool normalize) {
+  using Index = decltype(e.count);
+  constexpr int kPerStep = 32 / G;  // entries a warp covers per step
+  // kInFlight loads of 16 bytes, twice as many of 4 bytes: one entry step of
   // 9 floats a lane is 36 bytes in flight, too few to cover the gather's
   // latency
   constexpr int kSteps = steps_in_flight(G, U, sizeof(T) == 16 ? kInFlight : 2 * kInFlight);
-  constexpr int kBatch = kSteps * kPerStep;  // slots per pass, divides 32
-  const int warp = threadIdx.x >> 5;
+  constexpr int kBatch = kSteps * kPerStep;  // entries per pass, divides 32
   const int lane = threadIdx.x & 31;
   const int sub = lane / G, col = lane % G;
-  const long long v = (long long)blockIdx.x * kWarps + warp;
-  if (v >= V) return;  // whole warps leave together: the shuffles stay full
-  const int* my_ids = ids + v * (long long)K;
-  const float* my_mask = mask + v * (long long)K;
-  T* orow = out + v * (long long)DW;
 
   for (int c0 = 0; c0 < DW; c0 += G * U) {
     T acc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) set_zero(acc[u]);
-    float deg = 0.f;  // this lane's slots' weights
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const bool in = k0 + lane < K;
-      const int id_lane = in ? __ldg(my_ids + k0 + lane) : 0;
-      const float m_lane = in ? __ldg(my_mask + k0 + lane) : 0.f;
+    float deg = 0.f;  // this lane's entries' weights
+    for (Index j0 = 0; j0 < e.count; j0 += 32) {
+      typename Entries::Id id_lane;
+      float m_lane;
+      e.load(j0 + lane, id_lane, m_lane);
       deg += m_lane;
-      const int n = min(32, K - k0);
+      const int n = e.count - j0 < 32 ? (int)(e.count - j0) : 32;
       for (int s0 = 0; s0 < n; s0 += kBatch) {
         float m[kSteps];
         T h[kSteps][U];
 #pragma unroll
         for (int r = 0; r < kSteps; ++r) {
-          const int slot = s0 + r * kPerStep + sub;  // < 32; past the row: weight 0
-          const int id = __shfl_sync(kFull, id_lane, slot);
-          m[r] = __shfl_sync(kFull, m_lane, slot);
-          const T* hrow = H + (long long)id * DW + c0 + col;
+          const int j = s0 + r * kPerStep + sub;  // < 32; past the end: weight 0
+          const auto id = __shfl_sync(kFull, id_lane, j);
+          if (Entries::kGateOnWeight) m[r] = __shfl_sync(kFull, m_lane, j);
+          const bool live = Entries::kGateOnWeight ? m[r] != 0.f : j < n;
+          const T* hrow = rows + (long long)id * DW + c0 + col;
 #pragma unroll
           for (int u = 0; u < U; ++u) {
-            if (m[r] != 0.f && c0 + col + u * G < DW) h[r][u] = __ldg(hrow + u * G);
+            if (live && c0 + col + u * G < DW) h[r][u] = __ldg(hrow + u * G);
             else set_zero(h[r][u]);
           }
         }
+        // the weights, once the gathers are in flight
+        if (!Entries::kGateOnWeight) {
+#pragma unroll
+          for (int r = 0; r < kSteps; ++r) m[r] = __shfl_sync(kFull, m_lane, s0 + r * kPerStep + sub);
+        }
 #pragma unroll
         for (int r = 0; r < kSteps; ++r) {
+          // weight 0 adds nothing, whatever the row holds
+          if (Entries::kGateOnWeight || m[r] != 0.f) {
 #pragma unroll
-          for (int u = 0; u < U; ++u) fma_into(acc[u], m[r], h[r][u]);
+            for (int u = 0; u < U; ++u) fma_into(acc[u], m[r], h[r][u]);
+          }
         }
       }
     }
-    // group `sub` holds the sum of slots sub, sub + 32/G, ...: combine the
+    // group `sub` holds the sum of entries sub, sub + 32/G, ...: combine the
     // groups in a fixed butterfly; every group ends with the row's sum
 #pragma unroll
     for (int o = G; o < 32; o <<= 1) {
@@ -235,14 +286,32 @@ ell_spmm_kernel(const int* __restrict__ ids, const float* __restrict__ mask,
   }
 }
 
+// Calls f(Int<G>, Int<U>) with the gather's lane group for a row of W
+// units: `with_lane_group`'s, the general form as <32, kMaxUnits>
+template <typename F>
+void with_gather_group(int W, F&& f) {
+  with_lane_group(W, [&](auto g, auto u) {
+    f(g, Int<(decltype(u)::value > 0 ? decltype(u)::value : kMaxUnits)>{});
+  });
+}
+
+template <typename T, int G, int U>
+__global__ void __launch_bounds__(kThreads)
+ell_spmm_kernel(const int* __restrict__ ids, const float* __restrict__ mask,
+                const T* __restrict__ H, T* __restrict__ out,
+                long long V, int K, int DW /* row width in units of T */,
+                bool normalize) {
+  const long long v = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (v >= V) return;  // whole warps leave together: the shuffles stay full
+  gather_row<T, G, U>(EllRow{ids + v * K, mask + v * K, K}, H, out + v * DW, DW, normalize);
+}
+
 template <typename T>
 void launch(const int* ids, const float* mask, const void* H, void* out,
             long long V, int K, int DW, bool normalize, cudaStream_t stream) {
   const unsigned int blocks = (unsigned int)((V + kWarps - 1) / kWarps);
-  with_lane_group(DW, [&](auto g, auto u) {
-    constexpr int G = decltype(g)::value;
-    constexpr int U = decltype(u)::value > 0 ? decltype(u)::value : kMaxUnits;
-    ell_spmm_kernel<T, G, U><<<blocks, kThreads, 0, stream>>>(
+  with_gather_group(DW, [&](auto g, auto u) {
+    ell_spmm_kernel<T, decltype(g)::value, decltype(u)::value><<<blocks, kThreads, 0, stream>>>(
         ids, mask, static_cast<const T*>(H), static_cast<T*>(out), V, K, DW, normalize);
   });
 }
@@ -263,81 +332,91 @@ void launch(const int* ids, const float* mask, const void* H, void* out,
 //
 // Replaces the gradient rule `_ell_spmm_bwd` (src/repro/kernels/ell_spmm.py:98),
 // the custom_vjp around the Pallas call, where XLA scatter-adds
-// mask[v,k] * ct[v] into dH[ids[v,k]].  A scatter on this card needs float
-// atomics, whose order of arrival changes from run to run, and the JAX tiers
-// assert bitwise determinism.  So the kernel reads a CSR transpose of the ELL
-// table (`ell_transpose_plan`, built once per engine) and is a row gather again:
+// mask[v,k] * ct[v] into dH[ids[v,k]]; it serves `ell_attend`'s dH too, the
+// weights in the mask lane.  A scatter on this card needs float atomics,
+// whose order of arrival changes from run to run, and the JAX tiers assert
+// bitwise determinism.  So the kernel reads a CSR transpose of the ELL table
+// (`ell_transpose_plan`, built once per engine) and is a row gather again.
 //
-//   * one warp per row u of dH, kWarps rows per block; the warp stages its
-//     segment 32 slots at a time (one per lane: v = slot / K and its mask) in
-//     its own stretch of shared memory, then every lane walks the staged
-//     slots in order and gathers ct[v] 16 bytes per lane (float4) when
-//     D % 4 == 0 and the pointers are 16-byte aligned, else 4 bytes per lane;
-//   * the sum stays in registers and runs in the plan's fixed slot order: no
-//     atomics, bitwise equal across launches;
+// Bound on this card: bytes.  The function must read every ct row some slot
+// names once, the plan (nnz * 8 + (N+1) * 8) and each listed slot's mask
+// (nnz * 4), and write dH once (N * D * 4), against 2 * nnz * D flops.  Like
+// the forward, a gather that misses L2 re-reads a ct row for every slot that
+// names it, and a slot's mask is one 32-byte sector of its own.  At the
+// gcn-paper layout (16,777,199 listed slots, N = 2**20 + 1) that no-reuse
+// floor at 3.35 TB/s is 5.65 ms at D = 256 (float4), 5.81 at 257, 3.09 at
+// 129, 2.93 at 128, 1.73 at 65, 1.57 at 64 and 1.05 at 33.  The masks are
+// read at random, and random sectors move far below that rate: one
+// index_select of the weights at the plan's slots costs about three times
+// the floor's 0.16 ms for them (chip_smoke.py, `weights_gather_device_ms`),
+// and the kernel runs most of that over the forward kernel over the same
+// entries as an ELL table (`transposed_ell_forward_device_ms`).
+//
+// The design is the forward's, through the same `gather_row`:
+//
+//   * one warp per row u of dH, kWarps rows per block; each plan entry takes
+//     a lane group of G lanes with U units of the row a lane (16-byte float4
+//     units when D % 4 == 0 and ct, dH are 16-byte aligned, else 4-byte
+//     floats), G and U from `with_lane_group`, so one pass covers the row
+//     wherever U <= kMaxUnits: D = 257 one pass of 9 floats a lane (a
+//     warp-wide loop of 2 units a lane took 5 passes, each re-reading the
+//     segment's plan entries and masks), D = 129, 65 and 33 groups of 16, 8
+//     and 4 lanes, D = 64 two entries a step, D = 128 and 256 a whole warp;
+//   * the row's bounds come from one load and a shuffle, so the compiler
+//     knows the segment's length is the warp's own (see the kernel);
+//   * the warp loads its segment 32 entries at a time, coalesced: lane j
+//     holds slots[p0 + j], its source row v = slot / K (a 64-bit divide
+//     into a 32-bit row) and its weight mask[slot]; each group takes its
+//     entry's v by shuffle and issues its gathers, and takes the weight only
+//     then: the weight is a load behind the slot's, and the gathers do not
+//     wait for it.  No shared-memory stage, no __syncwarp;
+//   * the gathers of kSteps entry steps are issued before any FMA, twice as
+//     many steps on the 4-byte path; an entry past the segment's end is
+//     predicated off, one of weight 0 adds nothing; a hub segment loops over
+//     its 32-entry loads;
+//   * each lane sums its group's entries in increasing plan order and the
+//     groups combine in a fixed xor butterfly: bitwise equal across
+//     launches (and equal to the forward run over the same entries as an
+//     ELL table, not to a serial walk over the segment);
 //   * every row is written: an empty segment (the zero pad row of a gather
 //     table among them) gives zeros, so dH needs no clearing pass.
 //
-// Row offsets are 64-bit, as in the forward.
-//
-// Bound on this card: bytes.  The function must read every ct row that some
-// slot names once, the plan (nnz * 8 + (N+1) * 8) and each slot's mask
-// (nnz * 4), and write dH once (N * D * 4), against 2 * nnz * D flops.  Like
-// the forward, a gather that misses L2 re-reads a ct row for every slot that
-// names it (nnz * D * 4 bytes).
+// Registers (nvcc -Xptxas -v, sm_90a) of the instantiations the GNN paths
+// launch, as <unit, G, U>: <float4, 32, 2> (D = 256) 62, <float4, 32, 1>
+// (D = 128) and <float4, 16, 1> (D = 64) 32, <float, 32, 9> (D = 257),
+// <float, 16, 9> (D = 129), <float, 8, 9> (D = 65) and <float, 4, 9>
+// (D = 33) 48 each; none of the 26 instantiations spills.
 
-template <typename T>
+template <typename T, int G, int U>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_transpose_kernel(const long long* __restrict__ indptr,
                           const long long* __restrict__ slots,
                           const float* __restrict__ mask,
                           const T* __restrict__ ct, T* __restrict__ dH,
                           long long N, int K, int DW /* row width in units of T */) {
-  __shared__ long long s_v[kWarps * 32];
-  __shared__ float s_m[kWarps * 32];
-
-  const int warp = threadIdx.x >> 5;
+  const long long u = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (u >= N) return;  // whole warps leave together: the shuffles stay full
   const int lane = threadIdx.x & 31;
-  const long long u = (long long)blockIdx.x * kWarps + warp;
-  if (u >= N) return;  // warps never synchronize across the block
-  long long* my_v = s_v + warp * 32;
-  float* my_m = s_m + warp * 32;
-  const long long p0 = indptr[u];
-  const long long p1 = indptr[u + 1];
-  T* orow = dH + u * (long long)DW;
+  // the row's two bounds in one load (lane 0 indptr[u], lane 1 indptr[u + 1])
+  // handed out by shuffle: the compiler then knows the segment's length is
+  // the warp's own, and the loops over it need no divergence checks around
+  // their shuffles (with each lane loading indptr[u] itself, nvcc wraps
+  // every shuffle in a BRA.DIV test beside a WARPSYNC copy of the loop, and
+  // the 4-byte path runs far slower)
+  const long long bound = __ldg(indptr + u + (lane & 1));
+  const long long p0 = __shfl_sync(kFull, bound, 0);
+  gather_row<T, G, U>(CsrSegment{slots + p0, mask, (int)(__shfl_sync(kFull, bound, 1) - p0), K},
+                      ct, dH + u * DW, DW, false);
+}
 
-  for (int c0 = 0; c0 < DW; c0 += 32 * kVecPerLane) {
-    T acc[kVecPerLane];
-#pragma unroll
-    for (int r = 0; r < kVecPerLane; ++r) set_zero(acc[r]);
-
-    for (long long p = p0; p < p1; p += 32) {
-      const int n = (p1 - p) < 32 ? (int)(p1 - p) : 32;
-      __syncwarp();  // every lane is done reading the previous stage
-      if (lane < n) {
-        const long long s = slots[p + lane];
-        my_v[lane] = s / K;
-        my_m[lane] = mask[s];
-      }
-      __syncwarp();
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const float m = my_m[j];  // the same for the whole warp
-        const T* crow = ct + my_v[j] * (long long)DW;
-#pragma unroll
-        for (int r = 0; r < kVecPerLane; ++r) {
-          const int col = c0 + r * 32 + lane;
-          if (col < DW) fma_into(acc[r], m, __ldg(crow + col));
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kVecPerLane; ++r) {
-      const int col = c0 + r * 32 + lane;
-      if (col < DW) orow[col] = acc[r];
-    }
-  }
+template <typename T>
+void launch_transpose(const long long* indptr, const long long* slots, const float* mask,
+                      const void* ct, void* dH, long long N, int K, int DW, cudaStream_t s) {
+  const unsigned int blocks = (unsigned int)((N + kWarps - 1) / kWarps);
+  with_gather_group(DW, [&](auto g, auto u) {
+    ell_spmm_transpose_kernel<T, decltype(g)::value, decltype(u)::value><<<blocks, kThreads, 0, s>>>(
+        indptr, slots, mask, static_cast<const T*>(ct), static_cast<T*>(dH), N, K, DW);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -498,7 +577,9 @@ extern "C" int ell_spmm_launch(const void* ids, const void* mask, const void* H,
 }
 
 // Plain C entry point of the transpose.  N >= 1 and D >= 1: the wrapper
-// returns early for empty shapes.  Returns cudaGetLastError() after the launch.
+// returns early for empty shapes; ct's rows and the plan's slots number
+// fewer than 2**31 (the kernel's 32-bit rows and segment lengths).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int ell_spmm_transpose_launch(const void* indptr, const void* slots,
                                          const void* mask, const void* ct, void* dH,
                                          long long N, int K, int D, void* stream) {
@@ -507,16 +588,8 @@ extern "C" int ell_spmm_transpose_launch(const void* indptr, const void* slots,
   const long long* slots_i = static_cast<const long long*>(slots);
   const float* mask_f = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = (unsigned int)((N + kWarps - 1) / kWarps);
-  if (vec4) {
-    ell_spmm_transpose_kernel<float4><<<blocks, kThreads, 0, s>>>(
-        indptr_i, slots_i, mask_f, static_cast<const float4*>(ct),
-        static_cast<float4*>(dH), N, K, D / 4);
-  } else {
-    ell_spmm_transpose_kernel<float><<<blocks, kThreads, 0, s>>>(
-        indptr_i, slots_i, mask_f, static_cast<const float*>(ct),
-        static_cast<float*>(dH), N, K, D);
-  }
+  if (vec4) launch_transpose<float4>(indptr_i, slots_i, mask_f, ct, dH, N, K, D / 4, s);
+  else launch_transpose<float>(indptr_i, slots_i, mask_f, ct, dH, N, K, D, s);
   return (int)cudaGetLastError();
 }
 

@@ -150,9 +150,12 @@ def ell_spmm_transpose(ids: torch.Tensor, mask: torch.Tensor, ct: torch.Tensor,
         plan = ell_transpose_plan(ids, mask, N)
     _check_plan(plan, N, ct.device, "ell_spmm_transpose")
     indptr, slots = plan
+    (V, K), D = ids.shape, ct.shape[1]
+    if max(V, slots.numel()) >= 2 ** 31:  # the kernel's 32-bit rows and segments
+        raise ValueError(f"ell_spmm_transpose: ct's {V} rows and the plan's "
+                         f"{slots.numel()} slots must each be below 2**31")
     if normalize:
         ct = (ct / torch.clamp(mask.sum(1, keepdim=True), min=1.0)).contiguous()
-    (V, K), D = ids.shape, ct.shape[1]
     dH = torch.empty((N, D), dtype=torch.float32, device=ct.device)
     if N == 0 or D == 0:
         return dH

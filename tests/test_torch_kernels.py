@@ -122,10 +122,27 @@ def test_ell_spmm_matches_pallas_and_plain(V, K, N, D, kind, normalize):
         assert not got[: V // 4].any()
 
 
-@pytest.mark.parametrize("V,K,N,D,kind,normalize", CASES)
+# the gradient tier adds a hub row (one row of dH named by more than 1000
+# slots: on the card, a segment of many 32-entry loads) and the widths 64
+# and 128 at 40 slots a row (the transpose's lane groups of 16 lanes and a
+# whole warp a plan entry on the 16-byte path)
+GRAD_CASES = CASES + [
+    (300, 12, 400, 64, "hub_row", False),
+    (200, 40, 300, 64, "weighted", False),
+    (200, 40, 300, 128, "binary", True),
+]
+
+
+@pytest.mark.parametrize("V,K,N,D,kind,normalize", GRAD_CASES)
 def test_ell_spmm_gradient_matches_jax_vjp(V, K, N, D, kind, normalize):
     ids, mask, H = _inputs(V, K, N, D, kind)
     ct = np.random.default_rng(7).standard_normal((V, D)).astype(np.float32)
+    if kind == "hub_row":
+        assert int(((ids == 1) & (mask != 0)).sum()) > 1000
+        # the hub's 1000-term sum at unit scale, the scale the fp32
+        # tolerance is set for: at unit ct it reaches ~100, where JAX's
+        # scatter-add on a GPU and a serial sum part by ~1e-4
+        ct /= 100
     Ht = torch.from_numpy(H).requires_grad_()
     out = ell_spmm(torch.from_numpy(ids), torch.from_numpy(mask), Ht,
                    normalize=normalize)
@@ -296,8 +313,8 @@ def test_cuda_kernel_matches_plain_on_card(cuda_device, V, K, N, D, kind,
                                atol=TOL, rtol=TOL)
 
 
-# widths that reach every lane group of the forward (G lanes a slot, U
-# units a lane: `with_lane_group` in csrc/ell_spmm.cu) on the 4-byte path
+# widths that reach every lane group of the forward and the transpose (G
+# lanes a slot, U units a lane: `with_lane_group` in csrc/ell_spmm.cu) on the 4-byte path
 # (odd widths, and every width with H 4 bytes off alignment) and on the
 # 16-byte path (D % 4 == 0, H aligned), the general form past 288 units
 LANE_GROUP_WIDTHS = [1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
@@ -367,6 +384,120 @@ def test_cuda_transpose_kernel_matches_plain_on_card(cuda_device, V, K, N, D,
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", LANE_GROUP_WIDTHS)
+def test_cuda_transpose_lane_groups_on_card(cuda_device, D):
+    """The transpose runs the forward's row gather over the plan: every lane
+    group, ct aligned and 4 bytes off alignment, 40 slots a row."""
+    V, K, N = 257, 40, 400
+    ids, mask, _ = (torch.from_numpy(a).to(cuda_device)
+                    for a in _inputs(V, K, N, 1, "weighted"))
+    plan = ell_transpose_plan(ids, mask, N)
+    flat = torch.randn(V * D + 1, device=cuda_device)
+    for ct in (flat[:-1].view(V, D), flat[1:].view(V, D)):
+        for normalize in (False, True):
+            before = ell_spmm_transpose.launches
+            got, again = (ell_spmm_transpose(ids, mask, ct, N,
+                                             normalize=normalize, plan=plan)
+                          for _ in range(2))
+            want = tref.ell_spmm_transpose_ref(ids, mask, ct, N,
+                                               normalize=normalize)
+            torch.cuda.synchronize()
+            assert ell_spmm_transpose.launches == before + 2
+            assert torch.equal(got, again)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", [64, 257])
+def test_cuda_transpose_hub_segment_on_card(cuda_device, D):
+    """A row of dH named by 10,000 slots (a segment of 313 loads of 32
+    entries) and odd rows named by none: bitwise equal across launches,
+    every empty row 0.  ct is drawn at scale 1/100 so that the hub's sum is
+    unit-scale, the scale the fp32 tolerance is set for."""
+    V, K, N = 4096, 8, 3000
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, N, (V, K)).astype(np.int32)
+    ids -= ids % 2
+    mask = (rng.random((V, K)) < 0.6).astype(np.float32)
+    hub = rng.choice(V * K, 10000, replace=False)
+    ids.reshape(-1)[hub], mask.reshape(-1)[hub] = 6, 1.0
+    ct = (rng.standard_normal((V, D)) / 100).astype(np.float32)
+    ids_c, mask_c, ct_c = (t.to(cuda_device) for t in _t(ids, mask, ct))
+    plan = ell_transpose_plan(ids_c, mask_c, N)
+    got, again = (ell_spmm_transpose(ids_c, mask_c, ct_c, N, normalize=False,
+                                     plan=plan) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[1::2].any()
+    want = np.zeros((N, D))
+    np.add.at(want, ids[mask != 0], (mask[..., None] * ct[:, None, :])[mask != 0])
+    np.testing.assert_allclose(got.cpu().numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", [33, 129, 257])
+def test_cuda_transpose_misaligned_odd_width_on_card(cuda_device, D):
+    """ct 4 bytes off 16-byte alignment at the odd widths of the GAT
+    exchange: the 4-byte path with every row start misaligned."""
+    V, K, N = 1003, 40, 700
+    ids, mask, _ = (torch.from_numpy(a).to(cuda_device)
+                    for a in _inputs(V, K, N, 1, "weighted", seed=3))
+    ct = torch.randn(V * D + 1, device=cuda_device)[1:].view(V, D)
+    plan = ell_transpose_plan(ids, mask, N)
+    for normalize in (False, True):
+        got, again = (ell_spmm_transpose(ids, mask, ct, N, normalize=normalize,
+                                         plan=plan) for _ in range(2))
+        want = tref.ell_spmm_transpose_ref(ids, mask, ct, N,
+                                           normalize=normalize)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", [33, 64])
+def test_cuda_transpose_slots_past_2_31_on_card(cuda_device, D):
+    """V * K past 2**31 (65,537 rows of 32,768 slots, 16 GB of ids and mask):
+    the slots are divided in 64 bits into 32-bit rows.  The plan is built
+    from the unmasked positions, 2,000 of them past 2**31."""
+    V, K, N = 65537, 32768, 5000
+    gen = torch.Generator().manual_seed(13)
+    ids = torch.zeros((V, K), dtype=torch.int32, device=cuda_device)
+    mask = torch.zeros((V, K), device=cuda_device)
+    pos = torch.unique(torch.cat([
+        torch.randint(0, V * K, (200000,), generator=gen),
+        (V - 1) * K + torch.randperm(K, generator=gen)[:2000]]).to(cuda_device))
+    ids.view(-1)[pos] = torch.randint(0, N, (pos.numel(),), generator=gen,
+                                      dtype=torch.int32).to(cuda_device)
+    mask.view(-1)[pos] = torch.rand(pos.numel(), generator=gen).to(cuda_device)
+    mask.view(-1)[pos] += 0.1
+    named, order = torch.sort(ids.view(-1)[pos].long(), stable=True)
+    plan = (torch.searchsorted(named, torch.arange(N + 1, device=cuda_device)),
+            pos[order])
+    ct = torch.randn((V, D), generator=gen).to(cuda_device)
+    got, again = (ell_spmm_transpose(ids, mask, ct, N, normalize=False,
+                                     plan=plan) for _ in range(2))
+    want = tref.ell_spmm_transpose_ref(ids, mask, ct, N, normalize=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=TOL, rtol=TOL)
+
+
+def test_cuda_transpose_rejects_2_31_rows_on_card(cuda_device):
+    """ct with 2**31 rows (ids, mask and ct of 8 GB each, every slot masked):
+    the kernel keeps rows in 32 bits, so the wrapper raises, launching
+    nothing."""
+    V, N = 2 ** 31, 4
+    ids = torch.zeros((V, 1), dtype=torch.int32, device=cuda_device)
+    mask, ct = (torch.zeros((V, 1), device=cuda_device) for _ in range(2))
+    plan = (torch.zeros(N + 1, dtype=torch.int64, device=cuda_device),
+            torch.zeros(0, dtype=torch.int64, device=cuda_device))
+    before = ell_spmm_transpose.launches
+    with pytest.raises(ValueError, match="below 2"):
+        ell_spmm_transpose(ids, mask, ct, N, normalize=False, plan=plan)
+    assert ell_spmm_transpose.launches == before
 
 
 @pytest.mark.parametrize("V,K,N,D,kind,normalize", CASES[::3])
