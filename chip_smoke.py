@@ -12,12 +12,17 @@ tokens; bf16 causal and non-causal, fp32 causal) and `ops.wkv` at
 rwkv6-3b's (40 heads of key dim 64, chunk 64, four 4096-token sequences).
 Then the GNN paths at the full width of the gcn-paper workload (a
 2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
-exchange_chunks 1 and 2 each and for the models gcn and gat: the layer-wise
-inference sweep
-(`launch/serve_gnn.run_sweep`) and the full-graph training step
-(`launch/train_gnn.run_training`; lr 0.1 for gcn, 1.0 for gat), each held to
-its single-device reference, with every kernel's launches counted from 0
-around each drive.  Each phase prints one JSON line; the next-to-last lines
+exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
+layer-wise inference sweep (`launch/serve_gnn.run_sweep`) and the
+full-graph training step (`launch/train_gnn.run_training`; lr `TRAIN_LR`),
+each held to its single-device reference, with every kernel's launches
+counted from 0 around each drive.  Last, gcn and gat at exchange_chunks 2
+once more inside a world-size-1 NCCL group joined through the launchers'
+group options (phases `nccl_sweep`, `nccl_train`): the all_gather, its
+reduce-scatter and the all_reduce run on the card, every collective call is
+counted, and the results must equal the runs without a group bit for bit
+(one rank: the collectives are copies on the card, no wire time).  Each
+phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
 ``--jsonl PATH`` every phase line is also appended to PATH.  Any failed check
@@ -27,11 +32,14 @@ card and the repository's `src/` beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import warnings
@@ -58,8 +66,14 @@ LANE_GROUP_WIDTHS = (1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
 TRAIN_STEPS = 5
 # the loss falls at every step at this width: gcn overshoots from lr 0.3;
 # gat fell at every step from 0.05 to 10 on the CPU at this width (2**14
-# vertices) and diverged at 20
-TRAIN_LR = {"gcn": 0.1, "gat": 1.0}
+# vertices) and diverged at 20; on the CPU at 2**14 vertices sage fell at
+# every step from 0.05 to 0.3 and rose at 1.0, gin fell from 0.05 to 3.0,
+# most in 5 steps at 0.1; at 0.1 both fell at every step on the H100 at
+# this width (sage 4.51 to 3.65, gin 4.28 to 4.08)
+TRAIN_LR = {"gcn": 0.1, "sage": 0.1, "gin": 0.1, "gat": 1.0}
+MODELS = ("gcn", "sage", "gin", "gat")
+# the models and exchange_chunks the world-size-1 NCCL group runs
+NCCL_MODELS, NCCL_CHUNKS = ("gcn", "gat"), 2
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -129,19 +143,55 @@ def step_launches(model: str, L: int, C: int, T: int) -> dict:
     the transpose for layers 1.. (layer 0 aggregates the constant features).
     gat: the attend forward, its transpose and its dw per layer and chunk
     (layer 0's Hw depends on w), and one slot transpose per layer for the
-    attention column's gather (chunk 0 only)."""
-    if model == "gcn":
+    attention column's gather (chunk 0 only).  sage and gin launch gcn's."""
+    if model != "gat":
         return dict(ell_spmm=L * C * T, ell_spmm_transpose=(L - 1) * C * T)
     return dict(ell_spmm=L * C * T, ell_spmm_transpose=L * C * T,
                 ell_attend_dw=L * C * T, ell_slot_transpose=L * T)
+
+
+def check_calls(got: dict, want: dict, what: str) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    check(got == want, f"{what}: collective calls {got}, expected {want}")
+
+
+def step_calls(model: str, L: int, C: int, T: int) -> dict:
+    """Collective calls of T training steps in a process group, then the
+    all_gather of the last logits: an all_gather per layer and chunk, a
+    reduce-scatter (its backward) per layer and chunk whose table needs a
+    gradient (as the transpose: not layer 0's constant features, but gat's
+    Hw), and one flat all_reduce of the loss and the gradients a step."""
+    grad_layers = L if model == "gat" else L - 1
+    return dict(all_gather=L * C * T + 1, reduce_scatter=grad_layers * C * T,
+                all_reduce=T)
+
+
+def compare_baseline(name: str, result: dict, baseline: dict, keys) -> dict:
+    """The phase's result against the same phase without a process group:
+    bitwise equal in ``keys`` (arrays, lists of floats, or lists of layers
+    of tensors), and both medians side by side."""
+    def equal(a, b):
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        if isinstance(a, list) and a and isinstance(a[0], dict):
+            return all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+                       for k in x)
+        return a == b
+    for key in keys:
+        check(equal(result[key], baseline[key]),
+              f"{name}: {key} differs from the run without a group")
+    return dict(bitwise_equal_to_no_group=True,
+                no_group_median_ms=baseline["median_ms"],
+                timing_note="world-size-1 NCCL group: each collective is a "
+                            "copy on the card, no wire time")
 
 
 def reference_launches(model: str, L: int, T: int, backward: bool) -> dict:
     """Launches of T reference steps (or sweeps: no backward).  The gcn
     reference is plain throughout; gat's edge logits go through the SDDMM
     kernel and its gradient through the slot transpose, as the reference
-    calls its Pallas SDDMM."""
-    if model == "gcn":
+    calls its Pallas SDDMM.  sage and gin: as gcn."""
+    if model != "gat":
         return {}
     return dict(sddmm=L * T, ell_slot_transpose=L * T if backward else 0)
 
@@ -1039,17 +1089,41 @@ def wkv_phase(device):
     return rows, launches
 
 
-def sweep_phase(g, chunks, device, model="gcn"):
+def release() -> None:
+    """Free what earlier phases left: an engine sits in reference cycles
+    (its backend and its step hold it), so its device tables go only when
+    the garbage collector runs; without this a phase's peak memory could
+    count an earlier phase's engine."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_name(kind: str, model: str, group: list) -> str:
+    """sweep, train (gcn), <model>_sweep, <model>_train; nccl_sweep and
+    nccl_train in the world-size-1 NCCL group."""
+    if group:
+        return f"nccl_{kind}"
+    return kind if model == "gcn" else f"{model}_{kind}"
+
+
+def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     """The main path: SWEEPS timed layer-wise sweeps through
-    serve_gnn.run_sweep at full width, launches counted from 0; then the
-    reference sweep, its launches counted apart."""
+    serve_gnn.run_sweep at full width, kernel launches and collective calls
+    counted from 0; then the reference sweep, its launches counted apart.
+    ``group``: the launcher's process-group options (the engine then runs
+    over the group already joined); ``baseline``: the same phase's result
+    without a group, which this one must equal bit for bit."""
+    from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import init_gnn_params
     from repro_torch.launch import serve_gnn
 
+    name = phase_name("sweep", model, group)
+    release()
     t0 = time.perf_counter()
     args = serve_gnn.parse_args([
         "--device", str(device), "--exec", "broadcast", "--model", model,
-        "--exchange-chunks", str(chunks), "--hidden", "256", "--layers", "3"])
+        "--exchange-chunks", str(chunks), "--hidden", "256", "--layers", "3",
+        *group])
     eng = serve_gnn.build_engine(args, g)
     params = init_gnn_params(model, eng.dims, torch.Generator().manual_seed(0),
                              eng.device)
@@ -1057,17 +1131,22 @@ def sweep_phase(g, chunks, device, model="gcn"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    collectives.zero_calls()
     embs, walls = [], []
     for _ in range(SWEEPS):
         emb, wall = serve_gnn.run_sweep(eng, params)
         embs.append(emb)
         walls.append(wall)
     launches = read_counts()
+    calls = collectives.read_calls()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    # a sweep runs the forward kernel per layer and chunk and no backward
+    # a sweep runs the forward kernel per layer and chunk and no backward;
+    # in a group an all_gather per layer and chunk, then one of the output
     check_counts(launches, dict(ell_spmm=L * chunks * SWEEPS),
-                 f"{model} sweeps")
+                 f"{name} {model}")
+    check_calls(calls, dict(all_gather=(L * chunks + 1) * SWEEPS)
+                if group else {}, f"{name} {model}")
     emb = embs[-1]
     check(emb.shape == (g.num_vertices, eng.dims[-1]), f"shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
@@ -1082,48 +1161,63 @@ def sweep_phase(g, chunks, device, model="gcn"):
     err = float(np.max(np.abs(emb - ref)))
     check(err <= TOL, f"sweep vs reference sweep: {err} > {TOL}")
     median_s = float(np.median(walls))
-    emit("sweep" if model == "gcn" else f"{model}_sweep", model=model,
+    result = dict(emb=emb, median_ms=median_s * 1e3)
+    extra = {}
+    if baseline is not None:
+        extra = compare_baseline(name, result, baseline, ("emb",))
+    emit(name, model=model,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, sweeps=SWEEPS, walls_ms=[w * 1e3 for w in walls],
          median_ms=median_s * 1e3, vertices_per_s=g.num_vertices / median_s,
          launches=launches, reference_launches=ref_launches,
          launches_per_sweep=launches["ell_spmm"] / SWEEPS,
-         bitwise_equal_sweeps=bitwise, oracle_max_abs_err=err, oracle_tol=TOL,
+         collective_calls=calls, bitwise_equal_sweeps=bitwise,
+         oracle_max_abs_err=err, oracle_tol=TOL,
          inference_bytes=eng.comm_stats.inference_bytes,
-         max_memory_allocated=peak, setup_s=setup_s)
+         max_memory_allocated=peak, setup_s=setup_s, **extra)
     add_counts(launches, ref_launches)
-    return eng, params, launches
+    return eng, params, launches, result
 
 
-def train_phase(g, chunks, device, model="gcn"):
+def train_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     """The training path: TRAIN_STEPS timed steps through
-    train_gnn.run_training at full width, launches counted from 0; then a
-    second run from the same initial state with the single-device reference
-    run (per-step loss gap <= TOL), which must be bitwise equal to the first
-    in losses and in every parameter."""
+    train_gnn.run_training at full width, kernel launches and collective
+    calls counted from 0; then a second run from the same initial state with
+    the single-device reference run (per-step loss gap <= TOL), which must
+    be bitwise equal to the first in losses and in every parameter.
+    ``group`` and ``baseline`` as in `sweep_phase`."""
+    from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import PARAM_KEYS
     from repro_torch.launch import train_gnn
 
+    name = phase_name("train", model, group)
     lr = TRAIN_LR[model]
+    release()
     t0 = time.perf_counter()
     args = train_gnn.parse_args([
         "--device", str(device), "--exec", "broadcast", "--protocol", "sync",
         "--model", model, "--exchange-chunks", str(chunks), "--hidden", "256",
-        "--layers", "3", "--lr", str(lr)])
+        "--layers", "3", "--lr", str(lr), *group])
     eng = train_gnn.build_engine(args, g)  # the transpose plan included
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    collectives.zero_calls()
     run = train_gnn.run_training(eng, TRAIN_STEPS)
     launches = read_counts()
+    calls = collectives.read_calls()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
     step_want = step_launches(model, L, chunks, TRAIN_STEPS)
-    check_counts(launches, step_want, f"{model} training, {TRAIN_STEPS} steps")
+    check_counts(launches, step_want,
+                 f"{name} {model}, {TRAIN_STEPS} steps")
+    check_calls(calls, step_calls(model, L, chunks, TRAIN_STEPS)
+                if group else {}, f"{name} {model}, {TRAIN_STEPS} steps")
     losses = run["losses"]
     check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"the loss did not fall at every step: {losses}")
     logits = run["logits"]
     check(tuple(logits.shape) == (eng.Vp, eng.dims[-1]), f"logits {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -1132,12 +1226,17 @@ def train_phase(g, chunks, device, model="gcn"):
     del run, logits
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    collectives.zero_calls()
     again = train_gnn.run_training(eng, TRAIN_STEPS, oracle_check=True)
     again_launches = read_counts()
     ref_peak = torch.cuda.max_memory_allocated()
     want = dict(step_want)
     add_counts(want, reference_launches(model, L, TRAIN_STEPS, backward=True))
-    check_counts(again_launches, want, f"{model} training with its reference")
+    check_counts(again_launches, want, f"{name} {model} with its reference")
+    # the reference runs no collective
+    check_calls(collectives.read_calls(), step_calls(
+        model, L, chunks, TRAIN_STEPS) if group else {},
+        f"{name} {model} with its reference")
     keys = PARAM_KEYS[model]
     bitwise = again["losses"] == losses and all(
         torch.equal(a[key], b[key]) for a, b in
@@ -1147,7 +1246,12 @@ def train_phase(g, chunks, device, model="gcn"):
     gaps = [abs(a - b) for a, b in zip(losses, again["ref_losses"])]
     check(max(gaps) <= TOL, f"step vs reference step: {gaps} > {TOL}")
     median_s = float(np.median(walls))
-    emit("train" if model == "gcn" else f"{model}_train", model=model,
+    result = dict(losses=losses, median_ms=median_s * 1e3, params=[
+        {key: p[key].cpu() for key in keys} for p in params["layers"]])
+    extra = {}
+    if baseline is not None:
+        extra = compare_baseline(name, result, baseline, ("losses", "params"))
+    emit(name, model=model,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, lr=lr, steps=TRAIN_STEPS, losses=losses,
          ref_losses=again["ref_losses"], loss_gaps=gaps, oracle_tol=TOL,
@@ -1155,11 +1259,13 @@ def train_phase(g, chunks, device, model="gcn"):
          walls_second_run_ms=[w * 1e3 for w in again["walls"]],
          median_step_ms=median_s * 1e3, steps_per_s=1.0 / median_s,
          train_acc=train_acc, test_acc=test_acc, launches=launches,
-         launches_with_reference=again_launches, param_keys=list(keys),
-         bitwise_equal_runs=bitwise, max_memory_allocated=peak,
-         max_memory_allocated_with_reference=ref_peak, setup_s=setup_s)
+         launches_with_reference=again_launches, collective_calls=calls,
+         param_keys=list(keys), bitwise_equal_runs=bitwise,
+         max_memory_allocated=peak,
+         max_memory_allocated_with_reference=ref_peak, setup_s=setup_s,
+         **extra)
     add_counts(launches, again_launches)
-    return eng, launches
+    return eng, launches, result
 
 
 def trace(fn):
@@ -1246,6 +1352,8 @@ def main(argv=None) -> int:
     from repro_torch.configs.gcn_paper import CONFIG
     from repro_torch.core.graph import er_graph
     from repro_torch.kernels import build
+    from repro_torch.launch import train_gnn
+    from repro_torch.launch.common import join_group, leave_group
 
     if args.jsonl:
         os.makedirs(os.path.dirname(os.path.abspath(args.jsonl)), exist_ok=True)
@@ -1278,10 +1386,13 @@ def main(argv=None) -> int:
     emit("graph", generator="er_graph", vertices=g.num_vertices,
          edges=g.num_edges, seconds=time.perf_counter() - t0)
 
-    for model in ("gcn", "gat"):
+    baselines = {}  # the no-group results the NCCL phases must equal
+    for model in MODELS:
         for chunks in (1, 2):
-            eng, params, n = sweep_phase(g, chunks, device, model)
+            eng, params, n, result = sweep_phase(g, chunks, device, model)
             add_counts(launches, n)
+            if model in NCCL_MODELS and chunks == NCCL_CHUNKS:
+                baselines["sweep", model] = result
             if chunks == 1:
                 L = len(eng.dims) - 1
                 # kernel cases at the main path's own layout, counted apart
@@ -1296,10 +1407,12 @@ def main(argv=None) -> int:
                         rows[name] = rows.get(name, []) + extra
             del eng, params
             torch.cuda.empty_cache()
-    for model in ("gcn", "gat"):
+    for model in MODELS:
         for chunks in (1, 2):
-            eng, n = train_phase(g, chunks, device, model)
+            eng, n, result = train_phase(g, chunks, device, model)
             add_counts(launches, n)
+            if model in NCCL_MODELS and chunks == NCCL_CHUNKS:
+                baselines["train", model] = result
             if chunks == 1 or model == "gat":
                 step, state = eng.make_step(), eng.init_state()
                 L = len(eng.dims) - 1
@@ -1312,6 +1425,32 @@ def main(argv=None) -> int:
                 del step, state
             del eng
             torch.cuda.empty_cache()
+    # the same paths over a world-size-1 NCCL group, joined through the
+    # launchers' group options: the all_gather, its reduce-scatter and the
+    # all_reduce run on the card; bitwise equal to the runs without a group
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    group = ["--world-size", "1", "--rank", "0", "--init-method",
+             f"file://{rendezvous}/rendezvous"]
+    group_args = train_gnn.parse_args(["--device", "cuda", *group])
+    join_group(group_args)
+    try:
+        emit("nccl_group", backend=torch.distributed.get_backend(),
+             world_size=torch.distributed.get_world_size(),
+             note="one rank on one card: the collectives are checked, not "
+                  "timed as wire transfers")
+        for model in NCCL_MODELS:
+            eng, _, n, _ = sweep_phase(g, NCCL_CHUNKS, device, model, group,
+                                       baselines["sweep", model])
+            add_counts(launches, n)
+            del eng
+            eng, n, _ = train_phase(g, NCCL_CHUNKS, device, model, group,
+                                    baselines["train", model])
+            add_counts(launches, n)
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        leave_group(group_args)
+        shutil.rmtree(rendezvous, ignore_errors=True)
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 

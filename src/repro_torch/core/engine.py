@@ -1,25 +1,32 @@
 """DistGNNEngine (the port's counterpart of `repro/core/engine.py`): the
 synchronous full-graph training step and the layer-wise full-graph inference
-sweep on one card.
+sweep, one process per rank over `torch.distributed`.
 
-The engine builds the partition family's layout (`partition/layout_api.py`),
-moves the ELL constants and the feature plane onto its device once, and runs
-each layer through the family's ExchangeBackend
-(`execution/exchange_api.py`).  gcn: exchange (chunked), masked ELL multiply
-through the hand-written CUDA kernel, degree normalization, then the dense
-combine.  gat: the fused [a_src.Hw | Hw] exchange, the masked
-segment-softmax and the attention-weighted ELL sum (`ell_attend`).  The
-training step (`make_step`) runs the same forward under autograd, so every
-gather's backward is a CUDA kernel over a CSR transpose plan built once here
-(the transpose, ell_attend's dw, the slot transpose).  `make_reference_step`
-and `infer_full_graph(reference=True)` run an independent plain-PyTorch
-gather over the same padded space (gat's edge logits through the SDDMM
-kernel, as the reference's do): the oracle every step and sweep is held to.
+The engine builds the partition family's layout (`partition/layout_api.py`)
+whole on the host, identically on every rank, moves this rank's block of the
+ELL constants and of the feature plane onto its device once, and runs each
+layer through the family's ExchangeBackend (`execution/exchange_api.py`).
+gcn, sage, gin: exchange (chunked; an all_gather over the process group),
+masked ELL multiply through the hand-written CUDA kernel, degree
+normalization, then the model's dense combine with the rank's own rows.
+gat: the fused [a_src.Hw | Hw] exchange, the masked segment-softmax and the
+attention-weighted ELL sum (`ell_attend`).  The training step (`make_step`)
+runs the same forward under autograd, so every gather's backward is a CUDA
+kernel over a CSR transpose plan built once here (the transpose,
+ell_attend's dw, the slot transpose) and every all_gather's backward a
+reduce-scatter; the loss numerator and the gradients are then summed over
+the ranks in one all_reduce.  `make_reference_step` and
+`infer_full_graph(reference=True)` run an independent plain-PyTorch gather
+over the whole padded space on every rank, with no collective (gat's edge
+logits through the SDDMM kernel, as the reference's do): the oracle every
+step and sweep is held to.
 
-Ported: models gcn and gat, partition family edge_cut, execution broadcast,
-batching full_graph, protocol sync, one rank.  Everything else raises
-NotImplementedError naming the slice it waits for.  The async protocols and
-telemetry arrive with their own slices.
+Ported: models gcn, sage, gat and gin, partition family edge_cut (hash and
+range), execution broadcast, batching full_graph, protocol sync, on any
+number of ranks.  The ranks are the process group's (`execution/
+collectives.py`); without one the engine runs on one rank.  Everything else
+raises NotImplementedError naming the slice it waits for.  The async
+protocols and telemetry arrive with their own slices.
 """
 from __future__ import annotations
 
@@ -28,15 +35,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from repro_torch.core.execution import collectives
 from repro_torch.core.execution.exchange_api import make_backend
 from repro_torch.core.graph import Graph
 from repro_torch.core.models.gnn import (
     PARAM_KEYS,
     accuracy,
     init_gnn_params,
-    require_ported,
     softmax_xent,
 )
 from repro_torch.core.partition.edge_cut import Partition
@@ -67,17 +73,13 @@ class EngineConfig:
     model: str = "gcn"  # gcn | sage | gat | gin — the GNN layer program
     partition_family: str = "edge_cut"  # edge_cut | vertex_cut | hybrid
     partitioner: str = "hash"  # edge_cut: any key of PARTITIONERS (hash and
-    #   range are ported; with one rank every partitioner gives part 0)
+    #   range are ported)
     batching: str = "full_graph"  # full_graph | node_wise | layer_wise | subgraph
     exchange_chunks: int = 1  # feature-dim chunks of the exchange
     hidden: int = 32
     num_layers: int = 2
     lr: float = 0.5  # SGD step of the training step
     seed: int = 0  # init_state's params generator
-
-
-def _world_size() -> int:
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _leaves(params: Dict, keys) -> List[torch.Tensor]:
@@ -154,7 +156,9 @@ class DistGNNEngine:
     ``device`` is where the step and the sweep run: "cuda" by default, and
     the constructor raises when CUDA is missing unless the caller asks for
     "cpu" (where the ELL multiply and its gradient take the kernels' plain
-    versions)."""
+    versions).  The ranks are the process group's, one engine per rank
+    (`collectives.init_group`, before the engine is built); a
+    ``partition`` must have as many parts."""
 
     def __init__(self, g: Graph, cfg: Optional[EngineConfig] = None,
                  partition: Optional[Partition] = None, *, device="cuda"):
@@ -177,17 +181,21 @@ class DistGNNEngine:
                 f"protocol={cfg.protocol!r}: only sync is ported; the "
                 "historical-embedding protocols arrive with their own slice "
                 "(the async_hist slice, ROADMAP queue 1 item 6)")
-        require_ported(cfg.model)
         if cfg.batching != "full_graph":
             raise NotImplementedError(
                 f"batching={cfg.batching!r}: only full_graph is ported; the "
                 "sampled mini-batch path arrives with its own slice")
-        self.k = _world_size() if partition is None else partition.num_parts
-        if cfg.execution != "broadcast" or self.k != 1:
+        self.k = collectives.world_size()
+        if partition is not None and partition.num_parts != self.k:
+            raise ValueError(
+                f"the partition has {partition.num_parts} parts and the "
+                f"process group {self.k} rank(s): they must be equal")
+        self.rank = collectives.rank()
+        if cfg.execution != "broadcast":
             raise NotImplementedError(
-                f"execution={cfg.execution!r} on {self.k} rank(s): only "
-                "broadcast on one rank is ported; the multi-rank slice adds "
-                "broadcast/ring/p2p over torch.distributed")
+                f"execution={cfg.execution!r}: only broadcast is ported; ring "
+                "arrives with the ring slice (ROADMAP queue 1 item 4), p2p "
+                "with the p2p slice (item 5)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -199,22 +207,32 @@ class DistGNNEngine:
         self.g = g
         builder = get_layout_builder(cfg.partition_family)
         lay = self.playout = builder(g, self.k, cfg, partition=partition,
-                                     device=self.device)
+                                     device=self.device, rank=self.rank)
         for name in ENGINE_MIRROR_ATTRS:
             setattr(self, name, getattr(lay, name))
         consts = lay.exchange_consts()
-        ids = torch.from_numpy(consts["ids"]).to(self.device)
-        mask = torch.from_numpy(consts["mask"]).to(self.device)
+        # this rank's rows of every per-vertex table; the ids still index
+        # the whole [k*nb + 1] gather table
+        own = slice(self.rank * self.nb, (self.rank + 1) * self.nb)
+
+        def upload(a):
+            return torch.from_numpy(np.ascontiguousarray(a[own])).to(
+                self.device)
+        ids, mask = upload(consts["ids"]), upload(consts["mask"])
         # the CSR transpose of the ELL table over the gather table's rows
         # (every rank's block + the zero pad row): built once, read by
         # every backward of a gather over it (every layer, chunk and step)
         plan = ell_transpose_plan(ids, mask, self.k * self.nb + 1)
         self._consts = dict(
-            ids=ids, mask=mask, plan=plan,
-            deg=torch.from_numpy(lay.deg).to(self.device),
-            y=torch.from_numpy(lay.y).long().to(self.device),
-            train_w=torch.from_numpy(lay.train_w).to(self.device),
-            test_w=torch.from_numpy(lay.test_w).to(self.device))
+            ids=ids, mask=mask, plan=plan, deg=upload(lay.deg),
+            y=upload(lay.y).long(), train_w=upload(lay.train_w),
+            test_w=upload(lay.test_w))
+        # the loss's denominator, max(sum of every rank's weights, 1)
+        w_sum = self._consts["train_w"].sum()
+        if collectives.group_active():
+            (w_sum,) = collectives.all_reduce_flat([w_sum])
+        self._den = torch.clamp(w_sum, min=1.0)
+        self._global = None  # the whole layout's tables: `_global_consts`
         self.backend = make_backend(self)
         num_classes = int(g.labels.max()) + 1
         self.dims = ([g.features.shape[1]]
@@ -263,16 +281,24 @@ class DistGNNEngine:
     def _combine(model, p_l, nbr, h_self, last: bool):
         """Model-specific combine of the aggregated neighbor rows with the
         RESIDENT self rows, shared by the sweep and the oracle (gat has its
-        own program: the aggregation itself is attention-weighted)."""
-        if model != "gcn":
-            raise NotImplementedError(model)
-        z = (nbr + h_self) @ p_l["w"] + p_l["b"]
+        own program: the aggregation itself is attention-weighted).  sage
+        and gin read h_self from the rank's own rows, so they exchange no
+        more bytes than gcn."""
+        if model == "gcn":
+            z = (nbr + h_self) @ p_l["w"] + p_l["b"]
+        elif model == "sage":
+            z = h_self @ p_l["w_self"] + nbr @ p_l["w_nbr"] + p_l["b"]
+        elif model == "gin":
+            z = torch.relu(
+                ((1.0 + p_l["eps"]) * h_self + nbr) @ p_l["w1"]) @ p_l["w2"]
+        else:
+            raise ValueError(model)
         return z if last else torch.relu(z)
 
     def _layer(self, p_l, H, cl, last: bool):
         """One model-aware layer of the distributed forward: gat runs the
-        backend's attention program; gcn the backend's exchange-aggregate and
-        the shared combine."""
+        backend's attention program; gcn, sage and gin the backend's
+        exchange-aggregate and the shared combine."""
         if self.cfg.model == "gat":
             return self.backend.gat_layer(p_l, H, cl, last)
         nbr = self.backend.aggregate(H, cl)
@@ -288,24 +314,46 @@ class DistGNNEngine:
             H = self._layer(p_l, H, cl, last=(l == L - 1))
         return H
 
+    def _global_consts(self) -> Dict:
+        """The whole layout's per-vertex tables on the device, which the
+        single-device oracle and `accuracy` read: on one rank the engine's
+        own; on more, uploaded from the host layout at the first call."""
+        if self._global is None:
+            keys = ("mask", "deg", "y", "train_w", "test_w")
+            if self.k == 1:
+                self._global = {key: self._consts[key] for key in keys}
+            else:
+                lay = self.playout
+                self._global = {key: torch.from_numpy(getattr(lay, key)).to(
+                    self.device) for key in keys}
+                self._global["y"] = self._global["y"].long()
+        return self._global
+
+    def _global_features(self) -> torch.Tensor:
+        """The whole feature plane [Vp, D] on the device, live: on one rank
+        the store's own table; on more, the store's host copy uploaded."""
+        if self.k == 1:
+            return self.store.device_table()
+        return torch.from_numpy(self.store.host_table()).to(self.device)
+
     def _make_reference_layer(self):
-        """Single-device reference layer over the padded [Vp] space: a plain
-        slot-by-slot gather of the global ELL table and its slot-by-slot
-        scatter-add gradient (`_SlotGather`, written apart from the kernels,
-        their plain versions and the transpose plan, so it checks all
-        three).  gat: the edge logits through `_sddmm` (the SDDMM kernel and
-        its slot-transpose gradient, as the reference calls its Pallas
-        SDDMM), the softmax, and the plain slot-by-slot attention gather
-        `_SlotAttend` (so it checks the forward, transpose and dw
-        kernels)."""
+        """Single-device reference layer over the whole padded [Vp] space,
+        run by every rank with no collective: a plain slot-by-slot gather of
+        the global ELL table and its slot-by-slot scatter-add gradient
+        (`_SlotGather`, written apart from the kernels, their plain versions
+        and the transpose plan, so it checks all three).  gat: the edge
+        logits through `_sddmm` (the SDDMM kernel and its slot-transpose
+        gradient, as the reference calls its Pallas SDDMM), the softmax, and
+        the plain slot-by-slot attention gather `_SlotAttend` (so it checks
+        the forward, transpose and dw kernels)."""
         c = self.cfg
         ids_g = torch.from_numpy(self.ids_global).to(self.device)
         ids_g32 = ids_g.int()
-        mask, deg = self._consts["mask"], self._consts["deg"]
-        # the SDDMM gradient's transpose plan: the engine's, when its gather
-        # table is the global one (broadcast: every row + the pad row)
-        plan = (self._consts["plan"] if torch.equal(ids_g32, self._consts["ids"])
-                else None)
+        gl = self._global_consts()
+        mask, deg = gl["mask"], gl["deg"]
+        # the SDDMM gradient's transpose plan: on one rank the engine's own
+        # ELL table is the global one; on more `sddmm_ell` builds its own
+        plan = self._consts["plan"] if self.k == 1 else None
 
         def gat_layer_ref(p_l, H, last):
             Hw = H @ p_l["w"]
@@ -343,17 +391,20 @@ class DistGNNEngine:
         return dict(params=params, step=0)
 
     def make_step(self):
-        """The training step: state -> (state, {"loss"}, logits).  The loss
-        numerator sum((lse - ll) * w) is differentiated locally; the loss
-        and the gradients are divided by den = max(sum(w), 1) outside the
-        gradient, as in the reference (where both are first summed over
-        ranks: the identity on one rank, an all_reduce with the multi-rank
-        slice).  SGD writes new tensors, so a state can be stepped twice."""
+        """The training step: state -> (state, {"loss"}, this rank's logits
+        rows [nb, C]).  The rank's loss numerator sum((lse - ll) * w) is
+        differentiated locally (each all_gather's backward reduce-scatters
+        the other ranks' share of the tables' gradient to this rank); the
+        numerator and every gradient are then summed over the ranks in one
+        flat all_reduce, in `PARAM_KEYS` order, and divided by den =
+        max(sum of every rank's w, 1) outside the gradient, as in the
+        reference.  Without a process group the sums are the local values.
+        SGD writes new tensors, so a state can be stepped twice."""
         if self._step is not None:
             return self._step
         cl = self._consts
         lr = self.cfg.lr
-        den = torch.clamp(cl["train_w"].sum(), min=1.0)
+        den = self._den
         keys = PARAM_KEYS[self.cfg.model]
 
         def step(state):
@@ -367,6 +418,9 @@ class DistGNNEngine:
                 num = ((lse - ll) * cl["train_w"]).sum()
                 grads = torch.autograd.grad(num, leaves)
             with torch.no_grad():
+                if collectives.group_active():
+                    num, *grads = collectives.all_reduce_flat(
+                        [num.detach(), *grads])
                 loss = num / den
                 params2 = _from_leaves([p - lr * (g / den)
                                         for p, g in zip(leaves, grads)], keys)
@@ -378,11 +432,13 @@ class DistGNNEngine:
 
     def make_reference_step(self):
         """The same loss and SGD on one device over the reference layer
-        (`_make_reference_layer`), differentiated by autograd through the
-        plain gather: independent of the kernels and their plan."""
+        (`_make_reference_layer`) and the whole graph, differentiated by
+        autograd through the plain gather: independent of the kernels,
+        their plan and the collectives.  Returns the logits of every vertex,
+        [Vp, C]."""
         if self._ref_step is not None:
             return self._ref_step
-        cl = self._consts
+        cl = self._global_consts()
         lr = self.cfg.lr
         layer_ref = self._make_reference_layer()
         L = len(self.dims) - 1
@@ -392,7 +448,7 @@ class DistGNNEngine:
             leaves = [p.detach().requires_grad_() for p in
                       _leaves(state["params"], keys)]
             with torch.enable_grad():
-                H = self.store.device_table()
+                H = self._global_features()
                 for l, p_l in enumerate(_from_leaves(leaves, keys)["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
                 loss = softmax_xent(H, cl["y"], cl["train_w"])
@@ -428,24 +484,35 @@ class DistGNNEngine:
     def infer_full_graph(self, *, params: Dict, reference: bool = False
                          ) -> torch.Tensor:
         """Owner-partitioned final-layer embeddings for EVERY vertex, [Vp, C]
-        on the engine's device (`global_embeddings` maps them back to the
-        original vertex ids).  One call = one O(L) layer-wise sweep; its
-        wire bytes accrue into CommStats.inference_bytes.
+        on the engine's device, on every rank (`global_embeddings` maps them
+        back to the original vertex ids).  One call = one O(L) layer-wise
+        sweep over this rank's rows, then one all_gather of the last layer's
+        rows (`gather_rows`, not counted as sweep traffic, as in the
+        reference); the sweep's wire bytes accrue into
+        CommStats.inference_bytes.
 
         `reference=True` runs the independent single-device oracle instead
         (no bytes accrue)."""
-        X = self.store.device_table()
         if reference:
             layer_ref = self._make_reference_layer()
             L = len(self.dims) - 1
             with torch.no_grad():
-                H = X
+                H = self._global_features()
                 for l, p_l in enumerate(params["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
             return H
-        out = self.make_infer_step()(params, X)
+        out = self.make_infer_step()(params, self.store.device_table())
         self.comm_stats.inference_bytes += self.inference_bytes_per_sweep()
-        return out
+        return self.gather_rows(out)
+
+    def gather_rows(self, H: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a per-vertex table, [Vp, D] on every rank,
+        from this rank's [nb, D]: one all_gather over the process group
+        (without one, the rank's rows are all of them)."""
+        if not collectives.group_active():
+            return H
+        with torch.no_grad():
+            return collectives.all_gather_rows(H.contiguous())()
 
     # ------------------------------------------------------------------
     # training loop
@@ -460,8 +527,9 @@ class DistGNNEngine:
     def train(self, epochs: int, reference: bool = False
               ) -> Tuple[List[float], torch.Tensor]:
         """Run `epochs` steps from `init_state()`; returns (losses, final
-        logits [Vp, C]).  The distributed run resets CommStats and accrues
-        each step's wire bytes; the reference run accrues none."""
+        logits [Vp, C] on every rank).  The distributed run resets CommStats
+        and accrues each step's wire bytes; the reference run accrues
+        none."""
         step = self.make_reference_step() if reference else self.make_step()
         state = self.init_state()
         if not reference:
@@ -472,12 +540,14 @@ class DistGNNEngine:
             losses.append(float(metrics["loss"]))
             if not reference:
                 self.account_step()
-        return losses, logits
+        return losses, (logits if reference else self.gather_rows(logits))
 
     def accuracy(self, logits: torch.Tensor, split: str = "test") -> float:
-        """Share of the split's vertices whose argmax logit is the label."""
-        w = self._consts["test_w" if split == "test" else "train_w"]
-        return float(accuracy(logits, self._consts["y"], w))
+        """Share of the split's vertices, over every rank, whose argmax
+        logit is the label; ``logits`` [Vp, C] (`train`, `gather_rows`)."""
+        gl = self._global_consts()
+        w = gl["test_w" if split == "test" else "train_w"]
+        return float(accuracy(logits, gl["y"], w))
 
     def inference_bytes_per_sweep(self) -> int:
         """Wire bytes of one layer-wise sweep: the layout's per-step wire

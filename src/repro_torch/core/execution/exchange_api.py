@@ -1,11 +1,11 @@
 """ExchangeBackend: the execution side of the partition-family interface (the
 port's copy of the edge-cut broadcast part of
-`repro/core/execution/exchange_api.py`).
+`repro/core/execution/exchange_api.py`, over `torch.distributed`).
 
 `partition/layout_api.py` owns the static tables; a backend owns the
 per-layer dataflow that assembles the gather table and runs the masked ELL
-multiply (gcn) or the attention program (gat).  A backend reads
-eng.{_ell, _ell_attend, _gat_softmax, cfg, k} and nothing else.  Every step
+multiply (gcn, sage, gin) or the attention program (gat).  A backend reads
+eng.{_ell, _ell_attend, _gat_softmax, cfg} and nothing else.  Every step
 of it is differentiable: the training step runs it under autograd, and the
 backward of every gather over the ELL table reads the transpose plan in
 ``cl["plan"]``.
@@ -14,6 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.execution.collectives import (
+    all_gather_rows,
+    group_active,
+)
 from repro_torch.core.execution.pipeline_exchange import (
     chunk_width,
     chunked_overlap,
@@ -40,17 +44,22 @@ class ExchangeBackend:
 
 class EdgeCutBackend(ExchangeBackend):
     """Halo exchange, feature-chunked.  Broadcast only: the table is every
-    rank's block followed by one zero pad row.  With one rank the all_gather
-    is the local block itself; the multi-rank slice adds the collective."""
+    rank's block, all-gathered over the process group, followed by one zero
+    pad row.  Without a process group (one rank) the local block is the
+    whole table."""
 
     def exchange_fn(self, cl):
-        """hc [nb, Dc] -> gather table [k*nb + 1, Dc]."""
-        if self.eng.k != 1:
-            raise NotImplementedError(
-                "the broadcast all_gather arrives with the multi-rank slice")
+        """hc [nb, Dc] -> ``finish``, which returns the gather table
+        [k*nb + 1, Dc]: the all_gather is issued at once and waited on in
+        ``finish`` (`collectives.all_gather_rows`)."""
+        if not group_active():
+            def exchange(hc):
+                return lambda: torch.cat([hc, zero_pad_row(hc)], 0)
+            return exchange
 
         def exchange(hc):
-            return torch.cat([hc, zero_pad_row(hc)], 0)
+            gathered = all_gather_rows(hc.contiguous())
+            return lambda: torch.cat([gathered(), zero_pad_row(hc)], 0)
         return exchange
 
     def aggregate(self, h_local, cl):
@@ -65,11 +74,12 @@ class EdgeCutBackend(ExchangeBackend):
         """Edge-cut GAT, broadcast (the reference's branch, exactly): ONE
         fused exchange of F = [a_src.Hw | Hw] (width d_out + 1), the
         attention column riding as column 0 of chunk 0; the softmax weights
-        come from chunk 0's table before any attend, every chunk is attended
-        whole, and the Hw columns are sliced back out.  Pad slots stay inert
-        and degree-0 rows fall back to their own Hw row.  The gather of the
-        attention column differentiates through the slot transpose over the
-        plan, not autograd's rule for ``col[ids]``."""
+        come from chunk 0's table, once it has arrived and before any
+        attend, every chunk is attended whole, and the Hw columns are sliced
+        back out.  Pad slots stay inert and degree-0 rows fall back to their
+        own Hw row.  The gather of the attention column differentiates
+        through the slot transpose over the plan, not autograd's rule for
+        ``col[ids]``."""
         eng = self.eng
         ids, mask, plan = cl["ids"], cl["mask"], cl["plan"]
         exchange = self.exchange_fn(cl)
@@ -78,33 +88,33 @@ class EdgeCutBackend(ExchangeBackend):
         F = torch.cat([(Hw @ p_l["a_src"])[:, None], Hw], 1)
         Dtot = F.shape[1]  # d_out + 1
         C = feature_chunks(Dtot, eng.cfg.exchange_chunks)
+        softmax = []  # (pw, den), from chunk 0's table
 
         def softmax_from(tab0):
             s_nbr = ell_slot_gather(tab0[:, 0], ids, mask, plan=plan)
             e = torch.where(mask > 0, torch.nn.functional.leaky_relu(
                 s_dst + s_nbr, 0.2), -1e30)
-            return eng._gat_softmax(e)
+            softmax.extend(eng._gat_softmax(e))
 
         if C <= 1:
-            tab = exchange(F)
-            pw, den = softmax_from(tab)
-            num = eng._ell_attend(ids, pw, tab[:, 1:].contiguous(), plan)
+            tab = exchange(F)()
+            softmax_from(tab)
+            num = eng._ell_attend(ids, softmax[0], tab[:, 1:].contiguous(),
+                                  plan)
         else:
+            def attend(table):
+                if not softmax:
+                    softmax_from(table)
+                return eng._ell_attend(ids, softmax[0], table, plan)
+
+            # pad F to whole chunks here, so the one slice below cuts both
+            # the s-column's attend (column 0, unused) and the pad columns
+            # (which attend to zero)
             Dc = chunk_width(Dtot, C)
             if C * Dc != Dtot:
                 F = torch.nn.functional.pad(F, (0, C * Dc - Dtot))
-
-            def table(c):
-                return exchange(F[:, c * Dc:(c + 1) * Dc].contiguous())
-
-            tab0 = table(0)
-            pw, den = softmax_from(tab0)
-            out = torch.cat([eng._ell_attend(ids, pw, tab0, plan)]
-                            + [eng._ell_attend(ids, pw, table(c), plan)
-                               for c in range(1, C)], 1)
-            # column 0 is the shipped s-column's attend (unused); pad
-            # columns attend to zero
-            num = out[:, 1:Dtot]
+            num = chunked_overlap(F, C, exchange, attend)[:, 1:Dtot]
+        den = softmax[1]
         z = torch.where(den > 0, num / torch.clamp(den, min=1e-30), Hw)
         return z if last else torch.relu(z)
 

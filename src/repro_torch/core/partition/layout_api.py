@@ -9,10 +9,11 @@ host-side mapping back to original vertex ids.  The engine only dispatches.
 The reference builds the ELL table with a Python loop over every vertex;
 this copy builds the same arrays with vectorised numpy from the CSR, so the
 2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy here; the
-engine moves what the sweep and the step read onto its device.  Only the broadcast
-exchange plan is ported (ring and p2p arrive with the multi-rank slice), and
-only the parts of the layout that the inference sweep and the full-graph
-training step read.
+engine moves its rank's rows of what the sweep and the step read onto its
+device.  Every rank builds the whole layout, identically, as the reference
+builds it globally.  Only the broadcast exchange plan is ported (ring and
+p2p arrive with their own multi-rank slices), and only the parts of the
+layout that the inference sweep and the full-graph training step read.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ class PartitionLayout:
 
     family = "abstract"
 
-    def __init__(self, g, k: int, cfg, partition=None, device="cpu"):
+    def __init__(self, g, k: int, cfg, partition=None, device="cpu",
+                 rank=None):
         self.g = g
         self.k = k
         self.cfg = cfg
         self.device = torch.device(device)
+        self.rank = rank  # the store's device part: this block (None: all)
         self._build(partition)
 
     def _build(self, partition) -> None:
@@ -113,14 +116,16 @@ class EdgeCutLayout(PartitionLayout):
         self.deg = np.maximum(mask.sum(1, keepdims=True), 1.0).astype(np.float32)
         # the feature plane lives in an owner-partitioned store: flat store
         # id == the relabeled vertex id (owner * nb + slot)
-        self.store = FeatureStore(X.reshape(k, nb, D), self.device)
-        self.X = self.store.device_table()
+        self.store = FeatureStore(X.reshape(k, nb, D), self.device,
+                                  owner=self.rank)
+        self.X = torch.from_numpy(self.store.host_table())
 
     def _build_exchange_plan(self):
         if self.cfg.execution != "broadcast":
             raise NotImplementedError(
                 f"execution={self.cfg.execution!r}: only the broadcast plan "
-                "is ported; ring and p2p arrive with the multi-rank slice")
+                "is ported; ring and p2p arrive with their multi-rank slices "
+                "(ROADMAP queue 1 items 4 and 5)")
         # gather table per device = all_gather(H) [Vp] + zero row at Vp
         self.ids_exec = self.ids_global.astype(np.int32)
 

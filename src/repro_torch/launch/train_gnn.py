@@ -1,11 +1,15 @@
 """Full-graph GNN training entry point (the port's counterpart of the full-graph
 engine branch of `examples/train_gnn_distributed.py`): `DistGNNEngine`'s
 synchronous training step, timed step by step, with the single-device oracle
-and the layer-wise inference sweep as checks.
+and the layer-wise inference sweep as checks.  One process per rank
+(`launch/common.py`): without ``--init-method`` it runs alone.
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --model gat --device cpu --oracle-check
+    # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
+        --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
 """
 from __future__ import annotations
 
@@ -17,6 +21,12 @@ import torch
 
 from repro_torch.core.engine import DistGNNEngine, EngineConfig
 from repro_torch.core.graph import sbm_graph
+from repro_torch.launch.common import (
+    add_group_args,
+    device_of,
+    join_group,
+    leave_group,
+)
 from repro_torch.utils import get_logger
 
 log = get_logger("repro_torch.train_gnn")
@@ -25,15 +35,18 @@ log = get_logger("repro_torch.train_gnn")
 # later slices
 PORTED_EXECUTION_MODELS = ("broadcast",)
 PORTED_PROTOCOLS = ("sync",)
-PORTED_GNN_MODELS = ("gcn", "gat")
+PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 ORACLE_TOL = 1e-4  # the repo's oracle bound for every step and sweep
 
 
 def build_engine(args, g):
+    """The engine on this rank's device; the process group, if any, must
+    already be joined (`join_group`)."""
     cfg = EngineConfig(execution=args.exec, protocol=args.protocol,
-                       model=args.model, exchange_chunks=args.exchange_chunks,
+                       model=args.model, partitioner=args.partitioner,
+                       exchange_chunks=args.exchange_chunks,
                        hidden=args.hidden, num_layers=args.layers, lr=args.lr)
-    return DistGNNEngine(g, cfg=cfg, device=args.device)
+    return DistGNNEngine(g, cfg=cfg, device=device_of(args))
 
 
 def _sync(device: torch.device) -> None:
@@ -47,7 +60,7 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
     each timed on the host clock ending in a device synchronize, with the
     step's wire bytes accrued into CommStats as `eng.train` accrues them.
     Returns the losses, the step walls (seconds), the final state and the
-    last step's logits; with ``oracle_check`` also the reference run's
+    last step's logits of every vertex (one all_gather after the run); with ``oracle_check`` also the reference run's
     losses and the largest per-step loss gap, and with ``infer`` the
     layer-wise sweep's gap to the reference sweep at the final params."""
     step = eng.make_step()
@@ -62,6 +75,7 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
         _sync(eng.device)
         walls.append(time.perf_counter() - t0)
         eng.account_step()
+    logits = eng.gather_rows(logits)
     out = dict(losses=losses, walls=walls, state=state, logits=logits)
     for e in range(0, epochs, max(epochs // 4, 1)):
         log.info("epoch %3d loss %.4f (%.1f ms)", e, losses[e], walls[e] * 1e3)
@@ -95,6 +109,7 @@ def parse_args(argv=None):
                     help="torch device the step runs on (cpu only when asked)")
     ap.add_argument("--exec", default="broadcast",
                     choices=list(PORTED_EXECUTION_MODELS))
+    add_group_args(ap)
     ap.add_argument("--protocol", default="sync", choices=list(PORTED_PROTOCOLS))
     ap.add_argument("--model", default="gcn", choices=list(PORTED_GNN_MODELS))
     ap.add_argument("--exchange-chunks", type=int, default=1)
@@ -113,13 +128,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003, seed=0)
-    eng = build_engine(args, g)
-    log.info("engine: model=%s exec=%s protocol=%s k=%d (nb=%d, K=%d) on %s",
-             args.model, args.exec, args.protocol, eng.k, eng.nb, eng.K,
-             eng.device)
-    return run_training(eng, args.epochs, oracle_check=args.oracle_check,
-                        infer=args.infer)
+    join_group(args)
+    try:
+        g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003,
+                      seed=0)
+        eng = build_engine(args, g)
+        log.info("engine: model=%s exec=%s protocol=%s rank %d of k=%d "
+                 "(nb=%d, K=%d) on %s", args.model, args.exec, args.protocol,
+                 eng.rank, eng.k, eng.nb, eng.K, eng.device)
+        return run_training(eng, args.epochs, oracle_check=args.oracle_check,
+                            infer=args.infer)
+    finally:
+        leave_group(args)
 
 
 if __name__ == "__main__":

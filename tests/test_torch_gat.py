@@ -4,7 +4,7 @@ engine's distributed step and sweep (Pallas SDDMM and ELL in interpret mode
 with their gradient rules, one device on an Auto-axis mesh) and its
 single-device references, from the reference's own initial weights carried
 over; CommStats and inference bytes; determinism; the entry points; the GAT
-parameters; and the models still to port."""
+parameters; and an unknown model refused."""
 import dataclasses
 
 import jax
@@ -204,10 +204,9 @@ def test_gat_params_distribution_and_carry_over():
             assert np.array_equal(ours[key].numpy(), np.asarray(theirs[key]))
 
 
-@pytest.mark.parametrize("model", ["sage", "gin"])
-def test_sage_and_gin_still_raise_naming_their_slice(model):
+def test_unknown_model_is_rejected():
     g = er_graph(**GRAPH)
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
-        DistGNNEngine(g, EngineConfig(model=model), device=CPU)
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
-        init_gnn_params(model, [8, 4], torch.Generator(), CPU)
+    with pytest.raises(ValueError, match="model must be one of"):
+        DistGNNEngine(g, EngineConfig(model="gatv2"), device=CPU)
+    with pytest.raises(ValueError, match="model must be one of"):
+        init_gnn_params("gatv2", [8, 4], torch.Generator(), CPU)

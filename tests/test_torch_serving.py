@@ -104,8 +104,8 @@ def test_init_gnn_params_distribution_and_seed():
     for a, b, fan_in in zip(p1["layers"], p2["layers"], dims):
         assert torch.equal(a["w"], b["w"]) and not a["b"].any()
         assert abs(float(a["w"].std()) * fan_in ** 0.5 - 1.0) < 0.15
-    with pytest.raises(NotImplementedError, match="model-axis"):
-        init_gnn_params("sage", dims, torch.Generator(), CPU)
+    with pytest.raises(ValueError, match="model must be one of"):
+        init_gnn_params("gatv2", dims, torch.Generator(), CPU)
 
 
 def test_serve_gnn_main_on_cpu():
@@ -129,19 +129,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("case", ["model", "execution", "batching", "family",
                                   "ranks"])
 def test_engine_rejects_what_is_not_ported(case):
+    """Each unported axis raises naming its slice; a partition whose part
+    count is not the process group's rank count (one rank here: no group)
+    is a caller's error.  The ``model`` case holds the ring, since every
+    model is ported."""
     g = er_graph(**GRAPH)
     cfg, partition = EngineConfig(), None
+    error, match = NotImplementedError, "slice"
     if case == "model":
-        cfg.model = "sage"
+        cfg.execution = "ring"
+        match = "ring slice"
     elif case == "execution":
         cfg.execution = "p2p"
+        match = "p2p slice"
     elif case == "batching":
         cfg.batching = "node_wise"
     elif case == "family":
         cfg.partition_family = "vertex_cut"
     else:
         partition = hash_partition(g, 4)
-    with pytest.raises(NotImplementedError, match="slice"):
+        error, match = ValueError, "4 parts and the process group 1 rank"
+    with pytest.raises(error, match=match):
         DistGNNEngine(g, cfg, partition, device=CPU)
 
 
