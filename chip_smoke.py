@@ -16,10 +16,18 @@ exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
 layer-wise inference sweep (`launch/serve_gnn.run_sweep`) and the
 full-graph training step (`launch/train_gnn.run_training`; lr `TRAIN_LR`),
 each held to its single-device reference, with every kernel's launches
-counted from 0 around each drive.  Last, gcn and gat at exchange_chunks 2
+counted from 0 around each drive.  These run the broadcast exchange over
+the hash partition (at one rank every partitioner gives part 0, and
+metis_like's host loops would take minutes at 2**20 vertices).  Then gcn and
+gat at exchange_chunks 2 under the p2p halo exchange, the engine's default
+(phases `p2p_sweep`, `p2p_train`, and one traced step each,
+`p2p_train_profile`): at one rank the p2p table is the broadcast table
+with one unread halo row, so each must equal the same model's broadcast
+phase bit for bit.  Last, gcn and gat at exchange_chunks 2
 once more inside a world-size-1 NCCL group joined through the launchers'
-group options (phases `nccl_sweep`, `nccl_train`): the all_gather, its
-reduce-scatter and the all_reduce run on the card, every collective call is
+group options, broadcast and p2p (phases `nccl_sweep`, `nccl_train`,
+`nccl_p2p_sweep`, `nccl_p2p_train`): the all_gather, its reduce-scatter,
+the all_to_all and the all_reduce run on the card, every collective call is
 counted, and the results must equal the runs without a group bit for bit
 (one rank: the collectives are copies on the card, no wire time).  Each
 phase prints one JSON line; the next-to-last lines
@@ -138,15 +146,20 @@ def check_counts(got: dict, want: dict, what: str) -> None:
     check(got == want, f"{what}: kernel launches {got}, expected {want}")
 
 
-def step_launches(model: str, L: int, C: int, T: int) -> dict:
+def step_launches(model: str, L: int, C: int, T: int, sends: int = 0) -> dict:
     """Launches of T training steps.  gcn: the forward per layer and chunk,
     the transpose for layers 1.. (layer 0 aggregates the constant features).
     gat: the attend forward, its transpose and its dw per layer and chunk
     (layer 0's Hw depends on w), and one slot transpose per layer for the
-    attention column's gather (chunk 0 only).  sage and gin launch gcn's."""
+    attention column's gather (chunk 0 only).  sage and gin launch gcn's.
+    p2p adds ``sends`` send gathers (the forward at K = 1, one per
+    installment) to every exchange, and their transposes wherever the
+    table's transpose runs."""
+    per = 1 + sends
     if model != "gat":
-        return dict(ell_spmm=L * C * T, ell_spmm_transpose=(L - 1) * C * T)
-    return dict(ell_spmm=L * C * T, ell_spmm_transpose=L * C * T,
+        return dict(ell_spmm=L * C * per * T,
+                    ell_spmm_transpose=(L - 1) * C * per * T)
+    return dict(ell_spmm=L * C * per * T, ell_spmm_transpose=L * C * per * T,
                 ell_attend_dw=L * C * T, ell_slot_transpose=L * T)
 
 
@@ -155,21 +168,30 @@ def check_calls(got: dict, want: dict, what: str) -> None:
     check(got == want, f"{what}: collective calls {got}, expected {want}")
 
 
-def step_calls(model: str, L: int, C: int, T: int) -> dict:
+def step_calls(model: str, L: int, C: int, T: int, installments: int = 0
+               ) -> dict:
     """Collective calls of T training steps in a process group, then the
-    all_gather of the last logits: an all_gather per layer and chunk, a
-    reduce-scatter (its backward) per layer and chunk whose table needs a
-    gradient (as the transpose: not layer 0's constant features, but gat's
-    Hw), and one flat all_reduce of the loss and the gradients a step."""
+    all_gather of the last logits.  broadcast: an all_gather per layer and
+    chunk, a reduce-scatter (its backward) per layer and chunk whose table
+    needs a gradient (as the transpose: not layer 0's constant features,
+    but gat's Hw).  p2p: an all_to_all per layer, chunk and installment,
+    and its reverse all_to_all wherever broadcast reduce-scatters.  Both:
+    one flat all_reduce of the loss and the gradients a step."""
     grad_layers = L if model == "gat" else L - 1
+    if installments:
+        return dict(all_to_all=(L + grad_layers) * C * installments * T,
+                    all_gather=1, all_reduce=T)
     return dict(all_gather=L * C * T + 1, reduce_scatter=grad_layers * C * T,
                 all_reduce=T)
 
 
-def compare_baseline(name: str, result: dict, baseline: dict, keys) -> dict:
-    """The phase's result against the same phase without a process group:
-    bitwise equal in ``keys`` (arrays, lists of floats, or lists of layers
-    of tensors), and both medians side by side."""
+def compare_baseline(name: str, result: dict, baseline: dict, keys,
+                     against: str = "no_group") -> dict:
+    """The phase's result against the same phase without a process group
+    (``against`` "no_group") or under broadcast ("broadcast": at one rank
+    the p2p table is the broadcast table with one unread halo row): bitwise
+    equal in ``keys`` (arrays, lists of floats, or lists of layers of
+    tensors), and both medians side by side."""
     def equal(a, b):
         if isinstance(a, np.ndarray):
             return np.array_equal(a, b)
@@ -179,11 +201,13 @@ def compare_baseline(name: str, result: dict, baseline: dict, keys) -> dict:
         return a == b
     for key in keys:
         check(equal(result[key], baseline[key]),
-              f"{name}: {key} differs from the run without a group")
-    return dict(bitwise_equal_to_no_group=True,
-                no_group_median_ms=baseline["median_ms"],
-                timing_note="world-size-1 NCCL group: each collective is a "
-                            "copy on the card, no wire time")
+              f"{name}: {key} differs from the {against} run")
+    out = {f"bitwise_equal_to_{against}": True,
+           f"{against}_median_ms": baseline["median_ms"]}
+    if against == "no_group":
+        out["timing_note"] = ("world-size-1 NCCL group: each collective is a "
+                              "copy on the card, no wire time")
+    return out
 
 
 def reference_launches(model: str, L: int, T: int, backward: bool) -> dict:
@@ -1098,32 +1122,49 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_name(kind: str, model: str, group: list) -> str:
-    """sweep, train (gcn), <model>_sweep, <model>_train; nccl_sweep and
-    nccl_train in the world-size-1 NCCL group."""
+def phase_name(kind: str, model: str, group: list, execution: str) -> str:
+    """sweep, train (gcn), <model>_sweep, <model>_train; p2p_sweep and
+    p2p_train under p2p; nccl_sweep and nccl_train (nccl_p2p_sweep,
+    nccl_p2p_train) in the world-size-1 NCCL group."""
+    if execution == "p2p":
+        return f"nccl_p2p_{kind}" if group else f"p2p_{kind}"
     if group:
         return f"nccl_{kind}"
     return kind if model == "gcn" else f"{model}_{kind}"
 
 
-def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None):
+def p2p_fields(eng) -> dict:
+    """What a p2p phase reports of its plan: the installments' widths, the
+    gather table's rows and the halo rows a pass ships (none at one
+    rank)."""
+    lay = eng.playout
+    return dict(p2p_widths=lay.p2p_widths, table_rows=lay.table_rows,
+                halo_rows=lay._halo_rows)
+
+
+def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None,
+                execution="broadcast", against="no_group"):
     """The main path: SWEEPS timed layer-wise sweeps through
-    serve_gnn.run_sweep at full width, kernel launches and collective calls
-    counted from 0; then the reference sweep, its launches counted apart.
-    ``group``: the launcher's process-group options (the engine then runs
-    over the group already joined); ``baseline``: the same phase's result
-    without a group, which this one must equal bit for bit."""
+    serve_gnn.run_sweep at full width (``execution`` broadcast or p2p, the
+    hash partition: every partitioner gives part 0 at one rank, and
+    metis_like's host loops would take minutes at 2**20 vertices), kernel
+    launches and collective calls counted from 0; then the reference
+    sweep, its launches counted apart.  ``group``: the launcher's
+    process-group options (the engine then runs over the group already
+    joined); ``baseline``: a result this one must equal bit for bit, the
+    same phase without a group (``against`` "no_group") or under broadcast
+    ("broadcast")."""
     from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import init_gnn_params
     from repro_torch.launch import serve_gnn
 
-    name = phase_name("sweep", model, group)
+    name = phase_name("sweep", model, group, execution)
     release()
     t0 = time.perf_counter()
     args = serve_gnn.parse_args([
-        "--device", str(device), "--exec", "broadcast", "--model", model,
-        "--exchange-chunks", str(chunks), "--hidden", "256", "--layers", "3",
-        *group])
+        "--device", str(device), "--exec", execution, "--partitioner", "hash",
+        "--model", model, "--exchange-chunks", str(chunks), "--hidden", "256",
+        "--layers", "3", *group])
     eng = serve_gnn.build_engine(args, g)
     params = init_gnn_params(model, eng.dims, torch.Generator().manual_seed(0),
                              eng.device)
@@ -1141,12 +1182,16 @@ def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     calls = collectives.read_calls()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    # a sweep runs the forward kernel per layer and chunk and no backward;
-    # in a group an all_gather per layer and chunk, then one of the output
-    check_counts(launches, dict(ell_spmm=L * chunks * SWEEPS),
+    # a sweep runs the forward kernel per layer and chunk (p2p: and one
+    # send gather per installment) and no backward; in a group an
+    # all_gather per layer and chunk (p2p: an all_to_all per layer, chunk
+    # and installment), then one all_gather of the output
+    B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
+    check_counts(launches, dict(ell_spmm=L * chunks * (1 + B) * SWEEPS),
                  f"{name} {model}")
-    check_calls(calls, dict(all_gather=(L * chunks + 1) * SWEEPS)
-                if group else {}, f"{name} {model}")
+    calls_want = (dict(all_to_all=L * chunks * B * SWEEPS, all_gather=SWEEPS)
+                  if B else dict(all_gather=(L * chunks + 1) * SWEEPS))
+    check_calls(calls, calls_want if group else {}, f"{name} {model}")
     emb = embs[-1]
     check(emb.shape == (g.num_vertices, eng.dims[-1]), f"shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
@@ -1162,10 +1207,11 @@ def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     check(err <= TOL, f"sweep vs reference sweep: {err} > {TOL}")
     median_s = float(np.median(walls))
     result = dict(emb=emb, median_ms=median_s * 1e3)
-    extra = {}
+    extra = p2p_fields(eng) if B else {}
     if baseline is not None:
-        extra = compare_baseline(name, result, baseline, ("emb",))
-    emit(name, model=model,
+        extra.update(compare_baseline(name, result, baseline, ("emb",),
+                                      against))
+    emit(name, model=model, execution=execution,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, sweeps=SWEEPS, walls_ms=[w * 1e3 for w in walls],
          median_ms=median_s * 1e3, vertices_per_s=g.num_vertices / median_s,
@@ -1179,25 +1225,28 @@ def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     return eng, params, launches, result
 
 
-def train_phase(g, chunks, device, model="gcn", group=(), baseline=None):
+def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
+                execution="broadcast", against="no_group"):
     """The training path: TRAIN_STEPS timed steps through
     train_gnn.run_training at full width, kernel launches and collective
     calls counted from 0; then a second run from the same initial state with
     the single-device reference run (per-step loss gap <= TOL), which must
     be bitwise equal to the first in losses and in every parameter.
-    ``group`` and ``baseline`` as in `sweep_phase`."""
+    ``group``, ``baseline``, ``execution`` and ``against`` as in
+    `sweep_phase`."""
     from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import PARAM_KEYS
     from repro_torch.launch import train_gnn
 
-    name = phase_name("train", model, group)
+    name = phase_name("train", model, group, execution)
     lr = TRAIN_LR[model]
     release()
     t0 = time.perf_counter()
     args = train_gnn.parse_args([
-        "--device", str(device), "--exec", "broadcast", "--protocol", "sync",
-        "--model", model, "--exchange-chunks", str(chunks), "--hidden", "256",
-        "--layers", "3", "--lr", str(lr), *group])
+        "--device", str(device), "--exec", execution, "--partitioner", "hash",
+        "--protocol", "sync", "--model", model, "--exchange-chunks",
+        str(chunks), "--hidden", "256", "--layers", "3", "--lr", str(lr),
+        *group])
     eng = train_gnn.build_engine(args, g)  # the transpose plan included
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1209,11 +1258,13 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     calls = collectives.read_calls()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    step_want = step_launches(model, L, chunks, TRAIN_STEPS)
+    B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
+    step_want = step_launches(model, L, chunks, TRAIN_STEPS, sends=B)
+    calls_want = step_calls(model, L, chunks, TRAIN_STEPS, installments=B)
     check_counts(launches, step_want,
                  f"{name} {model}, {TRAIN_STEPS} steps")
-    check_calls(calls, step_calls(model, L, chunks, TRAIN_STEPS)
-                if group else {}, f"{name} {model}, {TRAIN_STEPS} steps")
+    check_calls(calls, calls_want if group else {},
+                f"{name} {model}, {TRAIN_STEPS} steps")
     losses = run["losses"]
     check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
     check(all(b < a for a, b in zip(losses, losses[1:])),
@@ -1234,9 +1285,8 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     add_counts(want, reference_launches(model, L, TRAIN_STEPS, backward=True))
     check_counts(again_launches, want, f"{name} {model} with its reference")
     # the reference runs no collective
-    check_calls(collectives.read_calls(), step_calls(
-        model, L, chunks, TRAIN_STEPS) if group else {},
-        f"{name} {model} with its reference")
+    check_calls(collectives.read_calls(), calls_want if group else {},
+                f"{name} {model} with its reference")
     keys = PARAM_KEYS[model]
     bitwise = again["losses"] == losses and all(
         torch.equal(a[key], b[key]) for a, b in
@@ -1248,10 +1298,11 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None):
     median_s = float(np.median(walls))
     result = dict(losses=losses, median_ms=median_s * 1e3, params=[
         {key: p[key].cpu() for key in keys} for p in params["layers"]])
-    extra = {}
+    extra = p2p_fields(eng) if B else {}
     if baseline is not None:
-        extra = compare_baseline(name, result, baseline, ("losses", "params"))
-    emit(name, model=model,
+        extra.update(compare_baseline(name, result, baseline,
+                                      ("losses", "params"), against))
+    emit(name, model=model, execution=execution,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, lr=lr, steps=TRAIN_STEPS, losses=losses,
          ref_losses=again["ref_losses"], loss_gaps=gaps, oracle_tol=TOL,
@@ -1425,9 +1476,31 @@ def main(argv=None) -> int:
                 del step, state
             del eng
             torch.cuda.empty_cache()
+    # the p2p halo exchange (the default engine) at one rank: its table is
+    # the broadcast table with one unread halo row, so each phase must equal
+    # the same model's broadcast phase bit for bit
+    for model in NCCL_MODELS:
+        eng, _, n, baselines["p2p_sweep", model] = sweep_phase(
+            g, NCCL_CHUNKS, device, model, baseline=baselines["sweep", model],
+            execution="p2p", against="broadcast")
+        add_counts(launches, n)
+        del eng
+        eng, n, baselines["p2p_train", model] = train_phase(
+            g, NCCL_CHUNKS, device, model, baseline=baselines["train", model],
+            execution="p2p", against="broadcast")
+        add_counts(launches, n)
+        step, state = eng.make_step(), eng.init_state()
+        L, B = len(eng.dims) - 1, len(eng.playout.p2p_widths)
+        expect = {f"{name}_kernel": count for name, count in step_launches(
+            model, L, NCCL_CHUNKS, 1, sends=B).items()}
+        profile_phase("p2p_train_profile", lambda: step(state), expect,
+                      model=model, exchange_chunks=NCCL_CHUNKS)
+        del eng, step, state
+        torch.cuda.empty_cache()
     # the same paths over a world-size-1 NCCL group, joined through the
-    # launchers' group options: the all_gather, its reduce-scatter and the
-    # all_reduce run on the card; bitwise equal to the runs without a group
+    # launchers' group options: the all_gather, its reduce-scatter, the
+    # all_to_all and the all_reduce run on the card; bitwise equal to the
+    # runs without a group
     rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     group = ["--world-size", "1", "--rank", "0", "--init-method",
              f"file://{rendezvous}/rendezvous"]
@@ -1445,6 +1518,16 @@ def main(argv=None) -> int:
             del eng
             eng, n, _ = train_phase(g, NCCL_CHUNKS, device, model, group,
                                     baselines["train", model])
+            add_counts(launches, n)
+            del eng
+            eng, _, n, _ = sweep_phase(g, NCCL_CHUNKS, device, model, group,
+                                       baselines["p2p_sweep", model],
+                                       execution="p2p")
+            add_counts(launches, n)
+            del eng
+            eng, n, _ = train_phase(g, NCCL_CHUNKS, device, model, group,
+                                    baselines["p2p_train", model],
+                                    execution="p2p")
             add_counts(launches, n)
             del eng
             torch.cuda.empty_cache()

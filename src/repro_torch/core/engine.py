@@ -6,25 +6,28 @@ The engine builds the partition family's layout (`partition/layout_api.py`)
 whole on the host, identically on every rank, moves this rank's block of the
 ELL constants and of the feature plane onto its device once, and runs each
 layer through the family's ExchangeBackend (`execution/exchange_api.py`).
-gcn, sage, gin: exchange (chunked; an all_gather over the process group),
+gcn, sage, gin: exchange (chunked; over the process group an all_gather
+under broadcast, the bucketed all_to_all halo installments under p2p),
 masked ELL multiply through the hand-written CUDA kernel, degree
 normalization, then the model's dense combine with the rank's own rows.
 gat: the fused [a_src.Hw | Hw] exchange, the masked segment-softmax and the
 attention-weighted ELL sum (`ell_attend`).  The training step (`make_step`)
 runs the same forward under autograd, so every gather's backward is a CUDA
 kernel over a CSR transpose plan built once here (the transpose,
-ell_attend's dw, the slot transpose) and every all_gather's backward a
-reduce-scatter; the loss numerator and the gradients are then summed over
+ell_attend's dw, the slot transpose), every all_gather's backward a
+reduce-scatter and every all_to_all's the reverse all_to_all; the loss
+numerator and the gradients are then summed over
 the ranks in one all_reduce.  `make_reference_step` and
 `infer_full_graph(reference=True)` run an independent plain-PyTorch gather
 over the whole padded space on every rank, with no collective (gat's edge
 logits through the SDDMM kernel, as the reference's do): the oracle every
 step and sweep is held to.
 
-Ported: models gcn, sage, gat and gin, partition family edge_cut (hash and
-range), execution broadcast, batching full_graph, protocol sync, on any
-number of ranks.  The ranks are the process group's (`execution/
-collectives.py`); without one the engine runs on one rank.  Everything else
+Ported: models gcn, sage, gat and gin, partition family edge_cut (every
+partitioner), execution p2p (the default, as in the reference) and
+broadcast, batching full_graph, protocol sync, on any number of ranks.  The
+ranks are the process group's (`execution/collectives.py`); without one the
+engine runs on one rank.  Everything else
 raises NotImplementedError naming the slice it waits for.  The async
 protocols and telemetry arrive with their own slices.
 """
@@ -68,14 +71,15 @@ ENGINE_MIRROR_ATTRS = ("nb", "Vp", "K", "ids_global", "store", "y",
 
 @dataclasses.dataclass
 class EngineConfig:
-    execution: str = "broadcast"  # broadcast | ring | p2p
+    execution: str = "p2p"  # broadcast | ring | p2p
     protocol: str = "sync"  # sync | epoch_fixed | epoch_adaptive | variation
     model: str = "gcn"  # gcn | sage | gat | gin — the GNN layer program
     partition_family: str = "edge_cut"  # edge_cut | vertex_cut | hybrid
-    partitioner: str = "hash"  # edge_cut: any key of PARTITIONERS (hash and
-    #   range are ported)
+    partitioner: str = "metis_like"  # edge_cut: any key of PARTITIONERS
     batching: str = "full_graph"  # full_graph | node_wise | layer_wise | subgraph
     exchange_chunks: int = 1  # feature-dim chunks of the exchange
+    p2p_buckets: int = 1  # power-of-two installments splitting the p2p
+    #   all_to_all send caps (1 = single max-pairwise-need buffer)
     hidden: int = 32
     num_layers: int = 2
     lr: float = 0.5  # SGD step of the training step
@@ -176,6 +180,8 @@ class DistGNNEngine:
             raise ValueError(f"protocol must be one of {PROTOCOLS}")
         if cfg.exchange_chunks < 1:
             raise ValueError("exchange_chunks must be >= 1")
+        if cfg.p2p_buckets < 1:
+            raise ValueError("p2p_buckets must be >= 1")
         if cfg.protocol != "sync":
             raise NotImplementedError(
                 f"protocol={cfg.protocol!r}: only sync is ported; the "
@@ -191,11 +197,10 @@ class DistGNNEngine:
                 f"the partition has {partition.num_parts} parts and the "
                 f"process group {self.k} rank(s): they must be equal")
         self.rank = collectives.rank()
-        if cfg.execution != "broadcast":
+        if cfg.execution == "ring":
             raise NotImplementedError(
-                f"execution={cfg.execution!r}: only broadcast is ported; ring "
-                "arrives with the ring slice (ROADMAP queue 1 item 4), p2p "
-                "with the p2p slice (item 5)")
+                "execution='ring': broadcast and p2p are ported; the ring "
+                "arrives with the ring slice (ROADMAP queue 1 item 4)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -211,22 +216,25 @@ class DistGNNEngine:
         for name in ENGINE_MIRROR_ATTRS:
             setattr(self, name, getattr(lay, name))
         consts = lay.exchange_consts()
-        # this rank's rows of every per-vertex table; the ids still index
-        # the whole [k*nb + 1] gather table
+        # this rank's rows of every per-vertex table; the ids index the
+        # gather table (broadcast: every rank's block + the zero pad row;
+        # p2p: the rank's block, its halo rows, the zero pad row)
         own = slice(self.rank * self.nb, (self.rank + 1) * self.nb)
 
         def upload(a):
             return torch.from_numpy(np.ascontiguousarray(a[own])).to(
                 self.device)
         ids, mask = upload(consts["ids"]), upload(consts["mask"])
-        # the CSR transpose of the ELL table over the gather table's rows
-        # (every rank's block + the zero pad row): built once, read by
-        # every backward of a gather over it (every layer, chunk and step)
-        plan = ell_transpose_plan(ids, mask, self.k * self.nb + 1)
+        # the CSR transpose of the ELL table over the gather table's rows:
+        # built once, read by every backward of a gather over it (every
+        # layer, chunk and step)
+        plan = ell_transpose_plan(ids, mask, lay.table_rows)
         self._consts = dict(
             ids=ids, mask=mask, plan=plan, deg=upload(lay.deg),
             y=upload(lay.y).long(), train_w=upload(lay.train_w),
             test_w=upload(lay.test_w))
+        if cfg.execution == "p2p":
+            self._consts["send"] = self._send_installments(consts)
         # the loss's denominator, max(sum of every rank's weights, 1)
         w_sum = self._consts["train_w"].sum()
         if collectives.group_active():
@@ -242,6 +250,19 @@ class DistGNNEngine:
         self._step = None
         self._ref_step = None
         self.comm_stats = CommStats()
+
+    def _send_installments(self, consts) -> List[Tuple]:
+        """This rank's p2p send rows as one K = 1 ELL per installment: ids
+        [k*w, 1] (destination d's rows at [d*w, (d+1)*w)), the mask that
+        zeroes the pad entries, and the transpose plan over the rank's nb
+        rows that its gather's backward reads."""
+        send = []
+        for rows, fill in zip(consts["send_rows"][self.rank],
+                              consts["send_mask"][self.rank]):
+            ids = torch.from_numpy(rows.reshape(-1, 1).copy()).to(self.device)
+            mask = torch.from_numpy(fill.reshape(-1, 1).copy()).to(self.device)
+            send.append((ids, mask, ell_transpose_plan(ids, mask, self.nb)))
+        return send
 
     # ------------------------------------------------------------------
     # shared layer math
@@ -351,9 +372,11 @@ class DistGNNEngine:
         ids_g32 = ids_g.int()
         gl = self._global_consts()
         mask, deg = gl["mask"], gl["deg"]
-        # the SDDMM gradient's transpose plan: on one rank the engine's own
-        # ELL table is the global one; on more `sddmm_ell` builds its own
-        plan = self._consts["plan"] if self.k == 1 else None
+        # the SDDMM gradient's transpose plan: on one broadcast rank the
+        # engine's own ELL table is the global one; otherwise `sddmm_ell`
+        # builds its own
+        plan = (self._consts["plan"]
+                if self.k == 1 and c.execution == "broadcast" else None)
 
         def gat_layer_ref(p_l, H, last):
             Hw = H @ p_l["w"]

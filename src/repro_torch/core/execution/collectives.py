@@ -7,7 +7,7 @@ follows the device the caller asked for: NCCL for a CUDA device, gloo for
 the CPU.  Nothing here probes for a card, and nothing falls back: a failed
 rendezvous or collective raises.
 
-Three collectives, each counting its calls in a plain integer
+Four collectives, each counting its calls in a plain integer
 (``all_gather_rows.calls`` and so on, like the kernel wrappers' launch
 counters):
 
@@ -16,6 +16,12 @@ counters):
   is a reduce-scatter of the summed cotangent back to each rank's [nb, D],
   the transpose shard_map gives ``all_gather(tiled=True)``.
 - `reduce_scatter_rows`: that gradient.
+- `all_to_all_rows`: [k*w, D] on every rank, block d of w rows bound for
+  rank d -> [k*w, D], block s the w rows rank s sent here, issued
+  asynchronously (the p2p halo exchange's installment).  Its gradient
+  (`_AllToAllRows`) is the reverse all_to_all of the cotangent, which sends
+  block s back to rank s; both directions count as calls of
+  ``all_to_all_rows``.
 - `all_reduce_flat`: one summed all_reduce of a list of tensors packed
   into one flat buffer in the order given, so the summation is the same
   on every run and every rank.
@@ -110,6 +116,43 @@ def all_gather_rows(h: torch.Tensor) -> Callable[[], torch.Tensor]:
     return finish
 
 
+class _AllToAllRows(torch.autograd.Function):
+    """The autograd face of an all_to_all already issued by
+    `all_to_all_rows`: the forward waits on its handle and returns the
+    received rows; the backward runs the reverse all_to_all of their
+    cotangent (an all_to_all of equal blocks is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, send, pending):
+        out, work = pending
+        work.wait()
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous()
+        out = torch.empty_like(ct)
+        dist.all_to_all_single(out, ct)
+        all_to_all_rows.calls += 1
+        return out, None
+
+
+def all_to_all_rows(send: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """Issue the all_to_all of ``send`` [k*w, D] (contiguous; block d goes
+    to rank d) and return ``finish``: a call that waits on it and returns
+    the received [k*w, D] (block s from rank s), differentiable in send.
+    Between the two the caller may issue more work, as with
+    `all_gather_rows`."""
+    out = torch.empty_like(send)
+    # the collective sees no autograd history: `_AllToAllRows` carries it
+    work = dist.all_to_all_single(out, send.detach(), async_op=True)
+    all_to_all_rows.calls += 1
+
+    def finish() -> torch.Tensor:
+        return _AllToAllRows.apply(send, (out, work))
+    return finish
+
+
 def reduce_scatter_rows(ct: torch.Tensor) -> torch.Tensor:
     """The sum over ranks of ct [k*nb, D], this rank's block [nb, D]."""
     ct = ct.contiguous()
@@ -135,5 +178,6 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 COLLECTIVES = {"all_gather": all_gather_rows,
                "reduce_scatter": reduce_scatter_rows,
+               "all_to_all": all_to_all_rows,
                "all_reduce": all_reduce_flat}
 zero_calls()

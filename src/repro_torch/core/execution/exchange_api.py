@@ -1,5 +1,5 @@
 """ExchangeBackend: the execution side of the partition-family interface (the
-port's copy of the edge-cut broadcast part of
+port's copy of the edge-cut broadcast and p2p part of
 `repro/core/execution/exchange_api.py`, over `torch.distributed`).
 
 `partition/layout_api.py` owns the static tables; a backend owns the
@@ -19,6 +19,7 @@ from repro_torch.core.execution.collectives import (
     group_active,
 )
 from repro_torch.core.execution.pipeline_exchange import (
+    bucketed_all_to_all,
     chunk_width,
     chunked_overlap,
     feature_chunks,
@@ -43,15 +44,27 @@ class ExchangeBackend:
 
 
 class EdgeCutBackend(ExchangeBackend):
-    """Halo exchange, feature-chunked.  Broadcast only: the table is every
+    """Halo exchange, feature-chunked.  broadcast: the table is every
     rank's block, all-gathered over the process group, followed by one zero
-    pad row.  Without a process group (one rank) the local block is the
-    whole table."""
+    pad row; without a process group (one rank) the local block is the
+    whole table.  p2p: the table is the rank's own block, the halo rows the
+    other ranks ship it through the bucketed all_to_all installments, and
+    the zero pad row."""
 
     def exchange_fn(self, cl):
         """hc [nb, Dc] -> ``finish``, which returns the gather table
-        [k*nb + 1, Dc]: the all_gather is issued at once and waited on in
-        ``finish`` (`collectives.all_gather_rows`)."""
+        ([k*nb + 1, Dc] broadcast, [nb + B*k*w + 1, Dc] p2p): the
+        collectives are issued at once and waited on in ``finish``
+        (`collectives.all_gather_rows`, `pipeline_exchange.
+        bucketed_all_to_all`)."""
+        if self.eng.cfg.execution == "p2p":
+            send = cl["send"]
+
+            def exchange(hc):
+                hc = hc.contiguous()
+                recv = bucketed_all_to_all(hc, send)
+                return lambda: torch.cat([hc, recv(), zero_pad_row(hc)], 0)
+            return exchange
         if not group_active():
             def exchange(hc):
                 return lambda: torch.cat([hc, zero_pad_row(hc)], 0)
@@ -71,8 +84,8 @@ class EdgeCutBackend(ExchangeBackend):
         return agg / deg
 
     def gat_layer(self, p_l, H, cl, last: bool):
-        """Edge-cut GAT, broadcast (the reference's branch, exactly): ONE
-        fused exchange of F = [a_src.Hw | Hw] (width d_out + 1), the
+        """Edge-cut GAT, broadcast or p2p (the reference's branch, exactly):
+        ONE fused exchange of F = [a_src.Hw | Hw] (width d_out + 1), the
         attention column riding as column 0 of chunk 0; the softmax weights
         come from chunk 0's table, once it has arrived and before any
         attend, every chunk is attended whole, and the Hw columns are sliced

@@ -1,5 +1,5 @@
-"""Feature-chunked exchange (the port's copy of the chunking part of
-`repro/core/execution/pipeline_exchange.py`).
+"""Feature-chunked exchange and the bucketed p2p installments (the port's
+copy of `repro/core/execution/pipeline_exchange.py`).
 
 The feature dimension is split into C static chunks; each chunk is
 exchanged (table assembly) and then consumed (the ELL multiply).  Feature
@@ -15,10 +15,15 @@ too; each chunk's collective carries its own gradient.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.execution.collectives import (
+    all_to_all_rows,
+    group_active,
+)
+from repro_torch.kernels.ops import ell_spmm
 from repro_torch.utils import cdiv
 
 
@@ -64,3 +69,33 @@ def chunked_overlap(h: torch.Tensor, num_chunks: int,
         outs.append(consume_fn(finish()))
     out = torch.cat(outs, dim=1)
     return out[:, :D] if C * Dc != D else out
+
+
+def bucketed_all_to_all(h: torch.Tensor, send: Sequence[Tuple]
+                        ) -> Callable[[], torch.Tensor]:
+    """Issue the installment all_to_alls of this rank's rows h [nb, D] and
+    return ``finish``, a call that waits on them and returns the received
+    halo rows [B*k*w, D] in installment-major order (matching
+    `bucketing.halo_slot`).  ``send`` holds, per installment b, the ELL
+    (ids int32 [k*w, 1], mask [k*w, 1], transpose plan over h's rows) of
+    the rows this rank ships: destination d's w rows at [d*w, (d+1)*w).
+
+    Each installment gathers its send rows (the ELL kernel at K = 1) and
+    issues one all_to_all of them before the next installment is gathered.
+    A pad entry has mask 0 and ships a zero row where the reference ships
+    h[0]; no id of the receiving table reads it.  Written as an ELL, the
+    gather's backward is the transpose kernel over the installment's own
+    plan, which sums a row sent to several ranks in a fixed order (an
+    index_add_ would add them with atomics, in a different order each run).
+    Without a process group one rank sends only to itself, and the exchange
+    is the gather alone."""
+    pending = []
+    for ids, mask, plan in send:
+        rows = ell_spmm(ids, mask, h, normalize=False, plan=plan)
+        pending.append(all_to_all_rows(rows) if group_active()
+                       else (lambda rows=rows: rows))
+
+    def finish() -> torch.Tensor:
+        recv = [fin() for fin in pending]
+        return recv[0] if len(recv) == 1 else torch.cat(recv, 0)
+    return finish

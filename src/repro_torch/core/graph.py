@@ -32,6 +32,9 @@ class Graph:
     def degree(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int64)
 
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v] : self.indptr[v + 1]]
+
 
 def from_edges(src: np.ndarray, dst: np.ndarray, num_vertices: int, **kw) -> Graph:
     """Build CSR of in-neighbors: edge (u -> v) stores u in v's list."""

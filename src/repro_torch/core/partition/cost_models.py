@@ -1,9 +1,65 @@
 """Communication cost models (the port's copy of the edge-cut part of
-`repro/core/partition/cost_models.py`): the standalone models the engine's
-CommStats accounting is cross-checked against."""
+`repro/core/partition/cost_models.py`): the heuristic affinity scores the
+streaming partitioners read (survey Eq. 3-5), and the standalone byte models
+the engine's CommStats accounting is cross-checked against."""
 from __future__ import annotations
 
 from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.graph import Graph
+
+# ---------------------------------------------------------------------------
+# Heuristic affinity scores for streaming partition
+# ---------------------------------------------------------------------------
+
+
+def pagraph_score(candidate_in_nbrs: np.ndarray, part_train_sets: Sequence[set],
+                  part_sizes: np.ndarray, avg_train: float) -> np.ndarray:
+    """Eq. 3 (Lin et al. / PaGraph):
+    |V_train^i ∩ IN(v)| * (avg - |V_train^i|) / |P_i|."""
+    K = len(part_train_sets)
+    scores = np.zeros(K)
+    nbrs = set(candidate_in_nbrs.tolist())
+    for i in range(K):
+        inter = len(part_train_sets[i] & nbrs)
+        denom = max(part_sizes[i], 1)
+        scores[i] = inter * (avg_train - len(part_train_sets[i])) / denom
+    return scores
+
+
+def bgl_score(block_in_nbrs: np.ndarray, part_vertex_sets: Sequence[set],
+              part_sizes: np.ndarray, part_train_counts: np.ndarray,
+              avg_part: float, avg_train: float) -> np.ndarray:
+    """Eq. 4 (Liu et al. / BGL):
+    |P_i ∩ IN(B)| * (1 - |P_i|/P_avg) * (1 - train_i/train_avg)."""
+    K = len(part_vertex_sets)
+    nbrs = set(block_in_nbrs.tolist())
+    scores = np.zeros(K)
+    for i in range(K):
+        inter = len(part_vertex_sets[i] & nbrs)
+        scores[i] = (inter * (1.0 - part_sizes[i] / max(avg_part, 1.0))
+                     * (1.0 - part_train_counts[i] / max(avg_train, 1.0)))
+    return scores
+
+
+def bytegnn_score(cross_edges: np.ndarray, part_sizes: np.ndarray,
+                  train_counts: np.ndarray, valid_counts: np.ndarray,
+                  test_counts: np.ndarray, avgs: tuple, alpha=0.5, beta=0.3,
+                  gamma=0.2) -> np.ndarray:
+    """Eq. 5 (Zheng et al. / ByteGNN)."""
+    t_avg, v_avg, s_avg = avgs
+    frac = cross_edges / np.maximum(part_sizes, 1)
+    penalty = (1.0 - alpha * train_counts / max(t_avg, 1.0)
+               - beta * valid_counts / max(v_avg, 1.0)
+               - gamma * test_counts / max(s_avg, 1.0))
+    return frac * penalty
+
+
+# ---------------------------------------------------------------------------
+# Edge-cut communication models, per training step and per sweep
+# ---------------------------------------------------------------------------
 
 FEAT_BYTES = 4
 
@@ -20,18 +76,32 @@ def model_exchange_widths(model: str, dims: Sequence[int],
     return [int(d) for d in dims[:-1]]
 
 
+def edge_cut_halo_bytes_per_step(g: Graph, part, dims: Sequence[int],
+                                 feat_bytes: int = FEAT_BYTES,
+                                 model: str = "gcn") -> int:
+    """Edge-cut p2p halo volume of one train step: every layer ships each
+    partition's remote in-neighbor set (`Partition.boundary_vertices`) once,
+    at that layer's model-dependent exchange width."""
+    widths = model_exchange_widths(model, dims, "edge_cut")
+    return part.communication_volume(g) * int(sum(widths)) * feat_bytes
+
+
 def inference_bytes_per_sweep(execution: str, dims: Sequence[int], *,
-                              model: str = "gcn", k: int, nb: int,
+                              model: str = "gcn", k: int = None,
+                              nb: int = None, g: Graph = None, part=None,
                               feat_bytes: int = FEAT_BYTES) -> int:
     """Wire bytes of ONE layer-wise full-graph inference sweep under the
     edge-cut family: every layer runs its exchange once at that layer's
     model-dependent width.  broadcast/ring: every device gathers the other
-    k-1 padded blocks per layer, k*(k-1)*nb rows.  (The p2p branch needs the
-    halo need sets and arrives with the multi-rank slice.)"""
-    if execution not in ("broadcast", "ring"):
-        raise NotImplementedError(
-            f"inference_bytes_per_sweep({execution!r}): only broadcast/ring "
-            "are ported; p2p arrives with the multi-rank slice")
+    k-1 padded blocks per layer, k*(k-1)*nb rows.  p2p: each layer ships
+    each partition's remote in-neighbor (halo) set once,
+    ``part.communication_volume(g)`` rows, the engine's bucketed all_to_all
+    need sets."""
     widths = model_exchange_widths(model, dims, "edge_cut")
-    rows = k * (k - 1) * int(nb)
+    if execution in ("broadcast", "ring"):
+        rows = k * (k - 1) * int(nb)
+    elif execution == "p2p":
+        rows = part.communication_volume(g)
+    else:
+        raise ValueError(f"unknown execution {execution!r}")
     return rows * int(sum(widths)) * feat_bytes

@@ -11,15 +11,20 @@ this copy builds the same arrays with vectorised numpy from the CSR, so the
 2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy here; the
 engine moves its rank's rows of what the sweep and the step read onto its
 device.  Every rank builds the whole layout, identically, as the reference
-builds it globally.  Only the broadcast exchange plan is ported (ring and
-p2p arrive with their own multi-rank slices), and only the parts of the
-layout that the inference sweep and the full-graph training step read.
+builds it globally.  The broadcast and p2p exchange plans are ported (the
+ring arrives with its own slice), and only the parts of the layout that the
+inference sweep and the full-graph training step read.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.execution.bucketing import (
+    bucketed_cap_widths,
+    bucketed_send_table,
+    halo_slot,
+)
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.partition.cost_models import (
     FEAT_BYTES,
@@ -121,22 +126,87 @@ class EdgeCutLayout(PartitionLayout):
         self.X = torch.from_numpy(self.store.host_table())
 
     def _build_exchange_plan(self):
-        if self.cfg.execution != "broadcast":
+        """Execution-model-specific static arrays.  broadcast: the gather
+        table is every block, all-gathered, then the zero row at Vp.  p2p:
+        the table is [own block nb | halo rows B*k*w | zero row], the halo
+        rows arriving through B installments of all_to_all."""
+        ex = self.cfg.execution
+        if ex == "broadcast":
+            self.ids_exec = self.ids_global.astype(np.int32)
+            self.table_rows = self.Vp + 1
+            return
+        if ex != "p2p":
             raise NotImplementedError(
-                f"execution={self.cfg.execution!r}: only the broadcast plan "
-                "is ported; ring and p2p arrive with their multi-rank slices "
-                "(ROADMAP queue 1 items 4 and 5)")
-        # gather table per device = all_gather(H) [Vp] + zero row at Vp
-        self.ids_exec = self.ids_global.astype(np.int32)
+                f"execution={ex!r}: the ring plan arrives with the ring slice "
+                "(ROADMAP queue 1 item 4)")
+        self._build_p2p_plan()
+
+    def _build_p2p_plan(self):
+        """The p2p halo plan, vectorised over the reference's loops over
+        every (dst, src) pair and every row x slot.  need[d][s] lists, in
+        increasing order, the local rows (within block s) that block d's
+        rows read; the pair's t-th need row lands at `halo_slot` t of d's
+        table."""
+        k, nb, Vp = self.k, self.nb, self.Vp
+        ids = self.ids_global
+        real = ids < Vp
+        dst = np.broadcast_to(np.arange(Vp, dtype=np.int64)[:, None] // nb,
+                              ids.shape)
+        src = np.where(real, ids // nb, -1)
+        local = np.where(real, ids % nb, 0)
+        remote = real & (src != dst)
+        # one key per (dst block, src block, local row); sorted and unique,
+        # so each (dst, src) pair's rows form one increasing run
+        key = (dst * k + src) * nb + local
+        uniq = np.unique(key[remote])
+        pair = uniq // nb
+        counts = np.bincount(pair, minlength=k * k).reshape(k, k)  # [d, s]
+        need = np.split(uniq % nb, np.cumsum(counts.reshape(-1))[:-1])
+        cap = self.cap = max(1, int(counts.max(initial=0)))
+        # true halo rows per pass (== part.communication_volume: each need
+        # set is one partition's remote in-neighbor set)
+        self._halo_rows = int(counts.sum())
+        widths = self.p2p_widths = bucketed_cap_widths(
+            cap, self.cfg.p2p_buckets)
+        B, w = len(widths), widths[0]
+        # send_rows[src, B, dst, w]: what each SOURCE ships per installment
+        # and destination; send_mask marks the entries that carry a need row
+        # (the rest pad the installment and ship zeros)
+        self.send_rows = bucketed_send_table(
+            [[need[d * k + s] for d in range(k)] for s in range(k)], k, widths)
+        fill = np.arange(B * w)[None, None, :] < counts.T[:, :, None]
+        self.send_mask = fill.astype(np.float32).reshape(
+            k, k, B, w).transpose(0, 2, 1, 3).copy()
+        # ids remapped into the local gather table:
+        #   [0, nb)            own block
+        #   [nb, nb + B*k*w)   halo slot (installment-major; see halo_slot)
+        #   nb + B*k*w         zero row (pads + absent)
+        ids_remap = np.full(ids.shape, nb + B * k * w, np.int32)
+        own = real & ~remote
+        ids_remap[own] = local[own]
+        k_rem = key[remote]
+        t = (np.searchsorted(uniq, k_rem)
+             - np.searchsorted(uniq, (k_rem // nb) * nb))
+        ids_remap[remote] = halo_slot(t, src[remote], w, k, nb)
+        self.ids_exec = ids_remap
+        self.table_rows = nb + B * k * w + 1
 
     def exchange_consts(self) -> dict:
-        return dict(ids=self.ids_exec, mask=self.mask)
+        consts = dict(ids=self.ids_exec, mask=self.mask)
+        if self.cfg.execution == "p2p":
+            consts.update(send_rows=self.send_rows, send_mask=self.send_mask)
+        return consts
+
+    def _halo_rows_per_pass(self) -> int:
+        if self.cfg.execution == "broadcast":
+            # every device gathers the other k-1 padded blocks
+            return self.k * (self.k - 1) * self.nb
+        return self._halo_rows
 
     def wire_fields_per_step(self, model, dims) -> dict:
-        # broadcast: every device gathers the other k-1 padded blocks
-        rows = self.k * (self.k - 1) * self.nb
         widths = model_exchange_widths(model, dims, "edge_cut")
-        return {"halo_bytes": rows * int(sum(widths)) * FEAT_BYTES}
+        return {"halo_bytes":
+                self._halo_rows_per_pass() * int(sum(widths)) * FEAT_BYTES}
 
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
         return H[self.new_of_old]

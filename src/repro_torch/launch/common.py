@@ -18,6 +18,7 @@ import argparse
 
 import torch
 
+from repro_torch.core.engine import EngineConfig
 from repro_torch.core.execution import collectives
 from repro_torch.core.partition.edge_cut import PARTITIONERS
 
@@ -30,9 +31,11 @@ def add_group_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--init-method", default=None,
                     help="the group's rendezvous, file://<path> or "
                          "tcp://<host>:<port>; none: run alone, no group")
-    ap.add_argument("--partitioner", default="hash", choices=list(PARTITIONERS),
+    ap.add_argument("--partitioner", default=EngineConfig.partitioner,
+                    choices=list(PARTITIONERS),
                     help="the edge-cut partitioner that assigns vertices to "
-                         "ranks")
+                         "ranks (metis_like is a host loop: pass hash on "
+                         "graphs of millions of vertices)")
 
 
 def device_of(args) -> torch.device:

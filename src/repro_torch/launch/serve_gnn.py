@@ -38,7 +38,7 @@ log = get_logger("repro_torch.serve_gnn")
 
 # what the port runs today; the rest of the reference's choices arrive with
 # later slices
-PORTED_EXECUTION_MODELS = ("broadcast",)
+PORTED_EXECUTION_MODELS = ("p2p", "broadcast")
 PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 
 
@@ -88,7 +88,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device the sweep runs on (cpu only when asked)")
-    ap.add_argument("--exec", default="broadcast",
+    ap.add_argument("--exec", default=EngineConfig.execution,
                     choices=list(PORTED_EXECUTION_MODELS))
     add_group_args(ap)
     ap.add_argument("--model", default="gcn", choices=list(PORTED_GNN_MODELS))

@@ -33,7 +33,7 @@ log = get_logger("repro_torch.train_gnn")
 
 # what the port runs today; the rest of the reference's choices arrive with
 # later slices
-PORTED_EXECUTION_MODELS = ("broadcast",)
+PORTED_EXECUTION_MODELS = ("p2p", "broadcast")
 PORTED_PROTOCOLS = ("sync",)
 PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 ORACLE_TOL = 1e-4  # the repo's oracle bound for every step and sweep
@@ -107,7 +107,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device the step runs on (cpu only when asked)")
-    ap.add_argument("--exec", default="broadcast",
+    ap.add_argument("--exec", default=EngineConfig.execution,
                     choices=list(PORTED_EXECUTION_MODELS))
     add_group_args(ap)
     ap.add_argument("--protocol", default="sync", choices=list(PORTED_PROTOCOLS))

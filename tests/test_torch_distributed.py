@@ -1,10 +1,12 @@
-"""The port's multi-rank broadcast: `repro_torch`'s synchronous full-graph
-step and layer-wise sweep on four gloo ranks (four CPU processes, one
-`torch.distributed` group, joined through the launchers' group path)
+"""The port's multi-rank broadcast and p2p: `repro_torch`'s synchronous
+full-graph step and layer-wise sweep on four gloo ranks (four CPU processes,
+one `torch.distributed` group, joined through the launchers' group path)
 against the JAX engine on four forced host devices (Auto-axis mesh, Pallas
-interpret), for gcn, sage, gin and gat at exchange_chunks 1 and 2 under the
-hash and range partitioners, on a graph with isolated vertices and unequal
-parts.  From the reference's own initial weights: the per-step loss, the
+interpret), on a graph with isolated vertices and unequal parts: broadcast
+for gcn, sage, gin and gat at exchange_chunks 1 and 2 under the hash and
+range partitioners, and the bucketed p2p halo exchange in four
+configurations of model, partitioner, chunks and buckets, the first of them
+the default `EngineConfig()` (p2p, metis_like, one bucket) on both sides.  From the reference's own initial weights: the per-step loss, the
 final logits and params, and the sweep within 1e-4 of JAX's and of the
 port's own reference step; every rank reporting the same numbers; a second
 run bitwise equal; CommStats equal to JAX's; the collectives counted
@@ -34,10 +36,23 @@ RANK_TIMEOUT = 240  # seconds, for each rank process
 GRAPH = dict(num_vertices=98, avg_degree=3, feature_dim=24, num_classes=5,
              seed=1)
 HIDDEN, LAYERS = 16, 3
-CONFIGS = [dict(model=model, chunks=chunks,
+CONFIGS = [dict(model=model, chunks=chunks, execution="broadcast", buckets=1,
                 partitioner=("hash", "range")[chunks - 1])
            for model in ("gcn", "sage", "gin", "gat") for chunks in (1, 2)]
-TAGS = [f"{c['model']}-{c['chunks']}-{c['partitioner']}" for c in CONFIGS]
+# p2p; the first runs the default EngineConfig() of each package
+CONFIGS += [dict(model=model, chunks=chunks, execution="p2p", buckets=buckets,
+                 partitioner=partitioner, default=model == "gcn")
+            for model, partitioner, chunks, buckets in (
+                ("gcn", "metis_like", 1, 1), ("sage", "block", 2, 2),
+                ("gin", "ldg", 1, 2), ("gat", "pagraph", 2, 2))]
+
+
+def _tag(c):
+    tag = f"{c['model']}-{c['chunks']}-{c['partitioner']}"
+    return tag if c["execution"] == "broadcast" else f"p2p-{tag}-b{c['buckets']}"
+
+
+TAGS = [_tag(c) for c in CONFIGS]
 
 # the reference: every configuration on one 4-device Auto-axis mesh
 _JAX_CODE = """
@@ -46,17 +61,26 @@ import jax, numpy as np
 from jax.sharding import AxisType
 from repro.core.engine import DistGNNEngine, EngineConfig
 from repro.core.graph import er_graph
-configs, graph, out_path = json.loads({args!r})
+configs, tags, graph, out_path = json.loads({args!r})
 steps, hidden, layers = {steps}, {hidden}, {layers}
 g = er_graph(**graph)
 mesh = jax.make_mesh((4,), ("w",), axis_types=(AxisType.Auto,))
 out = {{}}
-for c in configs:
-    tag = f"{{c['model']}}-{{c['chunks']}}-{{c['partitioner']}}"
-    eng = DistGNNEngine(g, mesh=mesh, cfg=EngineConfig(
-        execution="broadcast", protocol="sync", partitioner=c["partitioner"],
-        model=c["model"], hidden=hidden, num_layers=layers,
-        exchange_chunks=c["chunks"], interpret=True))
+for c, tag in zip(configs, tags):
+    if c.get("default"):
+        cfg = EngineConfig(hidden=hidden, num_layers=layers, interpret=True)
+    else:
+        cfg = EngineConfig(
+            execution=c["execution"], protocol="sync",
+            partitioner=c["partitioner"], model=c["model"], hidden=hidden,
+            num_layers=layers, exchange_chunks=c["chunks"],
+            p2p_buckets=c["buckets"], interpret=True)
+    eng = DistGNNEngine(g, mesh=mesh, cfg=cfg)
+    out[f"{{tag}}/config"] = np.array(json.dumps([
+        cfg.execution, cfg.partitioner, cfg.model, cfg.exchange_chunks,
+        cfg.p2p_buckets]))
+    if cfg.execution == "p2p":
+        out[f"{{tag}}/installments"] = np.array(len(eng.playout.p2p_widths))
     state = eng.init_state()
     init = state["params"]
     step = eng.make_step()
@@ -96,14 +120,28 @@ try:
     from repro_torch.launch import train_gnn
     from repro_torch.launch.common import join_group, leave_group
 
-    (configs, graph, rank, world, init_method, params_path, out_path, steps,
-     hidden, layers) = json.loads(sys.argv[1])
+    (configs, tags, graph, rank, world, init_method, params_path, out_path,
+     steps, hidden, layers) = json.loads(sys.argv[1])
     g = er_graph(**graph)
     given = np.load(params_path)
     out = {}
 
-    def run(args, tag, model):
-        eng = train_gnn.build_engine(args, g)
+    # broadcast through the launcher; p2p from an EngineConfig (the
+    # launchers have no buckets option), the default one for the first
+    def build(c, args):
+        if c["execution"] == "broadcast":
+            return train_gnn.build_engine(args, g)
+        if c.get("default"):
+            cfg = EngineConfig(hidden=hidden, num_layers=layers)
+        else:
+            cfg = EngineConfig(
+                execution="p2p", partitioner=c["partitioner"],
+                model=c["model"], exchange_chunks=c["chunks"],
+                p2p_buckets=c["buckets"], hidden=hidden, num_layers=layers)
+        return DistGNNEngine(g, cfg, device="cpu")
+
+    def run(c, args, tag, model):
+        eng = build(c, args)
         L = len(eng.dims) - 1
         params = params_from_numpy({"layers": [
             {key: given[f"{tag}/init/{l}/{key}"] for key in PARAM_KEYS[model]}
@@ -139,7 +177,12 @@ try:
                        steps=calls_steps, sweep=calls_sweep, ref=calls_ref))),
                    comm=np.array(json.dumps(dataclasses.asdict(
                        eng.comm_stats))),
-                   shape=np.array([eng.k, eng.rank, eng.nb, eng.Vp]))
+                   shape=np.array([eng.k, eng.rank, eng.nb, eng.Vp]),
+                   config=np.array(json.dumps([
+                       eng.cfg.execution, eng.cfg.partitioner, eng.cfg.model,
+                       eng.cfg.exchange_chunks, eng.cfg.p2p_buckets])))
+        if eng.cfg.execution == "p2p":
+            res["installments"] = np.array(len(eng.playout.p2p_widths))
         for name, tree in (("final", state["params"]),
                            ("ref_final", ref_state["params"])):
             for l, p in enumerate(tree["layers"]):
@@ -148,19 +191,18 @@ try:
         return res
 
     joined = False
-    for c in configs:
-        tag = f"{c['model']}-{c['chunks']}-{c['partitioner']}"
+    for c, tag in zip(configs, tags):
         args = train_gnn.parse_args([
             "--device", "cpu", "--world-size", str(world), "--rank",
-            str(rank), "--init-method", init_method, "--partitioner",
-            c["partitioner"], "--model", c["model"], "--exchange-chunks",
-            str(c["chunks"]), "--hidden", str(hidden), "--layers",
-            str(layers)])
+            str(rank), "--init-method", init_method, "--exec",
+            c["execution"], "--partitioner", c["partitioner"], "--model",
+            c["model"], "--exchange-chunks", str(c["chunks"]), "--hidden",
+            str(hidden), "--layers", str(layers)])
         if not joined:
             join_group(args)
             joined = True
         for run_i in (0, 1):  # a second engine and run: bitwise equal
-            for name, a in run(args, tag, c["model"]).items():
+            for name, a in run(c, args, tag, c["model"]).items():
                 out[f"{tag}/{run_i}/{name}"] = a
     try:
         DistGNNEngine(g, EngineConfig(execution="broadcast",
@@ -235,7 +277,7 @@ def runs(tmp_path_factory):
     np.savez(params_path, **init)
 
     jax_path = str(tmp / "jax.npz")
-    code = _JAX_CODE.format(args=json.dumps([CONFIGS, GRAPH, jax_path]),
+    code = _JAX_CODE.format(args=json.dumps([CONFIGS, TAGS, GRAPH, jax_path]),
                             steps=STEPS, hidden=HIDDEN, layers=LAYERS)
     jax_error = []
 
@@ -251,7 +293,7 @@ def runs(tmp_path_factory):
     rank_paths = [str(tmp / f"rank{r}.npz") for r in range(WORLD)]
     try:
         _run_ranks([[sys.executable, "-c", _RANK_CODE, json.dumps([
-            CONFIGS, GRAPH, r, WORLD, init_method, params_path,
+            CONFIGS, TAGS, GRAPH, r, WORLD, init_method, params_path,
             rank_paths[r], STEPS, HIDDEN, LAYERS])] for r in range(WORLD)])
     finally:
         jax_thread.join()
@@ -326,27 +368,47 @@ def test_ranks_agree_and_a_second_run_is_bitwise_equal(runs, i):
 @pytest.mark.parametrize("i", range(len(CONFIGS)), ids=TAGS)
 def test_comm_stats_and_collective_counts(runs, i):
     """CommStats equal JAX's (halo bytes of the steps, inference bytes of
-    one sweep) on every rank.  A step calls an all_gather per layer and
-    chunk, a reduce-scatter per layer and chunk whose table needs a
-    gradient (not layer 0's constant features, but gat's Hw) and one flat
+    one sweep) on every rank.  broadcast: a step calls an all_gather per
+    layer and chunk, a reduce-scatter per layer and chunk whose table needs
+    a gradient (not layer 0's constant features, but gat's Hw) and one flat
     all_reduce; a sweep an all_gather per layer and chunk, then one for the
-    output rows; the references none."""
+    output rows.  p2p: an all_to_all per layer, chunk and installment, and
+    its reverse all_to_all wherever broadcast reduce-scatters; a sweep's
+    output rows still come by one all_gather.  The references call none."""
     c, tag = CONFIGS[i], TAGS[i]
     jcomm = json.loads(str(runs["jax"][f"{tag}/comm"]))
     C = c["chunks"]
     grad_layers = LAYERS if c["model"] == "gat" else LAYERS - 1
+    none = dict(all_gather=0, reduce_scatter=0, all_to_all=0, all_reduce=0)
     for res in runs["ranks"]:
         comm = json.loads(str(res[f"{tag}/0/comm"]))
         assert comm == jcomm and comm["halo_bytes"] > 0
         assert comm["inference_bytes"] > 0
         calls = json.loads(str(res[f"{tag}/0/calls"]))
-        assert calls["steps"] == dict(all_gather=LAYERS * C * STEPS,
-                                      reduce_scatter=grad_layers * C * STEPS,
-                                      all_reduce=STEPS)
-        assert calls["sweep"] == dict(all_gather=LAYERS * C + 1,
-                                      reduce_scatter=0, all_reduce=0)
-        assert calls["ref"] == dict(all_gather=0, reduce_scatter=0,
-                                    all_reduce=0)
+        if c["execution"] == "broadcast":
+            steps = dict(all_gather=LAYERS * C * STEPS,
+                         reduce_scatter=grad_layers * C * STEPS)
+            sweep = dict(all_gather=LAYERS * C + 1)
+        else:
+            B = int(res[f"{tag}/0/installments"])
+            assert B == int(runs["jax"][f"{tag}/installments"])
+            assert (B > 1) == (c["buckets"] > 1)
+            steps = dict(all_to_all=(LAYERS + grad_layers) * C * B * STEPS)
+            sweep = dict(all_to_all=LAYERS * C * B, all_gather=1)
+        assert calls["steps"] == {**none, **steps, "all_reduce": STEPS}
+        assert calls["sweep"] == {**none, **sweep}
+        assert calls["ref"] == none
+
+
+def test_default_config_is_p2p_metis_like(runs):
+    """`EngineConfig()` is the same engine in both packages: p2p over the
+    metis_like partition with one bucket (the default-config run's own
+    config, read back on every rank and from JAX)."""
+    tag = TAGS[CONFIGS.index(next(c for c in CONFIGS if c.get("default")))]
+    want = ["p2p", "metis_like", "gcn", 1, 1]
+    assert json.loads(str(runs["jax"][f"{tag}/config"])) == want
+    for res in runs["ranks"]:
+        assert json.loads(str(res[f"{tag}/0/config"])) == want
 
 
 def test_partition_part_count_must_equal_the_rank_count(runs):

@@ -40,7 +40,9 @@ GAT_KEYS = ("w", "a_src", "a_dst")
 
 def _engines(chunks):
     g, jg = er_graph(**GRAPH), jer_graph(**GRAPH)
-    eng = DistGNNEngine(g, EngineConfig(model="gat", hidden=16, num_layers=3,
+    eng = DistGNNEngine(g, EngineConfig(execution="broadcast",
+                                        partitioner="hash", model="gat",
+                                        hidden=16, num_layers=3,
                                         exchange_chunks=chunks), device=CPU)
     mesh = jax.make_mesh((1,), ("w",), axis_types=(AxisType.Auto,))
     jeng = JDistGNNEngine(jg, mesh=mesh, cfg=JEngineConfig(

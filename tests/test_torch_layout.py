@@ -1,7 +1,9 @@
 """The port's host layer against the reference: synthetic graphs bitwise
-equal for one seed, partitioners equal, and the vectorised edge-cut layout
-build array-for-array equal to the reference's loop build (labels and
-loss weights included), at k = 1 and k = 4 (numpy build only; the engine runs k = 1)."""
+equal for one seed, every partitioner's assignment and quality metrics
+equal, the bucketing helpers equal, and the vectorised edge-cut layout build
+array-for-array equal to the reference's loop build (labels and loss
+weights included; the p2p plan at 1, 2 and 4 buckets), at k = 1 and k = 4
+(numpy build only)."""
 import dataclasses
 
 import numpy as np
@@ -11,17 +13,20 @@ import torch
 from repro import utils as jutils
 from repro.configs import gcn_paper as jgcn_paper
 from repro.core.engine import EngineConfig as JEngineConfig
+from repro.core.execution import bucketing as jbucketing
 from repro.core.feature_store import FeatureStore as JFeatureStore
 from repro.core.graph import er_graph as jer_graph, sbm_graph as jsbm_graph
 from repro.core.partition import cost_models as jcost
+from repro.core.partition import edge_cut as jedge_cut
 from repro.core.partition.edge_cut import PARTITIONERS as JPARTITIONERS
 from repro.core.partition.layout_api import EdgeCutLayout as JEdgeCutLayout
 from repro_torch import utils
 from repro_torch.configs import gcn_paper
 from repro_torch.core.engine import EngineConfig
+from repro_torch.core.execution import bucketing
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.graph import er_graph, sbm_graph
-from repro_torch.core.partition import cost_models
+from repro_torch.core.partition import cost_models, edge_cut
 from repro_torch.core.partition.edge_cut import PARTITIONERS
 from repro_torch.core.partition.layout_api import EdgeCutLayout
 
@@ -60,13 +65,69 @@ def test_generators_bitwise_equal(name):
         assert a.dtype == b.dtype and np.array_equal(a, b), field
 
 
-@pytest.mark.parametrize("partitioner", ["hash", "range"])
+@pytest.mark.parametrize("partitioner", ["hash", "range", "ldg", "pagraph",
+                                         "block", "bytegnn", "metis_like"])
 @pytest.mark.parametrize("k", [1, 3, 4])
 def test_partitioners_equal(partitioner, k):
+    """Every partitioner gives the reference's assignment, on the er graph
+    (300 vertices: metis_like coarsens once) and the sbm graph, with the
+    same quality metrics (the port's vectorised, the reference's loops)."""
+    assert sorted(PARTITIONERS) == sorted(JPARTITIONERS)
+    for name in sorted(GRAPHS):
+        g, jg = _graphs(name)
+        part = PARTITIONERS[partitioner](g, k)
+        jpart = JPARTITIONERS[partitioner](jg, k)
+        a, b = part.assignment, jpart.assignment
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+        assert part.communication_volume(g) == jpart.communication_volume(jg)
+        assert part.edge_cut_fraction(g) == jpart.edge_cut_fraction(jg)
+        assert (part.vertex_balance(), part.train_balance(g)) == (
+            jpart.vertex_balance(), jpart.train_balance(jg))
+        for i in range(k):
+            ours, theirs = part.boundary_vertices(g, i), jpart.boundary_vertices(
+                jg, i)
+            assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+        assert all(np.array_equal(x, y) for x, y in zip(part.parts(),
+                                                         jpart.parts()))
+
+
+def test_range_partition_by_cost_and_scores_equal():
     g, jg = _graphs("er")
-    a = PARTITIONERS[partitioner](g, k).assignment
-    b = JPARTITIONERS[partitioner](jg, k).assignment
-    assert a.dtype == b.dtype and np.array_equal(a, b)
+    cost = g.degree().astype(np.float64) + 1.0
+    for k in (1, 3, 4):
+        assert np.array_equal(
+            edge_cut.range_partition_by_cost(g, k, cost).assignment,
+            jedge_cut.range_partition_by_cost(jg, k, cost).assignment)
+    rng = np.random.default_rng(0)
+    sets = [set(rng.choice(300, 20).tolist()) for _ in range(4)]
+    nbrs, sizes = rng.choice(300, 30), np.array([5.0, 0.0, 9.0, 3.0])
+    counts = np.array([1.0, 4.0, 0.0, 2.0])
+    assert np.array_equal(cost_models.pagraph_score(nbrs, sets, sizes, 2.5),
+                          jcost.pagraph_score(nbrs, sets, sizes, 2.5))
+    assert np.array_equal(
+        cost_models.bgl_score(nbrs, sets, sizes, counts, 6.0, 2.0),
+        jcost.bgl_score(nbrs, sets, sizes, counts, 6.0, 2.0))
+    args = (counts, sizes, counts[::-1], counts + 1, sizes / 2, (3.0, 0.5, 2.0))
+    assert np.array_equal(cost_models.bytegnn_score(*args),
+                          jcost.bytegnn_score(*args))
+
+
+def test_bucketing_helpers_equal():
+    for cap in (0, 1, 2, 3, 5, 8, 13, 34, 48, 100):
+        for buckets in (1, 2, 3, 4, 8):
+            assert (bucketing.bucketed_cap_widths(cap, buckets)
+                    == jbucketing.bucketed_cap_widths(cap, buckets))
+    t, s = np.arange(40) % 13, np.arange(40) % 4
+    for width, k, base in ((13, 4, 7), (4, 4, 0), (1, 3, 5)):
+        assert np.array_equal(bucketing.halo_slot(t, s, width, k, base),
+                              jbucketing.halo_slot(t, s, width, k, base))
+    rng = np.random.default_rng(1)
+    need = [[np.sort(rng.choice(50, int(rng.integers(0, 9)), replace=False))
+             for _ in range(3)] for _ in range(3)]
+    for widths in ([8], [4, 4], [2, 2, 2, 2]):
+        ours = bucketing.bucketed_send_table(need, 3, widths)
+        theirs = jbucketing.bucketed_send_table(need, 3, widths)
+        assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
 
 
 @pytest.mark.parametrize("partitioner", ["hash", "range"])
@@ -74,7 +135,8 @@ def test_partitioners_equal(partitioner, k):
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_edge_cut_layout_equal(name, k, partitioner):
     g, jg = _graphs(name)
-    lay = EdgeCutLayout(g, k, EngineConfig(partitioner=partitioner))
+    lay = EdgeCutLayout(g, k, EngineConfig(execution="broadcast",
+                                           partitioner=partitioner))
     jlay = JEdgeCutLayout(jg, k, JEngineConfig(execution="broadcast",
                                                partitioner=partitioner))
     assert (lay.nb, lay.Vp, lay.K) == (jlay.nb, jlay.Vp, jlay.K)
@@ -95,25 +157,68 @@ def test_edge_cut_layout_equal(name, k, partitioner):
     assert np.array_equal(lay.global_embeddings(H), jlay.global_embeddings(H))
 
 
+@pytest.mark.parametrize("buckets", [1, 2, 4])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_p2p_layout_equal(name, k, buckets):
+    """The p2p plan, vectorised, against the reference's loops: the cap,
+    the installment widths, the [k, B, k, w] send table, the ids remapped
+    into [own | halo | zero], the halo rows (the partition's communication
+    volume) and the wire bytes; the send mask marks each pair's need rows."""
+    g, jg = _graphs(name)
+    lay = EdgeCutLayout(g, k, EngineConfig(p2p_buckets=buckets))
+    jlay = JEdgeCutLayout(jg, k, JEngineConfig(execution="p2p",
+                                               partitioner="metis_like",
+                                               p2p_buckets=buckets))
+    assert (lay.cap, lay.p2p_widths, lay._halo_rows) == (
+        jlay.cap, jlay.p2p_widths, jlay._halo_rows)
+    assert lay._halo_rows == lay.part.communication_volume(g)
+    for ours, theirs in ((lay.send_rows, np.asarray(jlay.send_rows)),
+                         (lay.ids_exec, np.asarray(jlay.ids_exec)),
+                         (lay.ids_global, jlay.ids_global),
+                         (lay.mask, np.asarray(jlay.mask))):
+        assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+    B, w = len(lay.p2p_widths), lay.p2p_widths[0]
+    assert lay.table_rows == lay.nb + B * k * w + 1
+    assert lay.send_mask.shape == lay.send_rows.shape
+    assert int(lay.send_mask.sum()) == lay._halo_rows
+    assert not lay.send_rows[lay.send_mask == 0].any()
+    for model, dims in (("gcn", [12, 8, 5]), ("gat", [12, 8, 8, 5])):
+        assert (lay.wire_fields_per_step(model, dims)
+                == jlay.wire_fields_per_step(model, dims))
+
+
 def test_layout_for_an_unported_plan_raises():
     g, _ = _graphs("sbm")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        EdgeCutLayout(g, 1, EngineConfig(execution="p2p"))
+    with pytest.raises(NotImplementedError, match="ring slice"):
+        EdgeCutLayout(g, 1, EngineConfig(execution="ring"))
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
-@pytest.mark.parametrize("execution", ["broadcast", "ring"])
+@pytest.mark.parametrize("execution", ["broadcast", "ring", "p2p"])
 def test_cost_models_equal(execution, k):
     for model, family in (("gcn", "edge_cut"), ("gat", "edge_cut"),
                           ("gat", "vertex_cut")):
         dims = [16, 8, 8, 3]
         assert (cost_models.model_exchange_widths(model, dims, family)
                 == jcost.model_exchange_widths(model, dims, family))
+    g, jg = _graphs("sbm")
+    part = PARTITIONERS["metis_like"](g, k)
+    jpart = JPARTITIONERS["metis_like"](jg, k)
+    p2p = execution == "p2p"
     for model in ("gcn", "gat"):
-        assert (cost_models.inference_bytes_per_sweep(
-                    execution, [16, 8, 3], model=model, k=k, nb=37)
-                == jcost.inference_bytes_per_sweep(
-                    execution, [16, 8, 3], model=model, k=k, nb=37))
+        ours = cost_models.inference_bytes_per_sweep(
+            execution, [16, 8, 3], model=model, k=k, nb=37,
+            **(dict(g=g, part=part) if p2p else {}))
+        assert ours == jcost.inference_bytes_per_sweep(
+            execution, [16, 8, 3], model=model, k=k, nb=37,
+            **(dict(g=jg, part=jpart) if p2p else {}))
+        assert (cost_models.edge_cut_halo_bytes_per_step(g, part, [16, 8, 3],
+                                                         model=model)
+                == jcost.edge_cut_halo_bytes_per_step(jg, jpart, [16, 8, 3],
+                                                      model=model))
+    if p2p and k > 1:
+        assert ours > 0
 
 
 def test_feature_store_update_rows_is_live():

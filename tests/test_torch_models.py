@@ -47,7 +47,9 @@ MODELS = ("sage", "gin")
 
 def _engines(model, chunks):
     g, jg = er_graph(**GRAPH), jer_graph(**GRAPH)
-    eng = DistGNNEngine(g, EngineConfig(model=model, hidden=16, num_layers=3,
+    eng = DistGNNEngine(g, EngineConfig(execution="broadcast",
+                                        partitioner="hash", model=model,
+                                        hidden=16, num_layers=3,
                                         exchange_chunks=chunks), device=CPU)
     mesh = jax.make_mesh((1,), ("w",), axis_types=(AxisType.Auto,))
     jeng = JDistGNNEngine(jg, mesh=mesh, cfg=JEngineConfig(

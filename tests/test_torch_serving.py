@@ -38,8 +38,10 @@ GRAPH = dict(num_vertices=120, avg_degree=3, feature_dim=24, num_classes=5,
 
 def _engines(chunks):
     g, jg = er_graph(**GRAPH), jer_graph(**GRAPH)
-    eng = DistGNNEngine(g, EngineConfig(hidden=16, num_layers=3,
-                                        exchange_chunks=chunks), device=CPU)
+    eng = DistGNNEngine(g, EngineConfig(execution="broadcast",
+                                        partitioner="hash", hidden=16,
+                                        num_layers=3, exchange_chunks=chunks),
+                        device=CPU)
     mesh = jax.make_mesh((1,), ("w",), axis_types=(AxisType.Auto,))
     jeng = JDistGNNEngine(jg, mesh=mesh, cfg=JEngineConfig(
         execution="broadcast", partitioner="hash", hidden=16, num_layers=3,
@@ -131,8 +133,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_engine_rejects_what_is_not_ported(case):
     """Each unported axis raises naming its slice; a partition whose part
     count is not the process group's rank count (one rank here: no group)
-    is a caller's error.  The ``model`` case holds the ring, since every
-    model is ported."""
+    is a caller's error.  Every model and the p2p and broadcast execution
+    models are ported: the ``model`` case holds the ring, the
+    ``execution`` case an async protocol."""
     g = er_graph(**GRAPH)
     cfg, partition = EngineConfig(), None
     error, match = NotImplementedError, "slice"
@@ -140,8 +143,7 @@ def test_engine_rejects_what_is_not_ported(case):
         cfg.execution = "ring"
         match = "ring slice"
     elif case == "execution":
-        cfg.execution = "p2p"
-        match = "p2p slice"
+        cfg.protocol = "epoch_fixed"
     elif case == "batching":
         cfg.batching = "node_wise"
     elif case == "family":

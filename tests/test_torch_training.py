@@ -32,8 +32,10 @@ STEPS = 3
 
 def _engines(chunks):
     g, jg = er_graph(**GRAPH), jer_graph(**GRAPH)
-    eng = DistGNNEngine(g, EngineConfig(hidden=16, num_layers=3,
-                                        exchange_chunks=chunks), device=CPU)
+    eng = DistGNNEngine(g, EngineConfig(execution="broadcast",
+                                        partitioner="hash", hidden=16,
+                                        num_layers=3, exchange_chunks=chunks),
+                        device=CPU)
     mesh = jax.make_mesh((1,), ("w",), axis_types=(AxisType.Auto,))
     jeng = JDistGNNEngine(jg, mesh=mesh, cfg=JEngineConfig(
         execution="broadcast", protocol="sync", partitioner="hash",
