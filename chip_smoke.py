@@ -16,20 +16,34 @@ exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
 layer-wise inference sweep (`launch/serve_gnn.run_sweep`) and the
 full-graph training step (`launch/train_gnn.run_training`; lr `TRAIN_LR`),
 each held to its single-device reference, with every kernel's launches
-counted from 0 around each drive.  These run the broadcast exchange over
-the hash partition (at one rank every partitioner gives part 0, and
-metis_like's host loops would take minutes at 2**20 vertices).  Then gcn and
+counted from 0 around each drive; a configuration's sweep and training
+step share one engine, built through the training launcher's options (its
+layout and transpose plans take seconds of host work).  These run the
+broadcast exchange over the hash partition (at one rank every partitioner
+gives part 0, and metis_like's host loops would take minutes at 2**20
+vertices).  Then gcn and
 gat at exchange_chunks 2 under the p2p halo exchange, the engine's default
 (phases `p2p_sweep`, `p2p_train`, and one traced step each,
 `p2p_train_profile`): at one rank the p2p table is the broadcast table
 with one unread halo row, so each must equal the same model's broadcast
-phase bit for bit.  Last, gcn and gat at exchange_chunks 2
+phase bit for bit.  Then gcn and gat under the ring (`ring_sweep`,
+`ring_train`, `gat_ring_sweep`, `gat_ring_train`, and one traced gat step,
+`gat_ring_train_profile`; the ring ignores exchange_chunks): at one rank
+its one round reads the rank's own block with the broadcast kernels, so
+each must equal the broadcast phase at exchange_chunks 1 bit for bit.  Then
+gcn at the p2p settings under the three historical-embedding protocols
+(`async_train`, one per protocol): at one rank no row is a boundary row, so
+each must equal `p2p_train` bit for bit, each step's history must be the
+reference step's from the same state within 1e-4, the ages its, and no row
+pushed.  Last, gcn and gat
 once more inside a world-size-1 NCCL group joined through the launchers'
-group options, broadcast and p2p (phases `nccl_sweep`, `nccl_train`,
-`nccl_p2p_sweep`, `nccl_p2p_train`): the all_gather, its reduce-scatter,
-the all_to_all and the all_reduce run on the card, every collective call is
-counted, and the results must equal the runs without a group bit for bit
-(one rank: the collectives are copies on the card, no wire time).  Each
+group options, broadcast at exchange_chunks 2, p2p at 2 and the ring
+(phases `nccl_sweep`, `nccl_train`, `nccl_p2p_sweep`, `nccl_p2p_train`,
+`nccl_ring_sweep`, `nccl_ring_train`): the all_gather, its reduce-scatter,
+the all_to_all and the all_reduce run on the card (the ring issues no
+rotation at one rank), every collective call is counted, and the results
+must equal the runs without a group bit for bit (one rank: the collectives
+are copies on the card, no wire time).  Each
 phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
@@ -80,8 +94,12 @@ TRAIN_STEPS = 5
 # this width (sage 4.51 to 3.65, gin 4.28 to 4.08)
 TRAIN_LR = {"gcn": 0.1, "sage": 0.1, "gin": 0.1, "gat": 1.0}
 MODELS = ("gcn", "sage", "gin", "gat")
-# the models and exchange_chunks the world-size-1 NCCL group runs
+# the models and exchange_chunks the world-size-1 NCCL group runs; the ring
+# runs the same models and ignores exchange_chunks
 NCCL_MODELS, NCCL_CHUNKS = ("gcn", "gat"), 2
+# the historical-embedding protocols, each run with gcn at the p2p phases'
+# settings
+ASYNC_PROTOCOLS = ("epoch_fixed", "epoch_adaptive", "variation")
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -168,16 +186,21 @@ def check_calls(got: dict, want: dict, what: str) -> None:
     check(got == want, f"{what}: collective calls {got}, expected {want}")
 
 
-def step_calls(model: str, L: int, C: int, T: int, installments: int = 0
-               ) -> dict:
+def step_calls(model: str, L: int, C: int, T: int, installments: int = 0,
+               execution: str = "broadcast", k: int = 1) -> dict:
     """Collective calls of T training steps in a process group, then the
     all_gather of the last logits.  broadcast: an all_gather per layer and
     chunk, a reduce-scatter (its backward) per layer and chunk whose table
     needs a gradient (as the transpose: not layer 0's constant features,
     but gat's Hw).  p2p: an all_to_all per layer, chunk and installment,
-    and its reverse all_to_all wherever broadcast reduce-scatters.  Both:
-    one flat all_reduce of the loss and the gradients a step."""
+    and its reverse all_to_all wherever broadcast reduce-scatters.  ring:
+    k - 1 rotations a layer and k - 1 reverse rotations wherever broadcast
+    reduce-scatters (none at k = 1).  All: one flat all_reduce of the loss,
+    the rows pushed and the gradients a step."""
     grad_layers = L if model == "gat" else L - 1
+    if execution == "ring":
+        return dict(ppermute=(L + grad_layers) * (k - 1) * T, all_gather=1,
+                    all_reduce=T)
     if installments:
         return dict(all_to_all=(L + grad_layers) * C * installments * T,
                     all_gather=1, all_reduce=T)
@@ -188,10 +211,12 @@ def step_calls(model: str, L: int, C: int, T: int, installments: int = 0
 def compare_baseline(name: str, result: dict, baseline: dict, keys,
                      against: str = "no_group") -> dict:
     """The phase's result against the same phase without a process group
-    (``against`` "no_group") or under broadcast ("broadcast": at one rank
-    the p2p table is the broadcast table with one unread halo row): bitwise
-    equal in ``keys`` (arrays, lists of floats, or lists of layers of
-    tensors), and both medians side by side."""
+    (``against`` "no_group"), under broadcast ("broadcast": at one rank the
+    p2p table is the broadcast table with one unread halo row, and the ring
+    reads the rank's own block in one round) or under sync ("sync": at one
+    rank no row is a boundary row, so a protocol reads every row fresh):
+    bitwise equal in ``keys`` (arrays, lists of floats, or lists of layers
+    of tensors), and both medians side by side."""
     def equal(a, b):
         if isinstance(a, np.ndarray):
             return np.array_equal(a, b)
@@ -1122,10 +1147,47 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_name(kind: str, model: str, group: list, execution: str) -> str:
+def build_engine(g, chunks, device, model="gcn", group=(),
+                 execution="broadcast", protocol="sync"):
+    """One configuration's engine at full width through the training
+    launcher's options (lr TRAIN_LR; the hash partition: every partitioner
+    gives part 0 at one rank, and metis_like's host loops would take minutes
+    at 2**20 vertices), after the earlier engines are released.  The
+    configuration's sweep and training phases share it (its layout and
+    transpose plans take a few seconds of host work to build).  ``group``:
+    the launcher's process-group options (the engine then runs over the
+    group already joined).  Returns (engine, setup seconds)."""
+    from repro_torch.launch import train_gnn
+
+    release()
+    t0 = time.perf_counter()
+    args = train_gnn.parse_args([
+        "--device", str(device), "--exec", execution, "--partitioner", "hash",
+        "--protocol", protocol, "--model", model, "--exchange-chunks",
+        str(chunks), "--hidden", "256", "--layers", "3", "--lr",
+        str(TRAIN_LR[model]), *group])
+    eng = train_gnn.build_engine(args, g)  # the transpose plans included
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_name(kind: str, eng) -> str:
     """sweep, train (gcn), <model>_sweep, <model>_train; p2p_sweep and
-    p2p_train under p2p; nccl_sweep and nccl_train (nccl_p2p_sweep,
-    nccl_p2p_train) in the world-size-1 NCCL group."""
+    p2p_train under p2p; ring_sweep, ring_train (gcn) and <model>_ring_sweep,
+    <model>_ring_train under the ring; nccl_sweep and nccl_train
+    (nccl_p2p_sweep, nccl_p2p_train, nccl_ring_sweep, nccl_ring_train) in
+    the world-size-1 NCCL group; async_train under a historical-embedding
+    protocol."""
+    from repro_torch.core.execution import collectives
+
+    model, execution = eng.cfg.model, eng.cfg.execution
+    group = collectives.group_active()
+    if eng.cfg.protocol != "sync":
+        return f"async_{kind}"
+    if execution == "ring":
+        if group:
+            return f"nccl_ring_{kind}"
+        return f"ring_{kind}" if model == "gcn" else f"{model}_ring_{kind}"
     if execution == "p2p":
         return f"nccl_p2p_{kind}" if group else f"p2p_{kind}"
     if group:
@@ -1142,33 +1204,24 @@ def p2p_fields(eng) -> dict:
                 halo_rows=lay._halo_rows)
 
 
-def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None,
-                execution="broadcast", against="no_group"):
+def sweep_phase(eng, setup_s, g, baseline=None, against="no_group"):
     """The main path: SWEEPS timed layer-wise sweeps through
-    serve_gnn.run_sweep at full width (``execution`` broadcast or p2p, the
-    hash partition: every partitioner gives part 0 at one rank, and
-    metis_like's host loops would take minutes at 2**20 vertices), kernel
+    serve_gnn.run_sweep at full width on the engine `build_engine` made
+    (broadcast, p2p or the ring, which ignores exchange_chunks), kernel
     launches and collective calls counted from 0; then the reference
-    sweep, its launches counted apart.  ``group``: the launcher's
-    process-group options (the engine then runs over the group already
-    joined); ``baseline``: a result this one must equal bit for bit, the
-    same phase without a group (``against`` "no_group") or under broadcast
-    ("broadcast")."""
+    sweep, its launches counted apart.  ``baseline``: a result this one must
+    equal bit for bit, the same phase without a group (``against``
+    "no_group") or under broadcast ("broadcast")."""
     from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import init_gnn_params
     from repro_torch.launch import serve_gnn
 
-    name = phase_name("sweep", model, group, execution)
-    release()
+    model, chunks = eng.cfg.model, eng.cfg.exchange_chunks
+    execution, group = eng.cfg.execution, collectives.group_active()
+    name = phase_name("sweep", eng)
     t0 = time.perf_counter()
-    args = serve_gnn.parse_args([
-        "--device", str(device), "--exec", execution, "--partitioner", "hash",
-        "--model", model, "--exchange-chunks", str(chunks), "--hidden", "256",
-        "--layers", "3", *group])
-    eng = serve_gnn.build_engine(args, g)
     params = init_gnn_params(model, eng.dims, torch.Generator().manual_seed(0),
                              eng.device)
-    setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1183,14 +1236,22 @@ def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None,
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
     # a sweep runs the forward kernel per layer and chunk (p2p: and one
-    # send gather per installment) and no backward; in a group an
-    # all_gather per layer and chunk (p2p: an all_to_all per layer, chunk
-    # and installment), then one all_gather of the output
+    # send gather per installment; the ring: per layer and round, one round
+    # at k = 1) and no backward; in a group an all_gather per layer and
+    # chunk (p2p: an all_to_all per layer, chunk and installment; the ring:
+    # k - 1 rotations a layer, none at k = 1), then one all_gather of the
+    # output
     B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
-    check_counts(launches, dict(ell_spmm=L * chunks * (1 + B) * SWEEPS),
+    C = 1 if execution == "ring" else chunks  # the ring: one round at k = 1
+    check(eng.k == 1, f"{name}: {eng.k} ranks on one card")
+    check_counts(launches, dict(ell_spmm=L * C * (1 + B) * SWEEPS),
                  f"{name} {model}")
-    calls_want = (dict(all_to_all=L * chunks * B * SWEEPS, all_gather=SWEEPS)
-                  if B else dict(all_gather=(L * chunks + 1) * SWEEPS))
+    if execution == "ring":
+        calls_want = dict(ppermute=L * (eng.k - 1) * SWEEPS, all_gather=SWEEPS)
+    elif B:
+        calls_want = dict(all_to_all=L * chunks * B * SWEEPS, all_gather=SWEEPS)
+    else:
+        calls_want = dict(all_gather=(L * chunks + 1) * SWEEPS)
     check_calls(calls, calls_want if group else {}, f"{name} {model}")
     emb = embs[-1]
     check(emb.shape == (g.num_vertices, eng.dims[-1]), f"shape {emb.shape}")
@@ -1220,36 +1281,35 @@ def sweep_phase(g, chunks, device, model="gcn", group=(), baseline=None,
          collective_calls=calls, bitwise_equal_sweeps=bitwise,
          oracle_max_abs_err=err, oracle_tol=TOL,
          inference_bytes=eng.comm_stats.inference_bytes,
-         max_memory_allocated=peak, setup_s=setup_s, **extra)
+         max_memory_allocated=peak, setup_s=setup_s,
+         seconds=time.perf_counter() - t0, **extra)
     add_counts(launches, ref_launches)
-    return eng, params, launches, result
+    return params, launches, result
 
 
-def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
-                execution="broadcast", against="no_group"):
+def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
     """The training path: TRAIN_STEPS timed steps through
-    train_gnn.run_training at full width, kernel launches and collective
-    calls counted from 0; then a second run from the same initial state with
-    the single-device reference run (per-step loss gap <= TOL), which must
-    be bitwise equal to the first in losses and in every parameter.
-    ``group``, ``baseline``, ``execution`` and ``against`` as in
-    `sweep_phase`."""
+    train_gnn.run_training at full width on the engine `build_engine` made
+    (lr TRAIN_LR), kernel launches and collective calls counted from 0;
+    then a second run from the same initial state with the single-device
+    reference run (per-step loss gap <= TOL), which must be bitwise equal to
+    the first in losses and in every parameter.  ``baseline`` and
+    ``against`` as in `sweep_phase` ("sync": a protocol against the same
+    phase under sync).  Under a historical-embedding protocol the state also
+    carries each layer's history and the ages, and the second run is
+    `forced_run`: both runs must hold the same bits, each step's history
+    within TOL of the reference step's from the same state, the ages equal
+    to its, and no step may push a row (one rank: no boundary row)."""
     from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import PARAM_KEYS
     from repro_torch.launch import train_gnn
 
-    name = phase_name("train", model, group, execution)
-    lr = TRAIN_LR[model]
-    release()
+    c = eng.cfg
+    model, chunks, execution, protocol, lr = (
+        c.model, c.exchange_chunks, c.execution, c.protocol, c.lr)
+    group = collectives.group_active()
+    name = phase_name("train", eng)
     t0 = time.perf_counter()
-    args = train_gnn.parse_args([
-        "--device", str(device), "--exec", execution, "--partitioner", "hash",
-        "--protocol", "sync", "--model", model, "--exchange-chunks",
-        str(chunks), "--hidden", "256", "--layers", "3", "--lr", str(lr),
-        *group])
-    eng = train_gnn.build_engine(args, g)  # the transpose plan included
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     collectives.zero_calls()
@@ -1259,8 +1319,11 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
     B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
-    step_want = step_launches(model, L, chunks, TRAIN_STEPS, sends=B)
-    calls_want = step_calls(model, L, chunks, TRAIN_STEPS, installments=B)
+    C = 1 if execution == "ring" else chunks  # the ring: one round at k = 1
+    check(eng.k == 1, f"{name}: {eng.k} ranks on one card")
+    step_want = step_launches(model, L, C, TRAIN_STEPS, sends=B)
+    calls_want = step_calls(model, L, chunks, TRAIN_STEPS, installments=B,
+                            execution=execution, k=eng.k)
     check_counts(launches, step_want,
                  f"{name} {model}, {TRAIN_STEPS} steps")
     check_calls(calls, calls_want if group else {},
@@ -1274,11 +1337,14 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     train_acc, test_acc = eng.accuracy(logits, "train"), eng.accuracy(logits, "test")
     params, walls = run["state"]["params"], run["walls"]
+    hist, pushed = run["state"].get("hist"), run["rows_pushed"]
+    age = run["state"].get("age")
     del run, logits
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     collectives.zero_calls()
-    again = train_gnn.run_training(eng, TRAIN_STEPS, oracle_check=True)
+    again = (forced_run(eng, TRAIN_STEPS) if protocol != "sync" else
+             train_gnn.run_training(eng, TRAIN_STEPS, oracle_check=True))
     again_launches = read_counts()
     ref_peak = torch.cuda.max_memory_allocated()
     want = dict(step_want)
@@ -1299,6 +1365,8 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
     result = dict(losses=losses, median_ms=median_s * 1e3, params=[
         {key: p[key].cpu() for key in keys} for p in params["layers"]])
     extra = p2p_fields(eng) if B else {}
+    if protocol != "sync":
+        extra.update(history_fields(eng, hist, age, pushed, again))
     if baseline is not None:
         extra.update(compare_baseline(name, result, baseline,
                                       ("losses", "params"), against))
@@ -1314,9 +1382,66 @@ def train_phase(g, chunks, device, model="gcn", group=(), baseline=None,
          param_keys=list(keys), bitwise_equal_runs=bitwise,
          max_memory_allocated=peak,
          max_memory_allocated_with_reference=ref_peak, setup_s=setup_s,
-         **extra)
+         seconds=time.perf_counter() - t0, **extra)
     add_counts(launches, again_launches)
-    return eng, launches, result
+    return launches, result
+
+
+def forced_run(eng, steps: int) -> dict:
+    """A protocol phase's second run: ``steps`` timed steps from
+    `init_state()`, and beside each the reference step from the same state
+    (the run's rows gathered: history [Vp, d] a layer, ages [L, k]), so each
+    step's history is held to the reference step's on equal inputs (two
+    runs left to themselves drift apart in every layer's rows, as the sync
+    step's logits do).  Returns `run_training`'s keys with ``oracle_check``
+    and, per step, each layer's largest history gap and whether the ages
+    are the reference's."""
+    step, ref_step = eng.make_step(), eng.make_reference_step()
+    state = eng.init_state()
+    out = dict(losses=[], rows_pushed=[], walls=[], ref_losses=[],
+               ref_rows_pushed=[], history_gaps=[], ages_equal=[])
+    for _ in range(steps):
+        ref_in = dict(params=state["params"], step=state["step"],
+                      hist=tuple(eng.gather_rows(h) for h in state["hist"]),
+                      age=eng.gather_rows(state["age"][None]).t())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, _ = step(state)
+        out["losses"].append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["rows_pushed"].append(float(metrics["rows_pushed"]))
+        ref, ref_metrics, _ = ref_step(ref_in)
+        out["ref_losses"].append(float(ref_metrics["loss"]))
+        out["ref_rows_pushed"].append(float(ref_metrics["rows_pushed"]))
+        out["history_gaps"].append(
+            [float((eng.gather_rows(h) - r).abs().max())
+             for h, r in zip(state["hist"], ref["hist"])])
+        out["ages_equal"].append(
+            torch.equal(state["age"], ref["age"][:, eng.rank]))
+    out["state"] = state
+    return out
+
+
+def history_fields(eng, hist, age, pushed, again) -> dict:
+    """A protocol run's history checks: the first and the second run's
+    history and ages bitwise equal, each step's history within TOL of the
+    reference step's from the same state and the ages equal to its
+    (`forced_run`), and no row pushed in any step of either run or of the
+    reference (one rank: the boundary set is empty)."""
+    state = again["state"]
+    check(all(torch.equal(a, b) for a, b in zip(hist, state["hist"]))
+          and torch.equal(age, state["age"]),
+          "two protocol runs' histories differ")
+    gaps = again["history_gaps"]
+    check(max(max(g) for g in gaps) <= TOL,
+          f"history vs the reference step's: {gaps} > {TOL}")
+    check(all(again["ages_equal"]), f"ages {age.tolist()} differ from the "
+          "reference step's")
+    every = pushed + again["rows_pushed"] + again["ref_rows_pushed"]
+    check(every == [0.0] * len(every), f"rows pushed at one rank: {every}")
+    return dict(history_gaps=gaps, ages=age.tolist(), rows_pushed=pushed,
+                history_bytes=sum(h.numel() * h.element_size() for h in hist))
 
 
 def trace(fn):
@@ -1437,70 +1562,87 @@ def main(argv=None) -> int:
     emit("graph", generator="er_graph", vertices=g.num_vertices,
          edges=g.num_edges, seconds=time.perf_counter() - t0)
 
-    baselines = {}  # the no-group results the NCCL phases must equal
+    def configuration(chunks, model, execution="broadcast", group=(),
+                      baseline=(None, None), against="no_group"):
+        """One configuration's sweep and training phases on one engine;
+        ``baseline`` the (sweep, train) results they must equal."""
+        eng, setup_s = build_engine(g, chunks, device, model, group, execution)
+        params, n, swept = sweep_phase(eng, setup_s, g, baseline[0], against)
+        add_counts(launches, n)
+        n, trained = train_phase(eng, setup_s, g, baseline[1], against)
+        add_counts(launches, n)
+        return eng, params, (swept, trained)
+
+    def profile_step(phase, eng, **fields):
+        """One traced training step of the engine (`profile_phase`), which
+        must hold the step's launches."""
+        c = eng.cfg
+        step, state = eng.make_step(), eng.init_state()
+        B = len(eng.playout.p2p_widths) if c.execution == "p2p" else 0
+        C = 1 if c.execution == "ring" else c.exchange_chunks
+        expect = {f"{name}_kernel": count for name, count in step_launches(
+            c.model, len(eng.dims) - 1, C, 1, sends=B).items()}
+        profile_phase(phase, lambda: step(state), expect,
+                      exchange_chunks=c.exchange_chunks, **fields)
+
+    # the results later phases must equal bit for bit: the broadcast
+    # phases (the ring's and p2p's at one rank), the no-group phases (the
+    # NCCL phases') and p2p_train (the protocols' at one rank)
+    baselines = {}
     for model in MODELS:
         for chunks in (1, 2):
-            eng, params, n, result = sweep_phase(g, chunks, device, model)
-            add_counts(launches, n)
-            if model in NCCL_MODELS and chunks == NCCL_CHUNKS:
-                baselines["sweep", model] = result
-            if chunks == 1:
-                L = len(eng.dims) - 1
+            eng, params, result = configuration(chunks, model)
+            if model in NCCL_MODELS:
+                baselines[model, chunks] = result
+            if chunks == 1 and model == "gcn":
                 # kernel cases at the main path's own layout, counted apart
-                if model == "gcn":
-                    rows.update(ell_spmm=kernel_phase(eng, device),
-                                ell_spmm_transpose=transpose_phase(eng, device))
-                    profile_phase("profile",
-                                  lambda: eng.infer_full_graph(params=params),
-                                  {"ell_spmm_kernel": L}, exchange_chunks=1)
-                else:
-                    for name, extra in gat_kernel_phase(eng, device).items():
-                        rows[name] = rows.get(name, []) + extra
-            del eng, params
-            torch.cuda.empty_cache()
-    for model in MODELS:
-        for chunks in (1, 2):
-            eng, n, result = train_phase(g, chunks, device, model)
-            add_counts(launches, n)
-            if model in NCCL_MODELS and chunks == NCCL_CHUNKS:
-                baselines["train", model] = result
+                rows.update(ell_spmm=kernel_phase(eng, device),
+                            ell_spmm_transpose=transpose_phase(eng, device))
+                profile_phase("profile",
+                              lambda: eng.infer_full_graph(params=params),
+                              {"ell_spmm_kernel": len(eng.dims) - 1},
+                              exchange_chunks=1)
+            elif chunks == 1:
+                for name, extra in gat_kernel_phase(eng, device).items():
+                    rows[name] = rows.get(name, []) + extra
             if chunks == 1 or model == "gat":
-                step, state = eng.make_step(), eng.init_state()
-                L = len(eng.dims) - 1
-                expect = {f"{name}_kernel": count for name, count in
-                          step_launches(model, L, chunks, 1).items()}
-                profile_phase("train_profile" if model == "gcn"
-                              else f"{model}_train_profile",
-                              lambda: step(state), expect,
-                              exchange_chunks=chunks)
-                del step, state
-            del eng
-            torch.cuda.empty_cache()
+                profile_step("train_profile" if model == "gcn"
+                             else f"{model}_train_profile", eng)
+            del eng, params
     # the p2p halo exchange (the default engine) at one rank: its table is
     # the broadcast table with one unread halo row, so each phase must equal
     # the same model's broadcast phase bit for bit
     for model in NCCL_MODELS:
-        eng, _, n, baselines["p2p_sweep", model] = sweep_phase(
-            g, NCCL_CHUNKS, device, model, baseline=baselines["sweep", model],
-            execution="p2p", against="broadcast")
+        eng, _, baselines["p2p", model] = configuration(
+            NCCL_CHUNKS, model, "p2p", baseline=baselines[model, NCCL_CHUNKS],
+            against="broadcast")
+        profile_step("p2p_train_profile", eng, model=model)
+        del eng
+    # the ring at one rank: one round over the rank's own block with the
+    # broadcast path's kernels, so each phase must equal the same model's
+    # broadcast phase at chunks 1 bit for bit (the ring ignores chunks)
+    for model in NCCL_MODELS:
+        eng, _, baselines["ring", model] = configuration(
+            1, model, "ring", baseline=baselines[model, 1],
+            against="broadcast")
+        if model == "gat":  # the trace holds the attend's block copy
+            profile_step("gat_ring_train_profile", eng, model=model)
+        del eng
+    # the historical-embedding protocols, gcn at the p2p phases' settings:
+    # at one rank no row is a boundary row, so every row reads fresh and
+    # each must equal p2p_train bit for bit; the history (2.4 GB) and the
+    # ages are held to the reference step's
+    for protocol in ASYNC_PROTOCOLS:
+        eng, setup_s = build_engine(g, NCCL_CHUNKS, device, "gcn",
+                                    execution="p2p", protocol=protocol)
+        n, _ = train_phase(eng, setup_s, g, baselines["p2p", "gcn"][1],
+                           against="sync")
         add_counts(launches, n)
         del eng
-        eng, n, baselines["p2p_train", model] = train_phase(
-            g, NCCL_CHUNKS, device, model, baseline=baselines["train", model],
-            execution="p2p", against="broadcast")
-        add_counts(launches, n)
-        step, state = eng.make_step(), eng.init_state()
-        L, B = len(eng.dims) - 1, len(eng.playout.p2p_widths)
-        expect = {f"{name}_kernel": count for name, count in step_launches(
-            model, L, NCCL_CHUNKS, 1, sends=B).items()}
-        profile_phase("p2p_train_profile", lambda: step(state), expect,
-                      model=model, exchange_chunks=NCCL_CHUNKS)
-        del eng, step, state
-        torch.cuda.empty_cache()
     # the same paths over a world-size-1 NCCL group, joined through the
     # launchers' group options: the all_gather, its reduce-scatter, the
-    # all_to_all and the all_reduce run on the card; bitwise equal to the
-    # runs without a group
+    # all_to_all and the all_reduce run on the card (the ring issues no
+    # rotation at one rank); bitwise equal to the runs without a group
     rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     group = ["--world-size", "1", "--rank", "0", "--init-method",
              f"file://{rendezvous}/rendezvous"]
@@ -1512,26 +1654,15 @@ def main(argv=None) -> int:
              note="one rank on one card: the collectives are checked, not "
                   "timed as wire transfers")
         for model in NCCL_MODELS:
-            eng, _, n, _ = sweep_phase(g, NCCL_CHUNKS, device, model, group,
-                                       baselines["sweep", model])
-            add_counts(launches, n)
-            del eng
-            eng, n, _ = train_phase(g, NCCL_CHUNKS, device, model, group,
-                                    baselines["train", model])
-            add_counts(launches, n)
-            del eng
-            eng, _, n, _ = sweep_phase(g, NCCL_CHUNKS, device, model, group,
-                                       baselines["p2p_sweep", model],
-                                       execution="p2p")
-            add_counts(launches, n)
-            del eng
-            eng, n, _ = train_phase(g, NCCL_CHUNKS, device, model, group,
-                                    baselines["p2p_train", model],
-                                    execution="p2p")
-            add_counts(launches, n)
-            del eng
-            torch.cuda.empty_cache()
+            for execution, chunks, baseline in (
+                    ("broadcast", NCCL_CHUNKS, baselines[model, NCCL_CHUNKS]),
+                    ("p2p", NCCL_CHUNKS, baselines["p2p", model]),
+                    ("ring", 1, baselines["ring", model])):
+                eng, _, _ = configuration(chunks, model, execution, group,
+                                          baseline)
+                del eng
     finally:
+        release()
         leave_group(group_args)
         shutil.rmtree(rendezvous, ignore_errors=True)
     for name, count in launches.items():

@@ -9,27 +9,32 @@ layer through the family's ExchangeBackend (`execution/exchange_api.py`).
 gcn, sage, gin: exchange (chunked; over the process group an all_gather
 under broadcast, the bucketed all_to_all halo installments under p2p),
 masked ELL multiply through the hand-written CUDA kernel, degree
-normalization, then the model's dense combine with the rank's own rows.
-gat: the fused [a_src.Hw | Hw] exchange, the masked segment-softmax and the
-attention-weighted ELL sum (`ell_attend`).  The training step (`make_step`)
-runs the same forward under autograd, so every gather's backward is a CUDA
-kernel over a CSR transpose plan built once here (the transpose,
-ell_attend's dw, the slot transpose), every all_gather's backward a
-reduce-scatter and every all_to_all's the reverse all_to_all; the loss
-numerator and the gradients are then summed over
-the ranks in one all_reduce.  `make_reference_step` and
+normalization, then the model's dense combine with the rank's own rows; the
+ring instead rotates the blocks past every rank and multiplies each round
+over the block it holds.  gat: the fused [a_src.Hw | Hw] exchange, the
+masked segment-softmax and the attention-weighted ELL sum (`ell_attend`);
+the ring runs a one-pass online softmax over the rotating blocks.  The
+training step (`make_step`) runs the same forward under autograd, so every
+gather's backward is a CUDA kernel over a CSR transpose plan built once here
+(the transpose, ell_attend's dw, the slot transpose; one plan per source
+block under the ring), every all_gather's backward a reduce-scatter, every
+all_to_all's the reverse all_to_all and every rotation's the reverse
+rotation; under a historical-embedding protocol each layer's output passes
+through `protocols.block_refresh` with this rank's boundary rows; the loss
+numerator, the rows pushed and the gradients are then summed over the ranks
+in one all_reduce.  `make_reference_step` and
 `infer_full_graph(reference=True)` run an independent plain-PyTorch gather
 over the whole padded space on every rank, with no collective (gat's edge
 logits through the SDDMM kernel, as the reference's do): the oracle every
 step and sweep is held to.
 
 Ported: models gcn, sage, gat and gin, partition family edge_cut (every
-partitioner), execution p2p (the default, as in the reference) and
-broadcast, batching full_graph, protocol sync, on any number of ranks.  The
-ranks are the process group's (`execution/collectives.py`); without one the
-engine runs on one rank.  Everything else
-raises NotImplementedError naming the slice it waits for.  The async
-protocols and telemetry arrive with their own slices.
+partitioner), execution p2p (the default, as in the reference), broadcast
+and ring, batching full_graph, protocols sync, epoch_fixed, epoch_adaptive
+and variation, on any number of ranks.  The ranks are the process group's
+(`execution/collectives.py`); without one the engine runs on one rank.
+Everything else raises NotImplementedError naming the slice it waits for.
+Telemetry arrives with its own slice.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from repro_torch.core.models.gnn import (
 )
 from repro_torch.core.partition.edge_cut import Partition
 from repro_torch.core.partition.layout_api import get_layout_builder
+from repro_torch.core.protocols.async_hist import block_refresh
 from repro_torch.core.sampling.distributed import CommStats
 from repro_torch.kernels.ops import (
     ell_attend,
@@ -83,6 +89,9 @@ class EngineConfig:
     hidden: int = 32
     num_layers: int = 2
     lr: float = 0.5  # SGD step of the training step
+    staleness: int = 2  # epoch_fixed / epoch_adaptive refresh period
+    eps_v: float = 0.05  # variation: relative drift that forces a push
+    hard_bound: int = 4  # variation: the most epochs a block stays stale
     seed: int = 0  # init_state's params generator
 
 
@@ -182,25 +191,17 @@ class DistGNNEngine:
             raise ValueError("exchange_chunks must be >= 1")
         if cfg.p2p_buckets < 1:
             raise ValueError("p2p_buckets must be >= 1")
-        if cfg.protocol != "sync":
-            raise NotImplementedError(
-                f"protocol={cfg.protocol!r}: only sync is ported; the "
-                "historical-embedding protocols arrive with their own slice "
-                "(the async_hist slice, ROADMAP queue 1 item 6)")
         if cfg.batching != "full_graph":
             raise NotImplementedError(
                 f"batching={cfg.batching!r}: only full_graph is ported; the "
-                "sampled mini-batch path arrives with its own slice")
+                "sampled mini-batch path arrives with its own slice (ROADMAP "
+                "queue 1 item 8)")
         self.k = collectives.world_size()
         if partition is not None and partition.num_parts != self.k:
             raise ValueError(
                 f"the partition has {partition.num_parts} parts and the "
                 f"process group {self.k} rank(s): they must be equal")
         self.rank = collectives.rank()
-        if cfg.execution == "ring":
-            raise NotImplementedError(
-                "execution='ring': broadcast and p2p are ported; the ring "
-                "arrives with the ring slice (ROADMAP queue 1 item 4)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -218,23 +219,36 @@ class DistGNNEngine:
         consts = lay.exchange_consts()
         # this rank's rows of every per-vertex table; the ids index the
         # gather table (broadcast: every rank's block + the zero pad row;
-        # p2p: the rank's block, its halo rows, the zero pad row)
+        # p2p: the rank's block, its halo rows, the zero pad row; ring: the
+        # rotating block, one ELL per source block)
         own = slice(self.rank * self.nb, (self.rank + 1) * self.nb)
 
-        def upload(a):
-            return torch.from_numpy(np.ascontiguousarray(a[own])).to(
+        def upload(a, at=own):
+            return torch.from_numpy(np.ascontiguousarray(a[at])).to(
                 self.device)
-        ids, mask = upload(consts["ids"]), upload(consts["mask"])
-        # the CSR transpose of the ELL table over the gather table's rows:
-        # built once, read by every backward of a gather over it (every
-        # layer, chunk and step)
-        plan = ell_transpose_plan(ids, mask, lay.table_rows)
+        # the ring's ids and mask are [k(dev), k(src), nb, K]: this rank's
+        # [k(src), nb, K]
+        at = self.rank if cfg.execution == "ring" else own
+        ids, mask = upload(consts["ids"], at), upload(consts["mask"], at)
         self._consts = dict(
-            ids=ids, mask=mask, plan=plan, deg=upload(lay.deg),
+            ids=ids, mask=mask, deg=upload(lay.deg),
             y=upload(lay.y).long(), train_w=upload(lay.train_w),
             test_w=upload(lay.test_w))
+        # the CSR transpose of the ELL table over the gather table's rows
+        # (the ring: of each source block's ELL over its nb rows): built
+        # once, read by every backward of a gather over it (every layer,
+        # chunk, round and step)
+        if cfg.execution == "ring":
+            self._consts["plans"] = [ell_transpose_plan(i, m, lay.table_rows)
+                                     for i, m in zip(ids, mask)]
+        else:
+            self._consts["plan"] = ell_transpose_plan(ids, mask,
+                                                      lay.table_rows)
         if cfg.execution == "p2p":
             self._consts["send"] = self._send_installments(consts)
+        if cfg.protocol != "sync":
+            # this rank's boundary rows: the rows another rank reads
+            self._consts["bmask"] = upload(lay.bmask)
         # the loss's denominator, max(sum of every rank's weights, 1)
         w_sum = self._consts["train_w"].sum()
         if collectives.group_active():
@@ -325,15 +339,37 @@ class DistGNNEngine:
         nbr = self.backend.aggregate(H, cl)
         return self._combine(self.cfg.model, p_l, nbr, H, last)
 
-    def _forward(self, params, X):
-        """The distributed forward: every layer through `_layer`; returns
-        the logits."""
+    def _protocol_kwargs(self) -> Dict:
+        c = self.cfg
+        return dict(staleness=c.staleness, eps=c.eps_v,
+                    hard_bound=c.hard_bound)
+
+    def _forward(self, params, X, hist=None, age=None, step: int = 0):
+        """The distributed forward, every layer through `_layer`: returns
+        (logits, new history, new ages, rows pushed as a float32 tensor).
+        With this rank's history ``hist`` (one [nb, d] block a layer) and
+        ages ``age`` [L], each layer's output passes through `block_refresh`
+        with this rank's boundary rows and part id (the reference's
+        `_forward_local`), and the new history comes back detached; without
+        them (sync, the sweep) the history and ages come back None and the
+        rows pushed 0."""
         cl = self._consts
         L = len(self.dims) - 1
         H = X
+        new_hist, new_age = [], []
+        pushed = torch.zeros((), dtype=torch.float32, device=X.device)
         for l, p_l in enumerate(params["layers"]):
             H = self._layer(p_l, H, cl, last=(l == L - 1))
-        return H
+            if hist is not None:
+                H, h2, a2, rows = block_refresh(
+                    self.cfg.protocol, hist[l], H, age[l], step,
+                    cl["bmask"], self.rank, **self._protocol_kwargs())
+                new_hist.append(h2.detach())
+                new_age.append(a2)
+                pushed = pushed + rows.to(torch.float32)
+        if hist is None:
+            return H, None, None, pushed
+        return H, tuple(new_hist), torch.stack(new_age), pushed
 
     def _global_consts(self) -> Dict:
         """The whole layout's per-vertex tables on the device, which the
@@ -341,13 +377,20 @@ class DistGNNEngine:
         own; on more, uploaded from the host layout at the first call."""
         if self._global is None:
             keys = ("mask", "deg", "y", "train_w", "test_w")
-            if self.k == 1:
-                self._global = {key: self._consts[key] for key in keys}
-            else:
-                lay = self.playout
-                self._global = {key: torch.from_numpy(getattr(lay, key)).to(
-                    self.device) for key in keys}
-                self._global["y"] = self._global["y"].long()
+            if self.cfg.protocol != "sync":
+                keys += ("bmask",)
+            lay = self.playout
+            self._global = {}
+            for key in keys:
+                # on one rank the engine's own rows are every row (the
+                # ring's mask is per source block: upload the global one)
+                if self.k == 1 and key in self._consts and not (
+                        key == "mask" and self.cfg.execution == "ring"):
+                    self._global[key] = self._consts[key]
+                else:
+                    self._global[key] = torch.from_numpy(
+                        getattr(lay, key)).to(self.device)
+            self._global["y"] = self._global["y"].long()
         return self._global
 
     def _global_features(self) -> torch.Tensor:
@@ -401,28 +444,46 @@ class DistGNNEngine:
     # state and the distributed training step
     # ------------------------------------------------------------------
 
-    def init_state(self, params: Optional[Dict] = None) -> Dict:
-        """The training state under sync: ``{params, step}``.  Without
-        ``params``, draws them with `init_gnn_params` from a generator
-        seeded with ``cfg.seed``; with them, starts from those weights (a
-        carry-over).  The reference's all-zero historical embeddings and
-        ages serve only the async protocols and arrive with them."""
+    def init_state(self, params: Optional[Dict] = None, *,
+                   reference: bool = False) -> Dict:
+        """The training state: ``{params, step}``, and under a
+        historical-embedding protocol the all-zero history ``hist`` (one
+        tensor a layer, of the layer's output width) and the ages ``age``
+        (int32).  The distributed step's state holds this rank's rows: hist
+        [nb, d] a layer and age [L], this rank's ages.  ``reference=True``
+        gives the state `make_reference_step` reads: every row, hist [Vp, d]
+        a layer and age [L, k], block b's ages in column b.  Under sync
+        there is no history (at the gcn-paper width it would be 2.4 GB of
+        zeros that nothing reads).  Without ``params``, draws them with
+        `init_gnn_params` from a generator seeded with ``cfg.seed``; with
+        them, starts from those weights (a carry-over)."""
         if params is None:
             params = init_gnn_params(
                 self.cfg.model, self.dims,
                 torch.Generator().manual_seed(self.cfg.seed), self.device)
-        return dict(params=params, step=0)
+        state = dict(params=params, step=0)
+        if self.cfg.protocol != "sync":
+            rows = self.Vp if reference else self.nb
+            L = len(self.dims) - 1
+            state["hist"] = tuple(
+                torch.zeros((rows, d), dtype=torch.float32, device=self.device)
+                for d in self.dims[1:])
+            state["age"] = torch.zeros((L, self.k) if reference else (L,),
+                                       dtype=torch.int32, device=self.device)
+        return state
 
     def make_step(self):
-        """The training step: state -> (state, {"loss"}, this rank's logits
-        rows [nb, C]).  The rank's loss numerator sum((lse - ll) * w) is
-        differentiated locally (each all_gather's backward reduce-scatters
-        the other ranks' share of the tables' gradient to this rank); the
-        numerator and every gradient are then summed over the ranks in one
-        flat all_reduce, in `PARAM_KEYS` order, and divided by den =
-        max(sum of every rank's w, 1) outside the gradient, as in the
-        reference.  Without a process group the sums are the local values.
-        SGD writes new tensors, so a state can be stepped twice."""
+        """The training step: state -> (state, {"loss", "rows_pushed"},
+        this rank's logits rows [nb, C]).  The rank's loss numerator
+        sum((lse - ll) * w) is differentiated locally (each all_gather's
+        backward reduce-scatters the other ranks' share of the tables'
+        gradient to this rank); the numerator, the boundary rows this rank
+        pushed into its history (0 under sync) and every gradient are then
+        summed over the ranks in one flat all_reduce, in `PARAM_KEYS` order,
+        and divided by den = max(sum of every rank's w, 1) outside the
+        gradient, as in the reference.  Without a process group the sums
+        are the local values.  SGD writes new tensors, so a state can be
+        stepped twice."""
         if self._step is not None:
             return self._step
         cl = self._consts
@@ -434,21 +495,25 @@ class DistGNNEngine:
             leaves = [p.detach().requires_grad_() for p in
                       _leaves(state["params"], keys)]
             with torch.enable_grad():
-                logits = self._forward(_from_leaves(leaves, keys),
-                                       self.store.device_table())
+                logits, hist, age, pushed = self._forward(
+                    _from_leaves(leaves, keys), self.store.device_table(),
+                    state.get("hist"), state.get("age"), state["step"])
                 lse = torch.logsumexp(logits, dim=-1)
                 ll = torch.gather(logits, -1, cl["y"][:, None])[:, 0]
                 num = ((lse - ll) * cl["train_w"]).sum()
                 grads = torch.autograd.grad(num, leaves)
             with torch.no_grad():
                 if collectives.group_active():
-                    num, *grads = collectives.all_reduce_flat(
-                        [num.detach(), *grads])
+                    num, pushed, *grads = collectives.all_reduce_flat(
+                        [num.detach(), pushed, *grads])
                 loss = num / den
                 params2 = _from_leaves([p - lr * (g / den)
                                         for p, g in zip(leaves, grads)], keys)
-            return (dict(params=params2, step=state["step"] + 1),
-                    dict(loss=loss), logits.detach())
+            state2 = dict(params=params2, step=state["step"] + 1)
+            if hist is not None:
+                state2.update(hist=hist, age=age)
+            return (state2, dict(loss=loss, rows_pushed=pushed),
+                    logits.detach())
 
         self._step = step
         return step
@@ -457,8 +522,13 @@ class DistGNNEngine:
         """The same loss and SGD on one device over the reference layer
         (`_make_reference_layer`) and the whole graph, differentiated by
         autograd through the plain gather: independent of the kernels,
-        their plan and the collectives.  Returns the logits of every vertex,
-        [Vp, C]."""
+        their plan and the collectives.  Under a historical-embedding
+        protocol every layer's output passes through the same
+        `block_refresh`, block by block over the whole history (the
+        reference's vmap over the k blocks): its state is
+        ``init_state(reference=True)``'s, hist [Vp, d] a layer and age
+        [L, k] (`train(reference=True)` starts from one).  Returns the
+        logits of every vertex, [Vp, C]."""
         if self._ref_step is not None:
             return self._ref_step
         cl = self._global_consts()
@@ -466,21 +536,46 @@ class DistGNNEngine:
         layer_ref = self._make_reference_layer()
         L = len(self.dims) - 1
         keys = PARAM_KEYS[self.cfg.model]
+        k, nb = self.k, self.nb
+        hist_kept = self.cfg.protocol != "sync"
+
+        def refresh(H, hist_l, age_l, step_i):
+            """block_refresh over each of the k blocks of H [Vp, d]."""
+            outs = [block_refresh(
+                self.cfg.protocol, hist_l[b * nb:(b + 1) * nb],
+                H[b * nb:(b + 1) * nb], age_l[b], step_i,
+                cl["bmask"][b * nb:(b + 1) * nb], b,
+                **self._protocol_kwargs()) for b in range(k)]
+            h_used, h2, a2, rows = zip(*outs)
+            return (torch.cat(h_used, 0), torch.cat(h2, 0).detach(),
+                    torch.stack(a2), sum(r.to(torch.float32) for r in rows))
 
         def ref_step(state):
             leaves = [p.detach().requires_grad_() for p in
                       _leaves(state["params"], keys)]
+            new_hist, new_age = [], []
+            pushed = torch.zeros((), dtype=torch.float32, device=self.device)
             with torch.enable_grad():
                 H = self._global_features()
                 for l, p_l in enumerate(_from_leaves(leaves, keys)["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
+                    if hist_kept:
+                        H, h2, a2, rows = refresh(
+                            H, state["hist"][l], state["age"][l],
+                            state["step"])
+                        new_hist.append(h2)
+                        new_age.append(a2)
+                        pushed = pushed + rows
                 loss = softmax_xent(H, cl["y"], cl["train_w"])
                 grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 params2 = _from_leaves([p - lr * g
                                         for p, g in zip(leaves, grads)], keys)
-            return (dict(params=params2, step=state["step"] + 1),
-                    dict(loss=loss.detach()), H.detach())
+            state2 = dict(params=params2, step=state["step"] + 1)
+            if hist_kept:
+                state2.update(hist=tuple(new_hist), age=torch.stack(new_age))
+            return (state2, dict(loss=loss.detach(), rows_pushed=pushed),
+                    H.detach())
 
         self._ref_step = ref_step
         return ref_step
@@ -499,7 +594,7 @@ class DistGNNEngine:
 
         @torch.no_grad()
         def istep(params, X):
-            return self._forward(params, X)
+            return self._forward(params, X)[0]
 
         self._infer_step = istep
         return istep
@@ -554,7 +649,7 @@ class DistGNNEngine:
         and accrues each step's wire bytes; the reference run accrues
         none."""
         step = self.make_reference_step() if reference else self.make_step()
-        state = self.init_state()
+        state = self.init_state(reference=reference)
         if not reference:
             self.comm_stats.reset()
         losses, logits = [], None

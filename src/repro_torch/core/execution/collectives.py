@@ -7,7 +7,7 @@ follows the device the caller asked for: NCCL for a CUDA device, gloo for
 the CPU.  Nothing here probes for a card, and nothing falls back: a failed
 rendezvous or collective raises.
 
-Four collectives, each counting its calls in a plain integer
+Five collectives, each counting its calls in a plain integer
 (``all_gather_rows.calls`` and so on, like the kernel wrappers' launch
 counters):
 
@@ -22,6 +22,13 @@ counters):
   (`_AllToAllRows`) is the reverse all_to_all of the cotangent, which sends
   block s back to rank s; both directions count as calls of
   ``all_to_all_rows``.
+- `ring_rotate`: [nb, D] on every rank, sent to rank (r - 1) % k and
+  received from rank (r + 1) % k, issued asynchronously (the ring's
+  rotation, the reference's ``ppermute`` with perm i -> i - 1 mod k).  Its
+  gradient (`_RingRotate`) is the reverse rotation of the cotangent; both
+  directions count as calls of ``ring_rotate`` (key ``ppermute``).  It is
+  an all_to_all whose split sizes leave one peer each way; at k = 1 there is
+  no other rank, and the ring issues none.
 - `all_reduce_flat`: one summed all_reduce of a list of tensors packed
   into one flat buffer in the order given, so the summation is the same
   on every run and every rank.
@@ -153,6 +160,51 @@ def all_to_all_rows(send: torch.Tensor) -> Callable[[], torch.Tensor]:
     return finish
 
 
+def _rotate(h: torch.Tensor, reverse: bool, async_op: bool):
+    """One rotation of h [nb, D] (contiguous) over the ring: to rank
+    (r - 1) % k from rank (r + 1) % k, or the other way round when
+    ``reverse``.  Returns (received rows, work handle or None)."""
+    k, me = world_size(), rank()
+    step = 1 if reverse else -1
+    send_splits, recv_splits = [0] * k, [0] * k
+    send_splits[(me + step) % k] = h.shape[0]
+    recv_splits[(me - step) % k] = h.shape[0]
+    out = torch.empty_like(h)
+    work = dist.all_to_all_single(out, h, recv_splits, send_splits,
+                                  async_op=async_op)
+    ring_rotate.calls += 1
+    return out, work
+
+
+class _RingRotate(torch.autograd.Function):
+    """The autograd face of a rotation already issued by `ring_rotate`: the
+    forward waits on its handle and returns the rows rank (r + 1) % k sent;
+    the backward sends their cotangent back there, the reverse rotation."""
+
+    @staticmethod
+    def forward(ctx, h, pending):
+        out, work = pending
+        work.wait()
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _rotate(ct.contiguous(), reverse=True, async_op=False)[0], None
+
+
+def ring_rotate(h: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """Issue the rotation of this rank's rows h [nb, D] (contiguous) to rank
+    (r - 1) % k and return ``finish``: a call that waits on it and returns
+    the [nb, D] rows rank (r + 1) % k sent, differentiable in h.  Between
+    the two the caller may issue more work, as with `all_gather_rows`."""
+    # the collective sees no autograd history: `_RingRotate` carries it
+    pending = _rotate(h.detach(), reverse=False, async_op=True)
+
+    def finish() -> torch.Tensor:
+        return _RingRotate.apply(h, pending)
+    return finish
+
+
 def reduce_scatter_rows(ct: torch.Tensor) -> torch.Tensor:
     """The sum over ranks of ct [k*nb, D], this rank's block [nb, D]."""
     ct = ct.contiguous()
@@ -179,5 +231,6 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 COLLECTIVES = {"all_gather": all_gather_rows,
                "reduce_scatter": reduce_scatter_rows,
                "all_to_all": all_to_all_rows,
+               "ppermute": ring_rotate,
                "all_reduce": all_reduce_flat}
 zero_calls()

@@ -11,11 +11,14 @@ this copy builds the same arrays with vectorised numpy from the CSR, so the
 2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy here; the
 engine moves its rank's rows of what the sweep and the step read onto its
 device.  Every rank builds the whole layout, identically, as the reference
-builds it globally.  The broadcast and p2p exchange plans are ported (the
-ring arrives with its own slice), and only the parts of the layout that the
-inference sweep and the full-graph training step read.
+builds it globally.  The broadcast, ring and p2p exchange plans are ported,
+the boundary mask the historical-embedding protocols read, and only the
+parts of the layout that the inference sweep and the full-graph training
+step read.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -125,21 +128,55 @@ class EdgeCutLayout(PartitionLayout):
                                   owner=self.rank)
         self.X = torch.from_numpy(self.store.host_table())
 
+    @functools.cached_property
+    def bmask(self) -> np.ndarray:
+        """[Vp] bool, the boundary: rows read by at least one remote
+        partition (only the historical-embedding protocols read it, so it
+        is built at the first read)."""
+        Vp, nb = self.Vp, self.nb
+        ids = self.ids_global
+        remote = (self.mask > 0) & (ids // nb != (np.arange(Vp) // nb)[:, None])
+        src = ids[remote]
+        bmask = np.zeros((Vp,), bool)
+        bmask[src[src < Vp]] = True
+        return bmask
+
     def _build_exchange_plan(self):
         """Execution-model-specific static arrays.  broadcast: the gather
-        table is every block, all-gathered, then the zero row at Vp.  p2p:
-        the table is [own block nb | halo rows B*k*w | zero row], the halo
-        rows arriving through B installments of all_to_all."""
+        table is every block, all-gathered, then the zero row at Vp.  ring:
+        the table is the rotating block of nb rows, one ELL per source
+        block.  p2p: the table is [own block nb | halo rows B*k*w | zero
+        row], the halo rows arriving through B installments of
+        all_to_all."""
         ex = self.cfg.execution
         if ex == "broadcast":
             self.ids_exec = self.ids_global.astype(np.int32)
             self.table_rows = self.Vp + 1
-            return
-        if ex != "p2p":
-            raise NotImplementedError(
-                f"execution={ex!r}: the ring plan arrives with the ring slice "
-                "(ROADMAP queue 1 item 4)")
-        self._build_p2p_plan()
+        elif ex == "ring":
+            self._build_ring_plan()
+        else:
+            self._build_p2p_plan()
+
+    def _build_ring_plan(self):
+        """The ring plan, vectorised over the reference's loop over source
+        blocks: ids_exec and mask_exec [k(dev), k(src), nb, K], slot j of
+        row v naming its neighbor's row within source block s when the
+        neighbor lives there.  Every other slot carries id 0 with mask 0:
+        the masked ELL reduction drops it, so the rotating block needs no
+        zero row and the table has nb rows."""
+        k, nb, Vp, K = self.k, self.nb, self.Vp, self.K
+        ids = self.ids_global
+        real = ids < Vp
+        src = np.where(real, ids // nb, -1)[:, None, :]  # [Vp, 1, K]
+        here = src == np.arange(k)[None, :, None]  # [Vp, k(src), K]
+        local = np.where(real, ids % nb, 0).astype(np.int32)[:, None, :]
+        ids_by_src = np.where(here, local, np.int32(0))
+        mask_by_src = (self.mask[:, None, :] * here).astype(np.float32)
+        self.ids_exec = np.ascontiguousarray(
+            ids_by_src.reshape(k, nb, k, K).transpose(0, 2, 1, 3))
+        self.mask_exec = np.ascontiguousarray(
+            mask_by_src.reshape(k, nb, k, K).transpose(0, 2, 1, 3))
+        self.table_rows = nb
 
     def _build_p2p_plan(self):
         """The p2p halo plan, vectorised over the reference's loops over
@@ -192,14 +229,20 @@ class EdgeCutLayout(PartitionLayout):
         self.table_rows = nb + B * k * w + 1
 
     def exchange_consts(self) -> dict:
+        """broadcast, p2p: ids and mask [Vp, K] (rank r's rows at
+        [r*nb, (r+1)*nb)); ring: [k(dev), k(src), nb, K] (rank r's block at
+        [r]); p2p adds its send tables."""
         consts = dict(ids=self.ids_exec, mask=self.mask)
-        if self.cfg.execution == "p2p":
+        if self.cfg.execution == "ring":
+            consts["mask"] = self.mask_exec
+        elif self.cfg.execution == "p2p":
             consts.update(send_rows=self.send_rows, send_mask=self.send_mask)
         return consts
 
     def _halo_rows_per_pass(self) -> int:
-        if self.cfg.execution == "broadcast":
-            # every device gathers the other k-1 padded blocks
+        if self.cfg.execution in ("broadcast", "ring"):
+            # every device gathers (or receives in turn) the other k-1
+            # padded blocks
             return self.k * (self.k - 1) * self.nb
         return self._halo_rows
 
@@ -223,5 +266,6 @@ def get_layout_builder(family: str):
     except KeyError:
         raise NotImplementedError(
             f"partition family {family!r}: only edge_cut is ported; "
-            "vertex_cut and hybrid arrive with the replica-family slice"
+            "vertex_cut and hybrid arrive with the replica-family slice "
+            "(ROADMAP queue 1 item 7)"
         ) from None

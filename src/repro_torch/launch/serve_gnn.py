@@ -38,7 +38,7 @@ log = get_logger("repro_torch.serve_gnn")
 
 # what the port runs today; the rest of the reference's choices arrive with
 # later slices
-PORTED_EXECUTION_MODELS = ("p2p", "broadcast")
+PORTED_EXECUTION_MODELS = ("p2p", "broadcast", "ring")
 PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 
 

@@ -1,12 +1,14 @@
 """Full-graph GNN training entry point (the port's counterpart of the full-graph
 engine branch of `examples/train_gnn_distributed.py`): `DistGNNEngine`'s
-synchronous training step, timed step by step, with the single-device oracle
-and the layer-wise inference sweep as checks.  One process per rank
+training step (synchronous, or under a historical-embedding protocol), timed
+step by step, with the single-device oracle and the layer-wise inference
+sweep as checks.  One process per rank
 (`launch/common.py`): without ``--init-method`` it runs alone.
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --model gat --device cpu --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --exec ring --protocol epoch_fixed --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -33,8 +35,8 @@ log = get_logger("repro_torch.train_gnn")
 
 # what the port runs today; the rest of the reference's choices arrive with
 # later slices
-PORTED_EXECUTION_MODELS = ("p2p", "broadcast")
-PORTED_PROTOCOLS = ("sync",)
+PORTED_EXECUTION_MODELS = ("p2p", "broadcast", "ring")
+PORTED_PROTOCOLS = ("sync", "epoch_fixed", "epoch_adaptive", "variation")
 PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 ORACLE_TOL = 1e-4  # the repo's oracle bound for every step and sweep
 
@@ -59,14 +61,16 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
     """`epochs` steps of the engine's training step from `init_state()`,
     each timed on the host clock ending in a device synchronize, with the
     step's wire bytes accrued into CommStats as `eng.train` accrues them.
-    Returns the losses, the step walls (seconds), the final state and the
-    last step's logits of every vertex (one all_gather after the run); with ``oracle_check`` also the reference run's
-    losses and the largest per-step loss gap, and with ``infer`` the
-    layer-wise sweep's gap to the reference sweep at the final params."""
+    Returns the losses, the rows each step pushed into the history (0
+    under sync), the step walls (seconds), the final state and the last
+    step's logits of every vertex (one all_gather after the run); with
+    ``oracle_check`` also the reference run's losses and the largest
+    per-step loss gap, and with ``infer`` the layer-wise sweep's gap to the
+    reference sweep at the final params."""
     step = eng.make_step()
     state = eng.init_state()
     eng.comm_stats.reset()
-    losses, walls, logits = [], [], None
+    losses, pushed, walls, logits = [], [], [], None
     for _ in range(epochs):
         _sync(eng.device)
         t0 = time.perf_counter()
@@ -74,14 +78,17 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
         losses.append(float(metrics["loss"]))
         _sync(eng.device)
         walls.append(time.perf_counter() - t0)
+        pushed.append(float(metrics["rows_pushed"]))
         eng.account_step()
     logits = eng.gather_rows(logits)
-    out = dict(losses=losses, walls=walls, state=state, logits=logits)
+    out = dict(losses=losses, rows_pushed=pushed, walls=walls, state=state,
+               logits=logits)
     for e in range(0, epochs, max(epochs // 4, 1)):
         log.info("epoch %3d loss %.4f (%.1f ms)", e, losses[e], walls[e] * 1e3)
     log.info("final: train_acc=%.3f test_acc=%.3f (halo bytes %d over %d "
-             "steps)", eng.accuracy(logits, "train"), eng.accuracy(logits, "test"),
-             eng.comm_stats.halo_bytes, epochs)
+             "steps; %d boundary rows pushed)", eng.accuracy(logits, "train"),
+             eng.accuracy(logits, "test"), eng.comm_stats.halo_bytes, epochs,
+             sum(pushed))
     if oracle_check:
         ref_losses, _ = eng.train(epochs, reference=True)
         gap = max(abs(a - b) for a, b in zip(losses, ref_losses))

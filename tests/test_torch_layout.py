@@ -2,8 +2,8 @@
 equal for one seed, every partitioner's assignment and quality metrics
 equal, the bucketing helpers equal, and the vectorised edge-cut layout build
 array-for-array equal to the reference's loop build (labels and loss
-weights included; the p2p plan at 1, 2 and 4 buckets), at k = 1 and k = 4
-(numpy build only)."""
+weights included; the p2p plan at 1, 2 and 4 buckets; the ring plan and the
+boundary mask at k = 1, 3 and 4), at k = 1 and k = 4 (numpy build only)."""
 import dataclasses
 
 import numpy as np
@@ -188,10 +188,50 @@ def test_p2p_layout_equal(name, k, buckets):
                 == jlay.wire_fields_per_step(model, dims))
 
 
+@pytest.mark.parametrize("partitioner", ["hash", "metis_like"])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_ring_layout_and_boundary_mask_equal(name, k, partitioner):
+    """The ring plan, vectorised, against the reference's loop over source
+    blocks: ids_exec and mask_exec [k(dev), k(src), nb, K] (pad slots id 0
+    with mask 0), the exchange constants, a table of nb rows and the wire
+    bytes; and the boundary mask (rows read by another part) the protocols
+    read, equal under every execution model."""
+    g, jg = _graphs(name)
+    lay = EdgeCutLayout(g, k, EngineConfig(execution="ring",
+                                           partitioner=partitioner))
+    jlay = JEdgeCutLayout(jg, k, JEngineConfig(execution="ring",
+                                               partitioner=partitioner))
+    nb, K = lay.nb, lay.K
+    consts, jconsts = lay.exchange_consts(), jlay.exchange_consts()
+    assert sorted(consts) == sorted(jconsts) == ["ids", "mask"]
+    for ours, theirs in ((lay.ids_exec, np.asarray(jlay.ids_exec)),
+                         (lay.mask_exec, np.asarray(jlay.mask_exec)),
+                         (consts["ids"], np.asarray(jconsts["ids"])),
+                         (consts["mask"], np.asarray(jconsts["mask"])),
+                         (lay.bmask, np.asarray(jlay.bmask))):
+        assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+    assert lay.ids_exec.shape == (k, k, nb, K) and lay.table_rows == nb
+    assert not lay.ids_exec[lay.mask_exec == 0].any()
+    # every real slot lands in exactly one source block
+    assert np.array_equal(lay.mask_exec.sum(1).reshape(k * nb, K), lay.mask)
+    assert lay.bmask.any() == (k > 1 and lay.part.communication_volume(g) > 0)
+    for model, dims in (("gcn", [12, 8, 5]), ("gat", [12, 8, 8, 5])):
+        assert (lay.wire_fields_per_step(model, dims)
+                == jlay.wire_fields_per_step(model, dims))
+    for execution in ("broadcast", "p2p"):
+        other = EdgeCutLayout(g, k, EngineConfig(execution=execution,
+                                                 partitioner=partitioner))
+        assert np.array_equal(other.bmask, lay.bmask)
+
+
 def test_layout_for_an_unported_plan_raises():
-    g, _ = _graphs("sbm")
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        EdgeCutLayout(g, 1, EngineConfig(execution="ring"))
+    """Only the edge-cut family's layouts are ported; the replica families
+    raise at the builder, naming their slice."""
+    from repro_torch.core.partition.layout_api import get_layout_builder
+    for family in ("vertex_cut", "hybrid"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            get_layout_builder(family)
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])

@@ -133,17 +133,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_engine_rejects_what_is_not_ported(case):
     """Each unported axis raises naming its slice; a partition whose part
     count is not the process group's rank count (one rank here: no group)
-    is a caller's error.  Every model and the p2p and broadcast execution
-    models are ported: the ``model`` case holds the ring, the
-    ``execution`` case an async protocol."""
+    is a caller's error.  Every model, execution model and protocol is
+    ported: the ``model`` case holds layer_wise mini-batch, the
+    ``execution`` case the hybrid family."""
     g = er_graph(**GRAPH)
     cfg, partition = EngineConfig(), None
     error, match = NotImplementedError, "slice"
     if case == "model":
-        cfg.execution = "ring"
-        match = "ring slice"
+        cfg.batching = "layer_wise"
+        match = "item 8"
     elif case == "execution":
-        cfg.protocol = "epoch_fixed"
+        cfg.partition_family = "hybrid"
+        match = "item 7"
     elif case == "batching":
         cfg.batching = "node_wise"
     elif case == "family":

@@ -4,7 +4,8 @@ step (Pallas ELL in interpret mode with its scatter-add gradient, one device
 on an Auto-axis mesh) and its single-device reference step, from the
 reference's own initial weights carried over; the single-device paths
 agreeing and learning; determinism; accuracy and CommStats; the training
-entry point; and the engine's guards."""
+entry point; the engine's guards; and each historical-embedding protocol
+on one rank."""
 import dataclasses
 
 import jax
@@ -159,9 +160,26 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("protocol", ["epoch_fixed", "epoch_adaptive",
                                       "variation"])
 def test_async_protocols_wait_for_their_slice(protocol):
+    """Each historical-embedding protocol runs on one rank (its slice is
+    ported): with no boundary row every row reads fresh, so its losses and
+    logits are sync's bit for bit and it pushes no row; its state holds the
+    history and the ages, and the reference run agrees."""
     g = er_graph(**GRAPH)
-    with pytest.raises(NotImplementedError, match="slice"):
-        DistGNNEngine(g, EngineConfig(protocol=protocol), device=CPU)
+    runs = {}
+    for p in ("sync", protocol):
+        eng = DistGNNEngine(g, EngineConfig(protocol=p, hidden=16,
+                                            num_layers=3), device=CPU)
+        runs[p] = eng.train(3)
+    assert runs["sync"][0] == runs[protocol][0]
+    assert torch.equal(runs["sync"][1], runs[protocol][1])
+    state = eng.init_state()
+    assert [tuple(h.shape) for h in state["hist"]] == [
+        (eng.nb, d) for d in eng.dims[1:]]
+    _, metrics, _ = eng.make_step()(state)
+    assert float(metrics["rows_pushed"]) == 0.0
+    ref_losses, _ = eng.train(3, reference=True)
+    assert max(abs(a - b) for a, b in zip(ref_losses, runs["sync"][0])) \
+        <= ORACLE_TOL
 
 
 def test_unknown_protocol_is_rejected():
