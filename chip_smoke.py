@@ -43,7 +43,19 @@ group options, broadcast at exchange_chunks 2, p2p at 2 and the ring
 the all_to_all and the all_reduce run on the card (the ring issues no
 rotation at one rank), every collective call is counted, and the results
 must equal the runs without a group bit for bit (one rank: the collectives
-are copies on the card, no wire time).  Each
+are copies on the card, no wire time).  Then the replica families at
+the same width, the partition families the survey sets beside edge cut:
+gcn and gat under the cartesian2d vertex cut, p2p at exchange_chunks 2,
+broadcast at 1 and the ring (phases `vc_p2p_sweep`, `vc_p2p_train`,
+`vc_broadcast_*`, `vc_ring_*`, `gat_vc_*`, and one traced gat step,
+`gat_vc_train_profile`), under the PowerLyra hybrid cut at p2p, chunks 2,
+the default hub threshold (`hybrid_p2p_*`, `gat_hybrid_p2p_*`), and the
+vertex cut's p2p once more in the world-size-1 NCCL group (`nccl_vc_p2p_*`,
+bitwise equal to the runs without a group).  At one rank the replica
+combine reads one replica a vertex, so each replica phase is also held to
+the same model's edge-cut phase of this run (the family anchor: losses and
+sweep within 1e-4; gcn's bit for bit, gat's not, its stabilizer is floored
+at 0).  Each
 phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
@@ -115,6 +127,9 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:20"),
     "wkv": ("wkv_chunk", "src/repro/kernels/wkv_chunk.py:26"),
 }
+# the kernel a profile trace counts for each wrapper's launch, where it is
+# not <wrapper>_kernel
+TRACE_NAMES = {"sddmm": "sddmm_slot_kernel"}
 # fp32 flash: the JAX tier's tolerance (tests/test_kernels.py), as
 # (atol, rtol).  bf16 flash: kernel and plain each round every p to bf16
 # (2**-8 relative) and the output once more, so |kernel - plain| <= 2**-7
@@ -179,6 +194,86 @@ def step_launches(model: str, L: int, C: int, T: int, sends: int = 0) -> dict:
                     ell_spmm_transpose=(L - 1) * C * per * T)
     return dict(ell_spmm=L * C * per * T, ell_spmm_transpose=L * C * per * T,
                 ell_attend_dw=L * C * T, ell_slot_transpose=L * T)
+
+
+def replica_launches(eng, T: int, backward: bool) -> dict:
+    """Launches of T replica-family steps (``backward``) or sweeps.  A
+    layer: the owned-edge partial (the forward, and for gat the SDDMM and
+    the attend), then, with replicas, the combine: broadcast the forward
+    over rep_ids per chunk; the ring one single-slot gather per round (one
+    round at k = 1, unchunked); p2p per chunk the B1 phase-1 send gathers,
+    the masters' forward over gather_ids, the B2 phase-2 send gathers and
+    the single-slot scatter gather.  gat's max combine adds p2p's B1 + B2
+    send gathers (unchunked; broadcast and the ring gather it plainly) and
+    no backward.  Each forward whose table needs a gradient (not layer 0's
+    constant features for gcn, sage, gin) has its transpose; gat's SDDMM
+    its slot transpose, its attend the dw."""
+    c, lay = eng.cfg, eng.playout
+    L = len(eng.dims) - 1
+    B1 = B2 = 0
+    if c.execution == "p2p" and lay.sync_active:
+        B1, B2 = (lay._vc_plan[key].shape[1] for key in ("send1", "send2"))
+    C = 1 if c.execution == "ring" else c.exchange_chunks
+    combine = {"broadcast": C, "ring": 1, "p2p": C * (B1 + B2 + 2)}[
+        c.execution] if lay.sync_active else 0
+    check(not lay.halo_active, f"{eng.k} rank(s): a halo at one rank")
+    if c.model != "gat":
+        return dict(ell_spmm=L * (1 + combine) * T,
+                    ell_spmm_transpose=(L - 1) * (1 + combine) * T
+                    if backward else 0)
+    max_sends = B1 + B2
+    return dict(ell_spmm=L * (1 + combine + max_sends) * T, sddmm=L * T,
+                ell_spmm_transpose=L * (1 + combine) * T if backward else 0,
+                ell_attend_dw=L * T if backward else 0,
+                ell_slot_transpose=L * T if backward else 0)
+
+
+def replica_calls(eng, T: int, train: bool) -> dict:
+    """Collective calls of T replica-family steps (``train``; then the
+    all_gather of the last logits) or T sweeps (each then the all_gather
+    of its output rows) in a process group, at one rank: p2p per layer
+    and chunk the combine's B1 + B2 all_to_all installments (gat adds its
+    max combine's, unchunked), and their reverse all_to_alls in the
+    backward wherever the combine's input needs a gradient; broadcast an
+    all_gather per layer and chunk (gat one more for the max) and a
+    reduce-scatter per layer and chunk in the backward; the ring no
+    rotation at k = 1.  One all_reduce a step."""
+    c, lay = eng.cfg, eng.playout
+    L = len(eng.dims) - 1
+    grad_layers = L if c.model == "gat" else L - 1
+    gat = int(c.model == "gat")
+    if c.execution == "ring" or not lay.sync_active:
+        fwd, bwd, key, back = 0, 0, "all_gather", "reduce_scatter"
+    elif c.execution == "p2p":
+        per = sum(lay._vc_plan[key].shape[1] for key in ("send1", "send2"))
+        fwd = L * per * (c.exchange_chunks + gat)
+        bwd = grad_layers * per * c.exchange_chunks
+        key = back = "all_to_all"
+    else:
+        fwd = L * (c.exchange_chunks + gat)
+        bwd = grad_layers * c.exchange_chunks
+        key, back = "all_gather", "reduce_scatter"
+    if not train:
+        out = {key: fwd * T}
+        out["all_gather"] = out.get("all_gather", 0) + T
+        return out
+    out = {key: fwd * T}
+    out[back] = out.get(back, 0) + bwd * T
+    out["all_gather"] = out.get("all_gather", 0) + 1
+    out["all_reduce"] = T
+    return out
+
+
+def anchor_fields(name: str, result: dict, edge: dict, key: str) -> dict:
+    """The family anchor: at one rank the replica phase computes the global
+    GNN, so its ``key`` ("emb" of a sweep, "losses" of a training run)
+    must be within TOL of the same model's edge-cut phase of this run; the
+    gap is reported, and whether it is 0.0."""
+    a, b = np.asarray(result[key]), np.asarray(edge[key])
+    gap = float(np.max(np.abs(a - b)))
+    check(gap <= TOL, f"{name}: {key} {gap} from the edge-cut phase > {TOL}")
+    return dict(anchor_gap=gap, anchor_bitwise=gap == 0.0,
+                anchor_tol=TOL)
 
 
 def check_calls(got: dict, want: dict, what: str) -> None:
@@ -1148,7 +1243,7 @@ def release() -> None:
 
 
 def build_engine(g, chunks, device, model="gcn", group=(),
-                 execution="broadcast", protocol="sync"):
+                 execution="broadcast", protocol="sync", family="edge_cut"):
     """One configuration's engine at full width through the training
     launcher's options (lr TRAIN_LR; the hash partition: every partitioner
     gives part 0 at one rank, and metis_like's host loops would take minutes
@@ -1156,7 +1251,10 @@ def build_engine(g, chunks, device, model="gcn", group=(),
     configuration's sweep and training phases share it (its layout and
     transpose plans take a few seconds of host work to build).  ``group``:
     the launcher's process-group options (the engine then runs over the
-    group already joined).  Returns (engine, setup seconds)."""
+    group already joined).  ``family``: the launcher's partition family
+    (the vertex cut its default cartesian2d, the hybrid cut its default
+    hub threshold, the masters from the hash partition).  Returns (engine,
+    setup seconds)."""
     from repro_torch.launch import train_gnn
 
     release()
@@ -1165,7 +1263,7 @@ def build_engine(g, chunks, device, model="gcn", group=(),
         "--device", str(device), "--exec", execution, "--partitioner", "hash",
         "--protocol", protocol, "--model", model, "--exchange-chunks",
         str(chunks), "--hidden", "256", "--layers", "3", "--lr",
-        str(TRAIN_LR[model]), *group])
+        str(TRAIN_LR[model]), "--partition-family", family, *group])
     eng = train_gnn.build_engine(args, g)  # the transpose plans included
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
@@ -1177,11 +1275,19 @@ def phase_name(kind: str, eng) -> str:
     <model>_ring_train under the ring; nccl_sweep and nccl_train
     (nccl_p2p_sweep, nccl_p2p_train, nccl_ring_sweep, nccl_ring_train) in
     the world-size-1 NCCL group; async_train under a historical-embedding
-    protocol."""
+    protocol; under the replica families vc_<execution>_<kind> (vertex
+    cut) and hybrid_<execution>_<kind>, with the model first for gat and
+    nccl_ first in the group."""
     from repro_torch.core.execution import collectives
 
     model, execution = eng.cfg.model, eng.cfg.execution
     group = collectives.group_active()
+    family = eng.cfg.partition_family
+    if family != "edge_cut":
+        tag = f"{'vc' if family == 'vertex_cut' else family}_{execution}"
+        return (f"nccl_{tag}_{kind}" if group else
+                f"{tag}_{kind}" if model == "gcn" else
+                f"{model}_{tag}_{kind}")
     if eng.cfg.protocol != "sync":
         return f"async_{kind}"
     if execution == "ring":
@@ -1198,20 +1304,38 @@ def phase_name(kind: str, eng) -> str:
 def p2p_fields(eng) -> dict:
     """What a p2p phase reports of its plan: the installments' widths, the
     gather table's rows and the halo rows a pass ships (none at one
-    rank)."""
+    rank).  A replica phase (any execution) reports its layout instead:
+    the slots a rank holds, the ELL width, the most replicas of a vertex,
+    the replica rows a layer ships, and the hybrid cut's hub threshold,
+    hubs and halo rows."""
     lay = eng.playout
+    if eng.cfg.partition_family != "edge_cut":
+        out = dict(nv=lay.nv, Kc=lay.K, Rm=lay.layout.Rm,
+                   replication_factor=lay.layout.replication_factor(),
+                   replica_rows_per_layer=lay._vc_rows_per_layer,
+                   sync_active=bool(lay.sync_active),
+                   table_rows=lay.table_rows)
+        if eng.cfg.partition_family == "hybrid":
+            out.update(hub_threshold=lay.cut.threshold,
+                       hubs=int(lay.cut.hub.sum()), halo_rows=lay.halo_rows,
+                       halo_active=bool(lay.halo_active))
+        return out
+    if eng.cfg.execution != "p2p":
+        return {}
     return dict(p2p_widths=lay.p2p_widths, table_rows=lay.table_rows,
                 halo_rows=lay._halo_rows)
 
 
-def sweep_phase(eng, setup_s, g, baseline=None, against="no_group"):
+def sweep_phase(eng, setup_s, g, baseline=None, against="no_group",
+                edge=None):
     """The main path: SWEEPS timed layer-wise sweeps through
     serve_gnn.run_sweep at full width on the engine `build_engine` made
     (broadcast, p2p or the ring, which ignores exchange_chunks), kernel
     launches and collective calls counted from 0; then the reference
     sweep, its launches counted apart.  ``baseline``: a result this one must
     equal bit for bit, the same phase without a group (``against``
-    "no_group") or under broadcast ("broadcast")."""
+    "no_group") or under broadcast ("broadcast").  ``edge``: a replica
+    phase's edge-cut counterpart (`anchor_fields`)."""
     from repro_torch.core.execution import collectives
     from repro_torch.core.models.gnn import init_gnn_params
     from repro_torch.launch import serve_gnn
@@ -1241,12 +1365,17 @@ def sweep_phase(eng, setup_s, g, baseline=None, against="no_group"):
     # chunk (p2p: an all_to_all per layer, chunk and installment; the ring:
     # k - 1 rotations a layer, none at k = 1), then one all_gather of the
     # output
-    B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
+    replica = eng.cfg.partition_family != "edge_cut"
+    B = (len(eng.playout.p2p_widths) if execution == "p2p" and not replica
+         else 0)
     C = 1 if execution == "ring" else chunks  # the ring: one round at k = 1
     check(eng.k == 1, f"{name}: {eng.k} ranks on one card")
-    check_counts(launches, dict(ell_spmm=L * C * (1 + B) * SWEEPS),
+    check_counts(launches, replica_launches(eng, SWEEPS, backward=False)
+                 if replica else dict(ell_spmm=L * C * (1 + B) * SWEEPS),
                  f"{name} {model}")
-    if execution == "ring":
+    if replica:
+        calls_want = replica_calls(eng, SWEEPS, train=False)
+    elif execution == "ring":
         calls_want = dict(ppermute=L * (eng.k - 1) * SWEEPS, all_gather=SWEEPS)
     elif B:
         calls_want = dict(all_to_all=L * chunks * B * SWEEPS, all_gather=SWEEPS)
@@ -1268,16 +1397,19 @@ def sweep_phase(eng, setup_s, g, baseline=None, against="no_group"):
     check(err <= TOL, f"sweep vs reference sweep: {err} > {TOL}")
     median_s = float(np.median(walls))
     result = dict(emb=emb, median_ms=median_s * 1e3)
-    extra = p2p_fields(eng) if B else {}
+    extra = p2p_fields(eng)
     if baseline is not None:
         extra.update(compare_baseline(name, result, baseline, ("emb",),
                                       against))
+    if edge is not None:
+        extra.update(anchor_fields(name, result, edge, "emb"))
     emit(name, model=model, execution=execution,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, sweeps=SWEEPS, walls_ms=[w * 1e3 for w in walls],
          median_ms=median_s * 1e3, vertices_per_s=g.num_vertices / median_s,
          launches=launches, reference_launches=ref_launches,
          launches_per_sweep=launches["ell_spmm"] / SWEEPS,
+         replica_sync_bytes=eng.comm_stats.replica_sync_bytes,
          collective_calls=calls, bitwise_equal_sweeps=bitwise,
          oracle_max_abs_err=err, oracle_tol=TOL,
          inference_bytes=eng.comm_stats.inference_bytes,
@@ -1287,7 +1419,8 @@ def sweep_phase(eng, setup_s, g, baseline=None, against="no_group"):
     return params, launches, result
 
 
-def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
+def train_phase(eng, setup_s, g, baseline=None, against="no_group",
+                edge=None):
     """The training path: TRAIN_STEPS timed steps through
     train_gnn.run_training at full width on the engine `build_engine` made
     (lr TRAIN_LR), kernel launches and collective calls counted from 0;
@@ -1295,7 +1428,8 @@ def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
     reference run (per-step loss gap <= TOL), which must be bitwise equal to
     the first in losses and in every parameter.  ``baseline`` and
     ``against`` as in `sweep_phase` ("sync": a protocol against the same
-    phase under sync).  Under a historical-embedding protocol the state also
+    phase under sync), ``edge`` as in `sweep_phase`.  Under a
+    historical-embedding protocol the state also
     carries each layer's history and the ages, and the second run is
     `forced_run`: both runs must hold the same bits, each step's history
     within TOL of the reference step's from the same state, the ages equal
@@ -1318,12 +1452,18 @@ def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
     calls = collectives.read_calls()
     peak = torch.cuda.max_memory_allocated()
     L = len(eng.dims) - 1
-    B = len(eng.playout.p2p_widths) if execution == "p2p" else 0
+    replica = c.partition_family != "edge_cut"
+    B = (len(eng.playout.p2p_widths) if execution == "p2p" and not replica
+         else 0)
     C = 1 if execution == "ring" else chunks  # the ring: one round at k = 1
     check(eng.k == 1, f"{name}: {eng.k} ranks on one card")
-    step_want = step_launches(model, L, C, TRAIN_STEPS, sends=B)
-    calls_want = step_calls(model, L, chunks, TRAIN_STEPS, installments=B,
-                            execution=execution, k=eng.k)
+    if replica:
+        step_want = replica_launches(eng, TRAIN_STEPS, backward=True)
+        calls_want = replica_calls(eng, TRAIN_STEPS, train=True)
+    else:
+        step_want = step_launches(model, L, C, TRAIN_STEPS, sends=B)
+        calls_want = step_calls(model, L, chunks, TRAIN_STEPS,
+                                installments=B, execution=execution, k=eng.k)
     check_counts(launches, step_want,
                  f"{name} {model}, {TRAIN_STEPS} steps")
     check_calls(calls, calls_want if group else {},
@@ -1364,12 +1504,14 @@ def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
     median_s = float(np.median(walls))
     result = dict(losses=losses, median_ms=median_s * 1e3, params=[
         {key: p[key].cpu() for key in keys} for p in params["layers"]])
-    extra = p2p_fields(eng) if B else {}
+    extra = p2p_fields(eng)
     if protocol != "sync":
         extra.update(history_fields(eng, hist, age, pushed, again))
     if baseline is not None:
         extra.update(compare_baseline(name, result, baseline,
                                       ("losses", "params"), against))
+    if edge is not None:
+        extra.update(anchor_fields(name, result, edge, "losses"))
     emit(name, model=model, execution=execution,
          exchange_chunks=chunks, vertices=g.num_vertices, K=eng.K,
          dims=eng.dims, lr=lr, steps=TRAIN_STEPS, losses=losses,
@@ -1378,6 +1520,7 @@ def train_phase(eng, setup_s, g, baseline=None, against="no_group"):
          walls_second_run_ms=[w * 1e3 for w in again["walls"]],
          median_step_ms=median_s * 1e3, steps_per_s=1.0 / median_s,
          train_acc=train_acc, test_acc=test_acc, launches=launches,
+         replica_sync_bytes=eng.comm_stats.replica_sync_bytes,
          launches_with_reference=again_launches, collective_calls=calls,
          param_keys=list(keys), bitwise_equal_runs=bitwise,
          max_memory_allocated=peak,
@@ -1563,13 +1706,18 @@ def main(argv=None) -> int:
          edges=g.num_edges, seconds=time.perf_counter() - t0)
 
     def configuration(chunks, model, execution="broadcast", group=(),
-                      baseline=(None, None), against="no_group"):
+                      baseline=(None, None), against="no_group",
+                      family="edge_cut", edge=(None, None)):
         """One configuration's sweep and training phases on one engine;
-        ``baseline`` the (sweep, train) results they must equal."""
-        eng, setup_s = build_engine(g, chunks, device, model, group, execution)
-        params, n, swept = sweep_phase(eng, setup_s, g, baseline[0], against)
+        ``baseline`` the (sweep, train) results they must equal, ``edge``
+        the edge-cut ones a replica family's must be within TOL of."""
+        eng, setup_s = build_engine(g, chunks, device, model, group, execution,
+                                    family=family)
+        params, n, swept = sweep_phase(eng, setup_s, g, baseline[0], against,
+                                       edge[0])
         add_counts(launches, n)
-        n, trained = train_phase(eng, setup_s, g, baseline[1], against)
+        n, trained = train_phase(eng, setup_s, g, baseline[1], against,
+                                 edge[1])
         add_counts(launches, n)
         return eng, params, (swept, trained)
 
@@ -1578,10 +1726,16 @@ def main(argv=None) -> int:
         must hold the step's launches."""
         c = eng.cfg
         step, state = eng.make_step(), eng.init_state()
-        B = len(eng.playout.p2p_widths) if c.execution == "p2p" else 0
-        C = 1 if c.execution == "ring" else c.exchange_chunks
-        expect = {f"{name}_kernel": count for name, count in step_launches(
-            c.model, len(eng.dims) - 1, C, 1, sends=B).items()}
+        if c.partition_family != "edge_cut":
+            want = replica_launches(eng, 1, backward=True)
+        else:
+            B = len(eng.playout.p2p_widths) if c.execution == "p2p" else 0
+            C = 1 if c.execution == "ring" else c.exchange_chunks
+            want = step_launches(c.model, len(eng.dims) - 1, C, 1, sends=B)
+        # the trace names each kernel; the SDDMM wrapper launches two, a
+        # row-dots pass and the slot pass: count the slot pass
+        expect = {TRACE_NAMES.get(name, f"{name}_kernel"): count
+                  for name, count in want.items() if count}
         profile_phase(phase, lambda: step(state), expect,
                       exchange_chunks=c.exchange_chunks, **fields)
 
@@ -1639,6 +1793,26 @@ def main(argv=None) -> int:
                            against="sync")
         add_counts(launches, n)
         del eng
+    # the replica families at one rank: gcn and gat under the cartesian2d
+    # vertex cut (p2p at chunks 2, broadcast at 1, the ring) and the hybrid
+    # cut (p2p at chunks 2), each held to the same model's edge-cut phase
+    # of this run (the family anchor)
+    edge_of = {"p2p": lambda m: baselines["p2p", m],
+               "broadcast": lambda m: baselines[m, 1],
+               "ring": lambda m: baselines["ring", m]}
+    for family, execution, chunks in (("vertex_cut", "p2p", NCCL_CHUNKS),
+                                      ("vertex_cut", "broadcast", 1),
+                                      ("vertex_cut", "ring", 1),
+                                      ("hybrid", "p2p", NCCL_CHUNKS)):
+        for model in NCCL_MODELS:
+            eng, _, result = configuration(
+                chunks, model, execution, family=family,
+                edge=edge_of[execution](model))
+            if family == "vertex_cut" and execution == "p2p":
+                baselines["vc", model] = result
+                if model == "gat":  # the max pass and the combine's cost
+                    profile_step("gat_vc_train_profile", eng, model=model)
+            del eng
     # the same paths over a world-size-1 NCCL group, joined through the
     # launchers' group options: the all_gather, its reduce-scatter, the
     # all_to_all and the all_reduce run on the card (the ring issues no
@@ -1661,6 +1835,11 @@ def main(argv=None) -> int:
                 eng, _, _ = configuration(chunks, model, execution, group,
                                           baseline)
                 del eng
+            # the vertex cut's p2p combine: its all_to_all installments
+            eng, _, _ = configuration(NCCL_CHUNKS, model, "p2p", group,
+                                      baselines["vc", model],
+                                      family="vertex_cut")
+            del eng
     finally:
         release()
         leave_group(group_args)

@@ -28,11 +28,25 @@ over the whole padded space on every rank, with no collective (gat's edge
 logits through the SDDMM kernel, as the reference's do): the oracle every
 step and sweep is held to.
 
-Ported: models gcn, sage, gat and gin, partition family edge_cut (every
-partitioner), execution p2p (the default, as in the reference), broadcast
-and ring, batching full_graph, protocols sync, epoch_fixed, epoch_adaptive
-and variation, on any number of ranks.  The ranks are the process group's
-(`execution/collectives.py`); without one the engine runs on one rank.
+The replica families (vertex_cut, hybrid) run the same layers through
+`ReplicaSyncBackend`: the owned-edge partial ELL over [own slots | halo
+rows | zero] (the halo: hybrid only), the replica-sync combine over the
+collective the execution model names (an all_gather and the ELL over
+``rep_ids``, k - 1 rotations, or p2p's two sets of all_to_all installments
+around the masters' ELL over ``gather_ids``), then / the global degree; gat
+adds a detached max combine of the floored local maxima before the one sum
+combine of [ell_attend | sum of the weights].  Their reference layer
+scatter-adds every replica's partial into the global vertex space
+(`replica_sync.reference_combine`, `reference_combine_max` for gat's
+stabilizer) and gathers back.  The loss weights live on the master slots.
+
+Ported: models gcn, sage, gat and gin, partition families edge_cut (every
+partitioner), vertex_cut (random, cartesian2d, libra) and hybrid (any
+hub_threshold, over any partitioner), execution p2p (the default, as in
+the reference), broadcast and ring, batching full_graph, protocols sync,
+epoch_fixed, epoch_adaptive and variation, on any number of ranks.  The
+ranks are the process group's (`execution/collectives.py`); without one
+the engine runs on one rank.
 Everything else raises NotImplementedError naming the slice it waits for.
 Telemetry arrives with its own slice.
 """
@@ -46,6 +60,10 @@ import torch
 
 from repro_torch.core.execution import collectives
 from repro_torch.core.execution.exchange_api import make_backend
+from repro_torch.core.execution.replica_sync import (
+    reference_combine,
+    reference_combine_max,
+)
 from repro_torch.core.graph import Graph
 from repro_torch.core.models.gnn import (
     PARAM_KEYS,
@@ -60,7 +78,6 @@ from repro_torch.core.sampling.distributed import CommStats
 from repro_torch.kernels.ops import (
     ell_attend,
     ell_spmm,
-    ell_transpose_plan,
     sddmm_ell,
 )
 
@@ -81,7 +98,12 @@ class EngineConfig:
     protocol: str = "sync"  # sync | epoch_fixed | epoch_adaptive | variation
     model: str = "gcn"  # gcn | sage | gat | gin — the GNN layer program
     partition_family: str = "edge_cut"  # edge_cut | vertex_cut | hybrid
-    partitioner: str = "metis_like"  # edge_cut: any key of PARTITIONERS
+    partitioner: str = "metis_like"  # edge_cut/hybrid: any key of PARTITIONERS
+    vertex_cut: str = "cartesian2d"  # vertex_cut: any key of VERTEX_CUTS
+    hub_threshold: Optional[float] = None  # hybrid: in-degree >= threshold
+    #   replicates; None = the 95th percentile of the in-degree, inf = pure
+    #   edge-cut dataflow, 0 = pure (src-replicating) vertex cut
+    sorted_masters: bool = False  # vertex_cut: master slots first per rank
     batching: str = "full_graph"  # full_graph | node_wise | layer_wise | subgraph
     exchange_chunks: int = 1  # feature-dim chunks of the exchange
     p2p_buckets: int = 1  # power-of-two installments splitting the p2p
@@ -191,6 +213,8 @@ class DistGNNEngine:
             raise ValueError("exchange_chunks must be >= 1")
         if cfg.p2p_buckets < 1:
             raise ValueError("p2p_buckets must be >= 1")
+        builder = get_layout_builder(cfg.partition_family)
+        builder.validate(cfg, partition=partition)
         if cfg.batching != "full_graph":
             raise NotImplementedError(
                 f"batching={cfg.batching!r}: only full_graph is ported; the "
@@ -211,41 +235,31 @@ class DistGNNEngine:
         # the matmuls
         torch.backends.cuda.matmul.allow_tf32 = False
         self.g = g
-        builder = get_layout_builder(cfg.partition_family)
         lay = self.playout = builder(g, self.k, cfg, partition=partition,
                                      device=self.device, rank=self.rank)
         for name in ENGINE_MIRROR_ATTRS:
             setattr(self, name, getattr(lay, name))
-        consts = lay.exchange_consts()
-        # this rank's rows of every per-vertex table; the ids index the
-        # gather table (broadcast: every rank's block + the zero pad row;
-        # p2p: the rank's block, its halo rows, the zero pad row; ring: the
-        # rotating block, one ELL per source block)
+        # this rank's part of every table the layer reads: the rows
+        # [r*nb, (r+1)*nb) of a per-row table, entry r of a table whose
+        # leading axis is the rank (the layout's squeeze_keys: the
+        # edge-cut ring's [k(dev), k(src), nb, K] ids and mask, the p2p
+        # send tables, the replica ring's ring_ids, the hybrid halo tables)
         own = slice(self.rank * self.nb, (self.rank + 1) * self.nb)
 
         def upload(a, at=own):
             return torch.from_numpy(np.ascontiguousarray(a[at])).to(
                 self.device)
-        # the ring's ids and mask are [k(dev), k(src), nb, K]: this rank's
-        # [k(src), nb, K]
-        at = self.rank if cfg.execution == "ring" else own
-        ids, mask = upload(consts["ids"], at), upload(consts["mask"], at)
-        self._consts = dict(
-            ids=ids, mask=mask, deg=upload(lay.deg),
-            y=upload(lay.y).long(), train_w=upload(lay.train_w),
-            test_w=upload(lay.test_w))
-        # the CSR transpose of the ELL table over the gather table's rows
-        # (the ring: of each source block's ELL over its nb rows): built
-        # once, read by every backward of a gather over it (every layer,
-        # chunk, round and step)
-        if cfg.execution == "ring":
-            self._consts["plans"] = [ell_transpose_plan(i, m, lay.table_rows)
-                                     for i, m in zip(ids, mask)]
-        else:
-            self._consts["plan"] = ell_transpose_plan(ids, mask,
-                                                      lay.table_rows)
-        if cfg.execution == "p2p":
-            self._consts["send"] = self._send_installments(consts)
+        self._consts = {key: upload(a, self.rank if key in lay.squeeze_keys
+                                    else own)
+                        for key, a in lay.exchange_consts().items()}
+        self._consts.update(deg=upload(lay.deg), y=upload(lay.y).long(),
+                            train_w=upload(lay.train_w),
+                            test_w=upload(lay.test_w))
+        # the family's device constants: the transpose plans of every ELL
+        # table and single-slot gather, and the send installments, built
+        # once and read by every layer, chunk, round and step
+        self.backend = make_backend(self)
+        self._consts.update(self.backend.device_consts(self._consts))
         if cfg.protocol != "sync":
             # this rank's boundary rows: the rows another rank reads
             self._consts["bmask"] = upload(lay.bmask)
@@ -255,7 +269,6 @@ class DistGNNEngine:
             (w_sum,) = collectives.all_reduce_flat([w_sum])
         self._den = torch.clamp(w_sum, min=1.0)
         self._global = None  # the whole layout's tables: `_global_consts`
-        self.backend = make_backend(self)
         num_classes = int(g.labels.max()) + 1
         self.dims = ([g.features.shape[1]]
                      + [cfg.hidden] * (cfg.num_layers - 1) + [num_classes])
@@ -264,19 +277,6 @@ class DistGNNEngine:
         self._step = None
         self._ref_step = None
         self.comm_stats = CommStats()
-
-    def _send_installments(self, consts) -> List[Tuple]:
-        """This rank's p2p send rows as one K = 1 ELL per installment: ids
-        [k*w, 1] (destination d's rows at [d*w, (d+1)*w)), the mask that
-        zeroes the pad entries, and the transpose plan over the rank's nb
-        rows that its gather's backward reads."""
-        send = []
-        for rows, fill in zip(consts["send_rows"][self.rank],
-                              consts["send_mask"][self.rank]):
-            ids = torch.from_numpy(rows.reshape(-1, 1).copy()).to(self.device)
-            mask = torch.from_numpy(fill.reshape(-1, 1).copy()).to(self.device)
-            send.append((ids, mask, ell_transpose_plan(ids, mask, self.nb)))
-        return send
 
     # ------------------------------------------------------------------
     # shared layer math
@@ -383,9 +383,10 @@ class DistGNNEngine:
             self._global = {}
             for key in keys:
                 # on one rank the engine's own rows are every row (the
-                # ring's mask is per source block: upload the global one)
-                if self.k == 1 and key in self._consts and not (
-                        key == "mask" and self.cfg.execution == "ring"):
+                # edge-cut ring's mask is per source block: upload the
+                # global one)
+                if self.k == 1 and key in self._consts \
+                        and key not in lay.squeeze_keys:
                     self._global[key] = self._consts[key]
                 else:
                     self._global[key] = torch.from_numpy(
@@ -409,25 +410,51 @@ class DistGNNEngine:
         logits through `_sddmm` (the SDDMM kernel and its slot-transpose
         gradient, as the reference calls its Pallas SDDMM), the softmax, and
         the plain slot-by-slot attention gather `_SlotAttend` (so it checks
-        the forward, transpose and dw kernels)."""
+        the forward, transpose and dw kernels).
+
+        Replica families: the same gathers over the flattened replica
+        space give each replica's partial; `reference_combine` scatter-adds
+        them into the global vertex space and gathers back (gat: the local
+        maxima floored at 0 and combined by `reference_combine_max`, then
+        [attend | sum of the weights] combined in one pass)."""
         c = self.cfg
+        k, nb, Vp = self.k, self.nb, self.Vp
         ids_g = torch.from_numpy(self.ids_global).to(self.device)
         ids_g32 = ids_g.int()
         gl = self._global_consts()
         mask, deg = gl["mask"], gl["deg"]
-        # the SDDMM gradient's transpose plan: on one broadcast rank the
-        # engine's own ELL table is the global one; otherwise `sddmm_ell`
-        # builds its own
-        plan = (self._consts["plan"]
-                if self.k == 1 and c.execution == "broadcast" else None)
+        # the SDDMM gradient's transpose plan: on one rank, where the
+        # engine's own ELL table is the global one (broadcast, and every
+        # replica layout), the engine's; otherwise `sddmm_ell` builds its
+        # own
+        plan = (self._consts["plan"] if self.k == 1 and (
+            c.execution == "broadcast" or c.partition_family != "edge_cut")
+            else None)
+        replicas = self.playout.ref_vert_ids is not None
+        if replicas:
+            vids = torch.from_numpy(self.playout.ref_vert_ids).to(self.device)
+            V = self.g.num_vertices
+
+            def combine(x, op=reference_combine):
+                return op(x.view(k, nb, -1), vids, V).reshape(Vp, -1)
 
         def gat_layer_ref(p_l, H, last):
             Hw = H @ p_l["w"]
             table = torch.cat([Hw, Hw.new_zeros((1, Hw.shape[1]))], 0)
             e = self._sddmm(ids_g32, mask, table, p_l["a_src"], p_l["a_dst"],
                             plan)
-            pw, den = self._gat_softmax(e)
-            num = _SlotAttend.apply(ids_g, mask, pw, table)
+            if replicas:
+                M = combine(torch.clamp(torch.amax(e, dim=1, keepdim=True),
+                                        min=0.0).detach(),
+                            reference_combine_max)
+                pw = torch.exp(e - M) * (e > -1e29)
+                comb = combine(torch.cat([
+                    _SlotAttend.apply(ids_g, mask, pw, table),
+                    pw.sum(1, keepdim=True)], 1))
+                num, den = comb[:, :-1], comb[:, -1:]
+            else:
+                pw, den = self._gat_softmax(e)
+                num = _SlotAttend.apply(ids_g, mask, pw, table)
             z = torch.where(den > 0, num / torch.clamp(den, min=1e-30), Hw)
             return z if last else torch.relu(z)
 
@@ -436,6 +463,8 @@ class DistGNNEngine:
                 return gat_layer_ref(p_l, H, last)
             table = torch.cat([H, H.new_zeros((1, H.shape[1]))], 0)
             gathered = _SlotGather.apply(ids_g, mask, table)
+            if replicas:
+                gathered = combine(gathered)
             return self._combine(c.model, p_l, gathered / deg, H, last=last)
 
         return layer_ref

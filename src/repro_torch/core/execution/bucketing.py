@@ -1,10 +1,12 @@
 """Power-of-two bucketed p2p installment layout (the port's copy of
 `repro/core/execution/bucketing.py`, numpy only).
 
-These three helpers define the STATIC slot layout of the bucketed p2p halo
+The first three helpers define the STATIC slot layout of the bucketed p2p halo
 exchange: the installment widths, the gather-table slot of a halo row, and
 the matching [k, B, k, w] send table.  The collective that reads them is
-`pipeline_exchange.bucketed_all_to_all`.
+`pipeline_exchange.bucketed_all_to_all`.  `bucketed_send_mask` (the
+port's own) marks the send entries that carry a need row: the port's send
+gather ships zeros on the rest.
 """
 from __future__ import annotations
 
@@ -58,3 +60,14 @@ def bucketed_send_table(need: Sequence[Sequence[np.ndarray]], k: int,
         for d in range(k):
             send[s, d, : len(need[s][d])] = need[s][d]
     return send.reshape(k, k, B, w).transpose(0, 2, 1, 3).copy()
+
+
+def bucketed_send_mask(counts: np.ndarray, widths: List[int]) -> np.ndarray:
+    """[k, B, k, w] float32 mask of `bucketed_send_table`'s layout: 1 on the
+    entries that carry one of pair (s, d)'s ``counts[s, d]`` need rows, 0 on
+    the pad entries."""
+    k = counts.shape[0]
+    B, w = len(widths), widths[0]
+    fill = np.arange(B * w)[None, None, :] < counts[:, :, None]
+    return fill.astype(np.float32).reshape(k, k, B, w).transpose(
+        0, 2, 1, 3).copy()

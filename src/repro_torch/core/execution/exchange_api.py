@@ -1,15 +1,27 @@
 """ExchangeBackend: the execution side of the partition-family interface (the
-port's copy of the edge-cut part of `repro/core/execution/exchange_api.py`:
-broadcast, ring and p2p, over `torch.distributed`).
+port's copy of `repro/core/execution/exchange_api.py`: broadcast, ring and
+p2p over `torch.distributed`, for the edge-cut family and for the replica
+families).
 
 `partition/layout_api.py` owns the static tables; a backend owns the
 per-layer dataflow that assembles the gather table and runs the masked ELL
-multiply (gcn, sage, gin) or the attention program (gat).  A backend reads
-eng.{_ell, _ell_attend, _gat_softmax, cfg, k, rank} and nothing else.
-Every step of it is differentiable: the training step runs it under
-autograd, and the backward of every gather over the ELL table reads the
-transpose plan in ``cl["plan"]`` (the ring: ``cl["plans"]``, one per source
-block).
+multiply (gcn, sage, gin) or the attention program (gat), and turns its
+rank's uploaded tables into the device constants that dataflow reads
+(`device_consts`: the transpose plans and the single-slot gather tables,
+built once per engine).  A backend reads eng.{_ell, _ell_attend, _sddmm,
+_gat_softmax, cfg, k, rank, nb, playout} and nothing else.  Every step of
+it is differentiable: the training step runs it under autograd, and the
+backward of every gather reads a transpose plan built in `device_consts`.
+
+  EdgeCutBackend      halo exchange: neighbor rows cross the wire, then ONE
+                      masked ELL multiply over the gathered table.
+  ReplicaSyncBackend  partial aggregation over OWNED edges in replica-slot
+                      space, then the replica-sync combine
+                      (`execution/replica_sync.py`).  Two layout flags let
+                      one backend serve both replica families:
+                      ``sync_active`` (replicas exist) and ``halo_active``
+                      (hybrid: the owned-edge ELL reads remote low-degree
+                      rows through a halo table after the local block).
 """
 from __future__ import annotations
 
@@ -18,21 +30,32 @@ import torch
 from repro_torch.core.execution.collectives import (
     all_gather_rows,
     group_active,
-    ring_rotate,
 )
 from repro_torch.core.execution.pipeline_exchange import (
     bucketed_all_to_all,
     chunk_width,
     chunked_overlap,
     feature_chunks,
+    ring_blocks,
+    send_installments,
+    single_slot,
     zero_pad_row,
 )
-from repro_torch.kernels.ops import ell_slot_gather
+from repro_torch.core.execution.replica_sync import (
+    replica_combine,
+    replica_combine_max,
+)
+from repro_torch.kernels.ops import ell_slot_gather, ell_transpose_plan
 
 
 class ExchangeBackend:
     def __init__(self, eng):
         self.eng = eng
+
+    def device_consts(self, cl) -> dict:
+        """The device constants the dataflow reads, built once from this
+        rank's uploaded tables ``cl`` (the layout's `exchange_consts`)."""
+        raise NotImplementedError
 
     def aggregate(self, h_local, cl):
         """One layer's neighbor exchange + masked aggregation, normalized by
@@ -45,23 +68,6 @@ class ExchangeBackend:
         raise NotImplementedError
 
 
-def ring_blocks(h, k: int, me: int):
-    """The ring's rounds over this rank's rows h [nb, D]: yields (owner,
-    block) for r = 0 .. k-1, round r holding owner (me + r) % k's block.
-    Round 0 is h itself; each later block is the previous one rotated
-    (`collectives.ring_rotate`), and rotation r + 1 is issued before round
-    r is yielded, so it flies while the caller consumes round r.  Exactly
-    k - 1 rotations: at k = 1 none (the reference's gcn scan issues a k-th
-    whose output is never read; the wire bytes are analytic and do not
-    change)."""
-    pending = ring_rotate(h) if k > 1 else None
-    for r in range(k):
-        if r:
-            h = pending()
-            pending = ring_rotate(h) if r + 1 < k else None
-        yield (me + r) % k, h
-
-
 class EdgeCutBackend(ExchangeBackend):
     """Halo exchange.  broadcast: the table is every rank's block,
     all-gathered over the process group, followed by one zero pad row;
@@ -71,6 +77,22 @@ class EdgeCutBackend(ExchangeBackend):
     row.  Both are feature-chunked.  ring: the k blocks rotate past every
     rank in turn, and each round aggregates over the block it holds (the
     ring ignores exchange_chunks, as the reference's does)."""
+
+    def device_consts(self, cl) -> dict:
+        """The CSR transpose of the ELL table over the gather table's rows
+        (the ring: of each source block's ELL over its nb rows), read by
+        every backward of a gather over it (every layer, chunk, round and
+        step); p2p adds the send installments (`send_installments`)."""
+        eng = self.eng
+        rows = eng.playout.table_rows
+        if eng.cfg.execution == "ring":
+            return dict(plans=[ell_transpose_plan(i, m, rows)
+                               for i, m in zip(cl["ids"], cl["mask"])])
+        out = dict(plan=ell_transpose_plan(cl["ids"], cl["mask"], rows))
+        if eng.cfg.execution == "p2p":
+            out["send"] = send_installments(cl["send_rows"], cl["send_mask"],
+                                            eng.nb)
+        return out
 
     def exchange_fn(self, cl):
         """hc [nb, Dc] -> ``finish``, which returns the gather table
@@ -209,8 +231,148 @@ class EdgeCutBackend(ExchangeBackend):
         return z if last else torch.relu(z)
 
 
+class ReplicaSyncBackend(ExchangeBackend):
+    """Owned-edge partial aggregation + replica-sync combine, with an
+    optional halo table for hybrid layouts whose owned edges read remote
+    (low-degree, never-replicated) source rows."""
+
+    def __init__(self, eng):
+        super().__init__(eng)
+        lay = eng.playout
+        self.sync_active = lay.sync_active
+        self.halo_active = lay.halo_active
+
+    def device_consts(self, cl) -> dict:
+        """``plan``: the owned-edge ELL's transpose plan over its table
+        [own slots | halo | zero row].  ``sync``: the combine's constants
+        (`replica_sync` module docstring): broadcast ``rep`` = (rep_ids,
+        rep_mask, plan over the k*nv + 1 gathered rows); ring ``ring`` =
+        ring_ids as single-slot gathers, one plan per owner block; p2p the
+        two send installments, ``gather`` = (gather_ids, gather_mask, plan
+        over [own | received | zero]) and ``scatter`` = scatter_ids as a
+        single-slot gather over [aggregate | received back].  ``halo``
+        (hybrid): halo_src as a single-slot gather over the k*nv gathered
+        rows, halo_ring as one per owner block over nv rows, or the
+        halo_send installments."""
+        eng = self.eng
+        k, nv, ex = eng.k, eng.nb, eng.cfg.execution
+        out = dict(plan=ell_transpose_plan(cl["ids"], cl["mask"],
+                                           eng.playout.table_rows))
+        if self.sync_active:
+            if ex == "broadcast":
+                sync = dict(rep=(cl["rep_ids"], cl["rep_mask"],
+                                 ell_transpose_plan(cl["rep_ids"],
+                                                    cl["rep_mask"],
+                                                    k * nv + 1)))
+            elif ex == "ring":
+                sync = dict(ring=single_slot(cl["ring_ids"], nv, nv))
+            else:
+                rows1 = nv + cl["send1"].numel() + 1
+                rows2 = nv + cl["send2"].numel()
+                sync = dict(
+                    send1=send_installments(cl["send1"], cl["send1_mask"], nv),
+                    send2=send_installments(cl["send2"], cl["send2_mask"], nv),
+                    gather=(cl["gather_ids"], cl["gather_mask"],
+                            ell_transpose_plan(cl["gather_ids"],
+                                               cl["gather_mask"], rows1)),
+                    scatter=single_slot(cl["scatter_ids"], rows2, rows2))
+            out["sync"] = sync
+        if self.halo_active:
+            if ex == "broadcast":
+                out["halo"] = single_slot(cl["halo_src"], k * nv, k * nv)
+            elif ex == "ring":
+                out["halo"] = single_slot(cl["halo_ring"], nv, nv)
+            else:
+                out["halo"] = send_installments(cl["halo_send"],
+                                                cl["halo_send_mask"], nv)
+        return out
+
+    def _halo_table(self, hc, cl):
+        """Issue one feature chunk's gather table and return ``finish``:
+        [local block (nv rows) | halo rows (canonical installment-major
+        slots) | one zero row].  Without a halo the table is the vertex-cut
+        [h | zero] form.  Each canonical halo slot has exactly ONE real
+        source; under broadcast and the ring every other read is masked.
+        The ring issues k - 1 rotations (the reference's scan issues k)."""
+        eng = self.eng
+        hc = hc.contiguous()
+        if not self.halo_active:
+            return lambda: torch.cat([hc, zero_pad_row(hc)], 0)
+        execution = eng.cfg.execution
+        if execution == "broadcast":
+            ids, mask, plan = cl["halo"]
+            gathered = all_gather_rows(hc)
+            return lambda: torch.cat([hc, eng._ell(ids, mask, gathered(),
+                                                   plan), zero_pad_row(hc)], 0)
+        if execution == "ring":
+            ids, mask, plans = cl["halo"]
+            halo = None
+            for owner, blk in ring_blocks(hc, eng.k, eng.rank):
+                part = eng._ell(ids[owner], mask[owner], blk, plans[owner])
+                halo = part if halo is None else halo + part
+            return lambda: torch.cat([hc, halo, zero_pad_row(hc)], 0)
+        recv = bucketed_all_to_all(hc, cl["halo"])
+        return lambda: torch.cat([hc, recv(), zero_pad_row(hc)], 0)
+
+    def _combine(self, part, cl):
+        eng, c = self.eng, self.eng.cfg
+        return replica_combine(c.execution, part, cl["sync"], k=eng.k,
+                               rank=eng.rank, ell_fn=eng._ell,
+                               num_chunks=c.exchange_chunks)
+
+    def aggregate(self, h_local, cl):
+        """The owned-edge partial ELL over the gather table (chunked with
+        the halo exchange when there is one), the replica combine (chunked),
+        then / deg, the GLOBAL in-degree."""
+        eng = self.eng
+        ids, mask, plan = cl["ids"], cl["mask"], cl["plan"]
+
+        def partial_of(table):
+            return eng._ell(ids, mask, table, plan)
+
+        if self.halo_active:
+            partial = chunked_overlap(
+                h_local, eng.cfg.exchange_chunks,
+                lambda hc: self._halo_table(hc, cl), partial_of)
+        else:
+            partial = partial_of(self._halo_table(h_local, cl)())
+        if self.sync_active:
+            partial = self._combine(partial, cl)
+        return partial / cl["deg"]
+
+    def gat_layer(self, p_l, H, cl, last: bool):
+        """GAT over owned edges: SDDMM logits over the gather table, the
+        local max floored at 0 (any upper bound is a valid softmax shift,
+        and the max combine needs values >= 0), the max combine across
+        replicas (detached), exp(e - M) on the real slots, [ell_attend |
+        sum of the weights] combined across replicas in one pass, then
+        num / den, a row without real slots falling back to its own Hw.
+        Without replicas (hybrid at threshold inf) both combines are the
+        identity."""
+        eng = self.eng
+        c = eng.cfg
+        ids, mask, plan = cl["ids"], cl["mask"], cl["plan"]
+        Hw = H @ p_l["w"]
+        table = self._halo_table(Hw, cl)()
+        e = eng._sddmm(ids, mask, table, p_l["a_src"], p_l["a_dst"], plan)
+        M = torch.clamp(torch.amax(e, dim=1, keepdim=True), min=0.0).detach()
+        if self.sync_active:
+            M = replica_combine_max(c.execution, M, cl["sync"], k=eng.k,
+                                    rank=eng.rank)
+        pw = torch.exp(e - M) * (e > -1e29)
+        part = torch.cat([eng._ell_attend(ids, pw, table, plan),
+                          pw.sum(1, keepdim=True)], 1)
+        if self.sync_active:
+            part = self._combine(part, cl)
+        num, den = part[:, :-1], part[:, -1:]
+        z = torch.where(den > 0, num / torch.clamp(den, min=1e-30), Hw)
+        return z if last else torch.relu(z)
+
+
 BACKENDS = {
     "edge_cut": EdgeCutBackend,
+    "vertex_cut": ReplicaSyncBackend,
+    "hybrid": ReplicaSyncBackend,
 }
 
 

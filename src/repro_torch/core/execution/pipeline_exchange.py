@@ -15,15 +15,16 @@ too; each chunk's collective carries its own gradient.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.execution.collectives import (
     all_to_all_rows,
     group_active,
+    ring_rotate,
 )
-from repro_torch.kernels.ops import ell_spmm
+from repro_torch.kernels.ops import ell_spmm, ell_transpose_plan
 from repro_torch.utils import cdiv
 
 
@@ -71,6 +72,38 @@ def chunked_overlap(h: torch.Tensor, num_chunks: int,
     return out[:, :D] if C * Dc != D else out
 
 
+def send_installments(send_rows: torch.Tensor, send_mask: torch.Tensor,
+                      rows: int) -> List[Tuple]:
+    """This rank's p2p send table ([B, k, w] rows and mask, on the device)
+    as one K = 1 ELL per installment, the ``send`` argument of
+    `bucketed_all_to_all`: ids [k*w, 1] (destination d's rows at
+    [d*w, (d+1)*w)), the mask that zeroes the pad entries, and the transpose
+    plan over the ``rows`` source rows that its gather's backward reads."""
+    send = []
+    for ids, mask in zip(send_rows, send_mask):
+        ids = ids.reshape(-1, 1).contiguous()
+        mask = mask.reshape(-1, 1).contiguous()
+        send.append((ids, mask, ell_transpose_plan(ids, mask, rows)))
+    return send
+
+
+def single_slot(ids: torch.Tensor, pad: int, rows: int) -> Tuple:
+    """A row gather table[ids] whose pad entries (``ids == pad``) read 0, as
+    a K = 1 ELL: (ids int32 [..., n, 1] with the pads at row 0, mask
+    [..., n, 1] zero on the pads, the transpose plan over ``rows`` table
+    rows, or one per leading index for a [k, n] table).  Written as the ELL
+    forward, the gather's backward is the transpose kernel over its plan;
+    autograd's own rule for ``table[ids]`` would add every pad entry into
+    one row with atomics."""
+    real = ids != pad
+    ids = torch.where(real, ids, 0).to(torch.int32)[..., None].contiguous()
+    mask = real.to(torch.float32)[..., None].contiguous()
+    if ids.dim() == 2:
+        return ids, mask, ell_transpose_plan(ids, mask, rows)
+    return ids, mask, [ell_transpose_plan(i, m, rows)
+                       for i, m in zip(ids, mask)]
+
+
 def bucketed_all_to_all(h: torch.Tensor, send: Sequence[Tuple]
                         ) -> Callable[[], torch.Tensor]:
     """Issue the installment all_to_alls of this rank's rows h [nb, D] and
@@ -99,3 +132,20 @@ def bucketed_all_to_all(h: torch.Tensor, send: Sequence[Tuple]
         recv = [fin() for fin in pending]
         return recv[0] if len(recv) == 1 else torch.cat(recv, 0)
     return finish
+
+
+def ring_blocks(h, k: int, me: int):
+    """The ring's rounds over this rank's rows h [nb, D]: yields (owner,
+    block) for r = 0 .. k-1, round r holding owner (me + r) % k's block.
+    Round 0 is h itself; each later block is the previous one rotated
+    (`collectives.ring_rotate`), and rotation r + 1 is issued before round
+    r is yielded, so it flies while the caller consumes round r.  Exactly
+    k - 1 rotations: at k = 1 none (the reference's gcn scan issues a k-th
+    whose output is never read; the wire bytes are analytic and do not
+    change)."""
+    pending = ring_rotate(h) if k > 1 else None
+    for r in range(k):
+        if r:
+            h = pending()
+            pending = ring_rotate(h) if r + 1 < k else None
+        yield (me + r) % k, h

@@ -35,6 +35,11 @@ class Graph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v] : self.indptr[v + 1]]
 
+    def out_degree(self) -> np.ndarray:
+        """`indices` are in-neighbors: a vertex's out-degree counts how often
+        it appears as someone's in-neighbor."""
+        return np.bincount(self.indices, minlength=self.num_vertices).astype(np.int64)
+
 
 def from_edges(src: np.ndarray, dst: np.ndarray, num_vertices: int, **kw) -> Graph:
     """Build CSR of in-neighbors: edge (u -> v) stores u in v's list."""

@@ -1,20 +1,25 @@
-"""PartitionLayout: the partition-family interface (the port's copy of the
-edge-cut part of `repro/core/partition/layout_api.py`).
+"""PartitionLayout: the partition-family interface (the port's copy of
+`repro/core/partition/layout_api.py`: the edge-cut family and the replica
+families' base, `ReplicaLayoutBase`, with the vertex-cut family; the hybrid
+family is in `hybrid_cut.py` and registers itself).
 
 A layout owns everything a partition family decides about how a graph lands
 on k devices: the slot tables, the local-multiply ELL constants
-(`ids`/`mask`/`deg`), the exchange-plan constants, byte accounting and the
-host-side mapping back to original vertex ids.  The engine only dispatches.
+(`ids`/`mask`/`deg`), the exchange-plan constants, master masking of the
+loss weights, byte accounting and the host-side mapping back to original
+vertex ids.  The engine only dispatches.
 
-The reference builds the ELL table with a Python loop over every vertex;
-this copy builds the same arrays with vectorised numpy from the CSR, so the
-2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy here; the
-engine moves its rank's rows of what the sweep and the step read onto its
-device.  Every rank builds the whole layout, identically, as the reference
-builds it globally.  The broadcast, ring and p2p exchange plans are ported,
-the boundary mask the historical-embedding protocols read, and only the
-parts of the layout that the inference sweep and the full-graph training
-step read.
+The reference builds the edge-cut ELL table with a Python loop over every
+vertex; this copy builds the same arrays with vectorised numpy from the
+CSR, so the 2**20-vertex gcn-paper layout takes seconds.  Arrays stay numpy
+here; the engine moves its rank's rows of what the sweep and the step read
+onto its device: the rows [r*nb, (r+1)*nb) of every per-row table, and
+entry r of every table in ``squeeze_keys`` (whose leading axis is the
+rank, as the reference's).  Every rank builds the whole layout,
+identically, as the reference builds it globally.  Ported: the parts of the
+layout that the inference sweep and the full-graph training step read (the
+per-device byte models, the trainable-embedding accounting and the
+telemetry gauges arrive with their own slices).
 """
 from __future__ import annotations
 
@@ -25,21 +30,28 @@ import torch
 
 from repro_torch.core.execution.bucketing import (
     bucketed_cap_widths,
+    bucketed_send_mask,
     bucketed_send_table,
     halo_slot,
 )
+from repro_torch.core.execution.replica_sync import build_replica_sync_plan
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.partition.cost_models import (
     FEAT_BYTES,
     model_exchange_widths,
 )
 from repro_torch.core.partition.edge_cut import PARTITIONERS
+from repro_torch.core.partition.vertex_cut import VERTEX_CUTS
+from repro_torch.core.partition.vertex_layout import build_vertex_layout
 
 
 class PartitionLayout:
     """Base class of the partition families."""
 
     family = "abstract"
+    ref_vert_ids = None  # [k, n] global vertex of each row (pad = V) for the
+    #   oracle's scatter-add replica combine; None: every row is unique
+    squeeze_keys: tuple = ()  # exchange consts whose leading axis is the rank
 
     def __init__(self, g, k: int, cfg, partition=None, device="cpu",
                  rank=None):
@@ -49,6 +61,10 @@ class PartitionLayout:
         self.device = torch.device(device)
         self.rank = rank  # the store's device part: this block (None: all)
         self._build(partition)
+
+    @classmethod
+    def validate(cls, cfg, partition=None) -> None:
+        """Raise ValueError for configs this family cannot run."""
 
     def _build(self, partition) -> None:
         raise NotImplementedError
@@ -79,6 +95,10 @@ class EdgeCutLayout(PartitionLayout):
                      or PARTITIONERS[self.cfg.partitioner](self.g, self.k))
         self._build_vertex_blocks()
         self._build_exchange_plan()
+        if self.cfg.execution == "ring":
+            self.squeeze_keys = ("ids", "mask")
+        elif self.cfg.execution == "p2p":
+            self.squeeze_keys = ("send_rows", "send_mask")
 
     def _build_vertex_blocks(self):
         """Relabel vertices so partition p owns global rows [p*nb, (p+1)*nb).
@@ -211,9 +231,7 @@ class EdgeCutLayout(PartitionLayout):
         # (the rest pad the installment and ship zeros)
         self.send_rows = bucketed_send_table(
             [[need[d * k + s] for d in range(k)] for s in range(k)], k, widths)
-        fill = np.arange(B * w)[None, None, :] < counts.T[:, :, None]
-        self.send_mask = fill.astype(np.float32).reshape(
-            k, k, B, w).transpose(0, 2, 1, 3).copy()
+        self.send_mask = bucketed_send_mask(counts.T, widths)
         # ids remapped into the local gather table:
         #   [0, nb)            own block
         #   [nb, nb + B*k*w)   halo slot (installment-major; see halo_slot)
@@ -255,17 +273,139 @@ class EdgeCutLayout(PartitionLayout):
         return H[self.new_of_old]
 
 
+# ---------------------------------------------------------------------------
+# replica families: vertex_cut (and the hybrid cut, which subclasses the
+# shared base in partition/hybrid_cut.py): replica slot tables, master
+# masking and the replica-sync combine
+# ---------------------------------------------------------------------------
+
+
+class ReplicaLayoutBase(PartitionLayout):
+    """Shared engine-facing plumbing for families built on replica slot
+    tables: an inner `VertexCutLayout`-shaped ``self.layout`` and a
+    `build_replica_sync_plan` exchange plan, flattened into the replica
+    space [Vp = k*nv] (rank r's slots at [r*nv, (r+1)*nv))."""
+
+    sync_active = True  # replicas exist: the partials are combined
+    halo_active = False  # the owned-edge ELL reads remote rows (hybrid)
+
+    def _flatten_layout(self):
+        """Mirror the inner [k, nv] slot tables into the flattened replica
+        space the engine uploads."""
+        lay, k = self.layout, self.k
+        self.nb = self.nv = nv = lay.nv
+        self.Vp = Vp = k * nv
+        self.K = lay.Kc
+        self.store = FeatureStore(lay.X, self.device, owner=self.rank)
+        self.X = torch.from_numpy(self.store.host_table())
+        self.y = lay.y.reshape(Vp)
+        self.train_w = lay.train_w.reshape(Vp)
+        self.test_w = lay.test_w.reshape(Vp)
+        self.deg = lay.deg.reshape(Vp, 1)
+        self.bmask = lay.bmask.reshape(Vp)
+        self.mask = lay.mask_owned.reshape(Vp, lay.Kc)
+        self.ids_exec = lay.ids_owned.reshape(Vp, lay.Kc)
+        self.ref_vert_ids = lay.vert_ids  # [k, nv], pad = V
+        # the owned-edge gather table: [own slots | zero row]
+        self.table_rows = nv + 1
+
+    def _build_sync_plan(self, masters):
+        c, Vp = self.cfg, self.Vp
+        plan = build_replica_sync_plan(self.layout, masters, c.execution,
+                                       buckets=c.p2p_buckets)
+        plan.pop("execution")
+        self._vc_rows_per_layer = plan.pop("rows_per_layer")
+        plan.pop("caps", None)  # p2p: the pre-bucket c1/c2
+        slot_tables = ("rep_ids", "rep_mask", "gather_ids", "gather_mask",
+                       "scatter_ids")  # [k, nv, ...] -> [Vp, ...]
+        self._vc_plan = {key: (a.reshape((Vp,) + a.shape[2:])
+                               if key in slot_tables else a)
+                         for key, a in plan.items()}
+        self.squeeze_keys = tuple(
+            key for key in ("send1", "send1_mask", "send2", "send2_mask",
+                            "ring_ids") if key in self._vc_plan)
+
+    def exchange_consts(self) -> dict:
+        """ids and mask [Vp, Kc] (the owned-edge ELL), and the sync plan:
+        broadcast rep_ids, rep_mask [Vp, Rm]; ring ring_ids [k(rank),
+        k(owner), nv]; p2p send1, send2 and their masks [k, B, k, w],
+        gather_ids, gather_mask [Vp, Rm] and scatter_ids [Vp]."""
+        return dict(ids=self.ids_exec, mask=self.mask, **self._vc_plan)
+
+    def global_embeddings(self, H: np.ndarray) -> np.ndarray:
+        """Read each vertex's MASTER replica row.  With sorted_masters
+        layouts the masters are a contiguous per-rank prefix, so this is k
+        prefix slices instead of a [Vp] boolean mask scan."""
+        lay = self.layout
+        V = self.g.num_vertices
+        out = np.zeros((V, H.shape[1]), H.dtype)
+        counts = getattr(lay, "master_counts", None)
+        if getattr(lay, "sorted_masters", False) and counts is not None:
+            for d in range(self.k):
+                n = int(counts[d])
+                out[lay.vert_ids[d, :n]] = H[d * self.nv: d * self.nv + n]
+            return out
+        flat_vid = lay.vert_ids.reshape(-1)  # pad slots -> V
+        mm = lay.master_mask.reshape(-1) > 0.5
+        out[flat_vid[mm]] = H[mm]
+        return out
+
+
+class VertexCutFamilyLayout(ReplicaLayoutBase):
+    family = "vertex_cut"
+
+    @classmethod
+    def validate(cls, cfg, partition=None) -> None:
+        if cfg.vertex_cut not in VERTEX_CUTS:
+            raise ValueError(
+                f"vertex_cut must be one of {tuple(VERTEX_CUTS)}")
+        if cfg.batching != "full_graph":
+            raise ValueError(
+                "vertex_cut supports batching='full_graph' only "
+                "(vertex-cut mini-batch sampling is a ROADMAP follow-up)")
+        if partition is not None:
+            raise ValueError(
+                "partition= is an edge-cut Partition; vertex_cut builds "
+                "its own cut from cfg.vertex_cut")
+
+    def _build(self, partition):
+        c, g, k = self.cfg, self.g, self.k
+        self.vcut = VERTEX_CUTS[c.vertex_cut](g, k, seed=c.seed)
+        self.layout = build_vertex_layout(
+            g, self.vcut, k, sorted_masters=c.sorted_masters)
+        self._flatten_layout()
+        # reference-step ELL in the flattened replica space: local slot ->
+        # global flat slot d*nv + slot; pads -> Vp (the appended zero row)
+        lay, nv, Vp = self.layout, self.nv, self.Vp
+        flat_off = (np.arange(k) * nv)[:, None, None]
+        self.ids_global = np.where(lay.mask_owned > 0,
+                                   lay.ids_owned + flat_off, Vp
+                                   ).reshape(Vp, lay.Kc).astype(np.int64)
+        self._build_sync_plan(self.vcut.masters)
+
+    def wire_fields_per_step(self, model, dims) -> dict:
+        # every layer's replica sync ships `rows_per_layer` rows at that
+        # layer's exchange width (gat: + the attention and max columns), as
+        # cost_models.replica_sync_bytes_per_step
+        widths = model_exchange_widths(model, dims, "vertex_cut")
+        return {"replica_sync_bytes":
+                self._vc_rows_per_layer * int(sum(widths)) * FEAT_BYTES}
+
+
 LAYOUT_BUILDERS = {
     "edge_cut": EdgeCutLayout,
+    "vertex_cut": VertexCutFamilyLayout,
 }
 
 
 def get_layout_builder(family: str):
+    """Resolve a family string to its layout class.  The hybrid family
+    registers itself on import (`hybrid_cut.py` imports this module's base
+    classes)."""
+    if family == "hybrid" and family not in LAYOUT_BUILDERS:
+        from repro_torch.core.partition import hybrid_cut  # noqa: F401
     try:
         return LAYOUT_BUILDERS[family]
     except KeyError:
-        raise NotImplementedError(
-            f"partition family {family!r}: only edge_cut is ported; "
-            "vertex_cut and hybrid arrive with the replica-family slice "
-            "(ROADMAP queue 1 item 7)"
-        ) from None
+        raise ValueError(f"unknown partition family {family!r}; known: "
+                         f"{tuple(LAYOUT_BUILDERS)}") from None

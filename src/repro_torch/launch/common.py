@@ -1,5 +1,5 @@
-"""What the GNN entry points share: the process-group options and the device
-each rank runs on.
+"""What the GNN entry points share: the process-group options, the partition
+options and the device each rank runs on.
 
 One process per rank.  ``--world-size``, ``--rank`` and ``--init-method``
 (``file://<path>`` or ``tcp://<host>:<port>``) join the process group before
@@ -7,6 +7,9 @@ the engine is built; the engine then runs on every rank of it.  Without
 ``--init-method`` the process runs alone, with no group.  The device is
 ``cuda:<rank>`` unless the caller asks for another (``--device cpu``), and
 the backend follows it: NCCL on the card, gloo on the CPU.
+``--partition-family`` picks edge_cut (``--partitioner``), vertex_cut
+(``--vertex-cut``) or hybrid (``--partitioner`` for the masters,
+``--hub-threshold`` for the hubs), with the reference's defaults.
 
     # four gloo ranks on the CPU, one per shell:
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \\
@@ -20,7 +23,9 @@ import torch
 
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.execution import collectives
+from repro_torch.core.engine import PARTITION_FAMILIES
 from repro_torch.core.partition.edge_cut import PARTITIONERS
+from repro_torch.core.partition.vertex_cut import VERTEX_CUTS
 
 
 def add_group_args(ap: argparse.ArgumentParser) -> None:
@@ -34,8 +39,31 @@ def add_group_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--partitioner", default=EngineConfig.partitioner,
                     choices=list(PARTITIONERS),
                     help="the edge-cut partitioner that assigns vertices to "
-                         "ranks (metis_like is a host loop: pass hash on "
-                         "graphs of millions of vertices)")
+                         "ranks, the hybrid family's masters too (metis_like "
+                         "is a host loop: pass hash on graphs of millions of "
+                         "vertices)")
+    ap.add_argument("--partition-family", default=EngineConfig.partition_family,
+                    choices=list(PARTITION_FAMILIES),
+                    help="edge-cut halo exchange, vertex-cut replica sync "
+                         "(replicated vertices, master-masked loss), or the "
+                         "PowerLyra-style hybrid degree-threshold cut (hubs "
+                         "replicate, the rest stay edge-cut-local)")
+    ap.add_argument("--vertex-cut", default=EngineConfig.vertex_cut,
+                    choices=list(VERTEX_CUTS),
+                    help="the vertex cut (with --partition-family "
+                         "vertex_cut; libra is a host loop over every edge)")
+    ap.add_argument("--hub-threshold", type=float,
+                    default=EngineConfig.hub_threshold,
+                    help="hybrid: in-degree at/above which a vertex is a "
+                         "replicated hub (default: the 95th percentile; inf "
+                         "-> pure edge-cut dataflow, 0 -> pure vertex cut)")
+
+
+def partition_config(args) -> dict:
+    """The EngineConfig fields the partition options set."""
+    return dict(partition_family=args.partition_family,
+                partitioner=args.partitioner, vertex_cut=args.vertex_cut,
+                hub_threshold=args.hub_threshold)
 
 
 def device_of(args) -> torch.device:

@@ -11,6 +11,7 @@ with a later one.  One process per rank (`launch/common.py`): without
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --model gat --device cpu --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --partition-family vertex_cut --vertex-cut libra --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check
@@ -30,6 +31,7 @@ from repro_torch.launch.common import (
     device_of,
     join_group,
     leave_group,
+    partition_config,
 )
 from repro_torch.core.models.gnn import init_gnn_params
 from repro_torch.utils import get_logger
@@ -46,7 +48,7 @@ def build_engine(args, g):
     """The engine on this rank's device; the process group, if any, must
     already be joined (`join_group`)."""
     cfg = EngineConfig(execution=args.exec, model=args.model,
-                       partitioner=args.partitioner,
+                       **partition_config(args),
                        exchange_chunks=args.exchange_chunks,
                        hidden=args.hidden, num_layers=args.layers)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
@@ -108,9 +110,9 @@ def main(argv=None):
         g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003,
                       seed=0)
         eng = build_engine(args, g)
-        log.info("engine: model=%s exec=%s rank %d of k=%d (nb=%d, K=%d) on "
-                 "%s", args.model, args.exec, eng.rank, eng.k, eng.nb, eng.K,
-                 eng.device)
+        log.info("engine: model=%s exec=%s family=%s rank %d of k=%d (nb=%d, "
+                 "K=%d) on %s", args.model, args.exec, args.partition_family,
+                 eng.rank, eng.k, eng.nb, eng.K, eng.device)
         params = init_gnn_params(args.model, eng.dims,
                                  torch.Generator().manual_seed(args.seed),
                                  eng.device)

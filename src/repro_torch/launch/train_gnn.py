@@ -9,6 +9,8 @@ sweep as checks.  One process per rank
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --model gat --device cpu --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --exec ring --protocol epoch_fixed --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family vertex_cut --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family hybrid --model gat --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -28,6 +30,7 @@ from repro_torch.launch.common import (
     device_of,
     join_group,
     leave_group,
+    partition_config,
 )
 from repro_torch.utils import get_logger
 
@@ -45,7 +48,7 @@ def build_engine(args, g):
     """The engine on this rank's device; the process group, if any, must
     already be joined (`join_group`)."""
     cfg = EngineConfig(execution=args.exec, protocol=args.protocol,
-                       model=args.model, partitioner=args.partitioner,
+                       model=args.model, **partition_config(args),
                        exchange_chunks=args.exchange_chunks,
                        hidden=args.hidden, num_layers=args.layers, lr=args.lr)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
@@ -85,10 +88,11 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
                logits=logits)
     for e in range(0, epochs, max(epochs // 4, 1)):
         log.info("epoch %3d loss %.4f (%.1f ms)", e, losses[e], walls[e] * 1e3)
-    log.info("final: train_acc=%.3f test_acc=%.3f (halo bytes %d over %d "
-             "steps; %d boundary rows pushed)", eng.accuracy(logits, "train"),
-             eng.accuracy(logits, "test"), eng.comm_stats.halo_bytes, epochs,
-             sum(pushed))
+    log.info("final: train_acc=%.3f test_acc=%.3f (halo bytes %d, replica "
+             "sync bytes %d over %d steps; %d boundary rows pushed)",
+             eng.accuracy(logits, "train"), eng.accuracy(logits, "test"),
+             eng.comm_stats.halo_bytes, eng.comm_stats.replica_sync_bytes,
+             epochs, sum(pushed))
     if oracle_check:
         ref_losses, _ = eng.train(epochs, reference=True)
         gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
@@ -140,9 +144,10 @@ def main(argv=None):
         g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003,
                       seed=0)
         eng = build_engine(args, g)
-        log.info("engine: model=%s exec=%s protocol=%s rank %d of k=%d "
-                 "(nb=%d, K=%d) on %s", args.model, args.exec, args.protocol,
-                 eng.rank, eng.k, eng.nb, eng.K, eng.device)
+        log.info("engine: model=%s exec=%s protocol=%s family=%s rank %d of "
+                 "k=%d (nb=%d, K=%d) on %s", args.model, args.exec,
+                 args.protocol, args.partition_family, eng.rank, eng.k,
+                 eng.nb, eng.K, eng.device)
         return run_training(eng, args.epochs, oracle_check=args.oracle_check,
                             infer=args.infer)
     finally:

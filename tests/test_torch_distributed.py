@@ -7,8 +7,13 @@ for gcn, sage, gin and gat at exchange_chunks 1 and 2 under the hash and
 range partitioners, the bucketed p2p halo exchange in four configurations
 of model, partitioner, chunks and buckets, the first of them the default
 `EngineConfig()` (p2p, metis_like, one bucket) on both sides, the ring for
-gcn, sage and gat, and the three historical-embedding protocols (broadcast
-gcn epoch_fixed, p2p gat epoch_adaptive, ring gin variation).  From the
+gcn, sage and gat, the three historical-embedding protocols (broadcast
+gcn epoch_fixed, p2p gat epoch_adaptive, ring gin variation), and the
+replica families: the vertex cut in six configurations (the three cuts,
+the three execution models, gin under epoch_fixed, and sorted masters) and the hybrid cut in
+five (p2p over metis_like with two buckets, gat's ring, sage under
+broadcast at chunks 2, and the degenerate thresholds inf, halo only, and
+0, replica sync only).  From the
 reference's own initial weights: the per-step loss, the final logits and
 params, and the sweep within 1e-4 of JAX's and of the port's own reference
 step; under a protocol each layer's gathered history within 1e-4 and the
@@ -61,8 +66,33 @@ CONFIGS += [dict(model=model, chunks=chunks, execution=execution,
                 ("gcn", "broadcast", "epoch_fixed", "hash", 1, 1),
                 ("gat", "p2p", "epoch_adaptive", "range", 2, 2),
                 ("gin", "ring", "variation", "hash", 1, 1))]
+# the replica families: the vertex cut, then the hybrid cut (None: the
+# default hub threshold, the 95th percentile of the in-degree)
+CONFIGS += [dict(family="vertex_cut", vcut=vcut, model=model,
+                 execution=execution, chunks=chunks, buckets=buckets,
+                 protocol=protocol, partitioner="hash")
+            for model, execution, vcut, protocol, chunks, buckets in (
+                ("gcn", "p2p", "cartesian2d", "sync", 1, 1),
+                ("sage", "broadcast", "random", "sync", 2, 1),
+                ("gin", "ring", "libra", "epoch_fixed", 1, 1),
+                ("gat", "p2p", "cartesian2d", "sync", 2, 2),
+                ("gat", "broadcast", "libra", "sync", 1, 1))]
+# sorted masters: each rank's master slots first (the same math)
+CONFIGS += [dict(family="vertex_cut", vcut="random", model="gcn",
+                 execution="p2p", chunks=2, buckets=1, protocol="sync",
+                 partitioner="hash", sorted_masters=True)]
+CONFIGS += [dict(family="hybrid", threshold=threshold, model=model,
+                 execution=execution, chunks=chunks, buckets=buckets,
+                 partitioner=partitioner)
+            for model, execution, partitioner, threshold, chunks, buckets in (
+                ("gcn", "p2p", "metis_like", None, 1, 2),
+                ("gat", "ring", "hash", None, 1, 1),
+                ("sage", "broadcast", "range", None, 2, 1),
+                ("gcn", "p2p", "hash", float("inf"), 1, 1),
+                ("gat", "broadcast", "hash", 0.0, 2, 1))]
 for c in CONFIGS:
     c.setdefault("protocol", "sync")
+    c.setdefault("family", "edge_cut")
 
 
 def _tag(c):
@@ -71,6 +101,11 @@ def _tag(c):
         tag = f"p2p-{tag}-b{c['buckets']}"
     elif c["execution"] == "ring":
         tag = f"ring-{tag}"
+    if c["family"] == "vertex_cut":
+        sort = "-sorted" if c.get("sorted_masters") else ""
+        tag = f"vc-{c['vcut']}{sort}-{tag}"
+    elif c["family"] == "hybrid":
+        tag = f"hy-{c['threshold']}-{tag}"
     return tag if c["protocol"] == "sync" else f"{tag}-{c['protocol']}"
 
 
@@ -96,13 +131,19 @@ for c, tag in zip(configs, tags):
             execution=c["execution"], protocol=c["protocol"],
             partitioner=c["partitioner"], model=c["model"], hidden=hidden,
             num_layers=layers, exchange_chunks=c["chunks"],
-            p2p_buckets=c["buckets"], interpret=True)
+            p2p_buckets=c["buckets"], partition_family=c["family"],
+            vertex_cut=c.get("vcut", "cartesian2d"),
+            hub_threshold=c.get("threshold"),
+            sorted_masters=c.get("sorted_masters", False), interpret=True)
     eng = DistGNNEngine(g, mesh=mesh, cfg=cfg)
     out[f"{{tag}}/config"] = np.array(json.dumps([
         cfg.execution, cfg.partitioner, cfg.model, cfg.exchange_chunks,
         cfg.p2p_buckets]))
-    if cfg.execution == "p2p":
+    if cfg.execution == "p2p" and c["family"] == "edge_cut":
         out[f"{{tag}}/installments"] = np.array(len(eng.playout.p2p_widths))
+    elif cfg.execution == "p2p" and eng.playout._vc_plan:
+        out[f"{{tag}}/installments"] = np.array([
+            eng.playout._vc_plan[key].shape[1] for key in ("send1", "send2")])
     state = eng.init_state()
     init = state["params"]
     step = eng.make_step()
@@ -167,7 +208,11 @@ try:
                 execution="p2p", protocol=c["protocol"],
                 partitioner=c["partitioner"], model=c["model"],
                 exchange_chunks=c["chunks"], p2p_buckets=c["buckets"],
-                hidden=hidden, num_layers=layers)
+                hidden=hidden, num_layers=layers,
+                partition_family=c["family"],
+                vertex_cut=c.get("vcut", "cartesian2d"),
+                hub_threshold=c.get("threshold"),
+                sorted_masters=c.get("sorted_masters", False))
         return DistGNNEngine(g, cfg, device="cpu")
 
     # a protocol run's per-step rows pushed, its ages [L, k] and each
@@ -226,8 +271,23 @@ try:
                    config=np.array(json.dumps([
                        eng.cfg.execution, eng.cfg.partitioner, eng.cfg.model,
                        eng.cfg.exchange_chunks, eng.cfg.p2p_buckets])))
-        if eng.cfg.execution == "p2p":
-            res["installments"] = np.array(len(eng.playout.p2p_widths))
+        lay = eng.playout
+        if c["family"] == "edge_cut":
+            if eng.cfg.execution == "p2p":
+                res["installments"] = np.array(len(lay.p2p_widths))
+        else:
+            # what the collective counts depend on: the flags, p2p's two
+            # sync installments and the halo's
+            plan = lay._vc_plan
+            res["replica"] = np.array(json.dumps(dict(
+                sync=bool(lay.sync_active), halo=bool(lay.halo_active),
+                B1=plan["send1"].shape[1] if "send1" in plan else 0,
+                B2=plan["send2"].shape[1] if "send2" in plan else 0,
+                Bh=len(lay.halo_widths) if getattr(lay, "halo_active", False)
+                and eng.cfg.execution == "p2p" else 0)))
+            if "send1" in plan:
+                res["installments"] = np.array(
+                    [plan[key].shape[1] for key in ("send1", "send2")])
         if eng.cfg.protocol != "sync":
             history(res, "", state, pushed, eng.gather_rows)
             history(res, "ref_", ref_state, ref_pushed)
@@ -240,13 +300,18 @@ try:
 
     joined = False
     for c, tag in zip(configs, tags):
+        family = ["--partition-family", c["family"]]
+        if "vcut" in c:
+            family += ["--vertex-cut", c["vcut"]]
+        if c.get("threshold") is not None:
+            family += ["--hub-threshold", str(c["threshold"])]
         args = train_gnn.parse_args([
             "--device", "cpu", "--world-size", str(world), "--rank",
             str(rank), "--init-method", init_method, "--exec",
             c["execution"], "--protocol", c["protocol"],
             "--partitioner", c["partitioner"], "--model",
             c["model"], "--exchange-chunks", str(c["chunks"]), "--hidden",
-            str(hidden), "--layers", str(layers)])
+            str(hidden), "--layers", str(layers), *family])
         if not joined:
             join_group(args)
             joined = True
@@ -462,10 +527,14 @@ def test_comm_stats_and_collective_counts(runs, i):
                 all_reduce=0)
     for res in runs["ranks"]:
         comm = json.loads(str(res[f"{tag}/0/comm"]))
-        assert comm == jcomm and comm["halo_bytes"] > 0
-        assert comm["inference_bytes"] > 0
+        assert comm == jcomm and comm["inference_bytes"] > 0
+        assert comm["halo_bytes"] > 0 or c["family"] != "edge_cut"
         calls = json.loads(str(res[f"{tag}/0/calls"]))
-        if c["execution"] == "broadcast":
+        if c["family"] != "edge_cut":
+            info = json.loads(str(res[f"{tag}/0/replica"]))
+            _replica_bytes(c, info, comm, res, runs["jax"], tag)
+            steps, sweep = _replica_calls(c, info)
+        elif c["execution"] == "broadcast":
             steps = dict(all_gather=LAYERS * C * STEPS,
                          reduce_scatter=grad_layers * C * STEPS)
             sweep = dict(all_gather=LAYERS * C + 1)
@@ -481,6 +550,76 @@ def test_comm_stats_and_collective_counts(runs, i):
         assert calls["steps"] == {**none, **steps, "all_reduce": STEPS}
         assert calls["sweep"] == {**none, **sweep}
         assert calls["ref"] == none
+
+
+def _replica_bytes(c, info, comm, res, jx, tag):
+    """A replica configuration's wire fields: vertex_cut accrues replica
+    sync bytes only; hybrid halo bytes where it has a halo and replica
+    sync bytes where it has replicas (threshold inf: no replica, its halo
+    the edge-cut p2p halo, the partition's communication volume, as
+    `edge_cut_halo_bytes_per_step`; threshold 0: no halo).  p2p's
+    installments are JAX's."""
+    from repro_torch.core.graph import er_graph
+    from repro_torch.core.partition import cost_models
+    from repro_torch.core.partition.edge_cut import PARTITIONERS
+
+    if c["family"] == "vertex_cut":
+        assert info["sync"] and not info["halo"]
+        assert comm["replica_sync_bytes"] > 0 and comm["halo_bytes"] == 0
+    else:
+        assert (comm["halo_bytes"] > 0) == info["halo"]
+        assert (comm["replica_sync_bytes"] > 0) == info["sync"]
+        if c["threshold"] == float("inf"):
+            assert info["halo"] and not info["sync"]
+            g = er_graph(**GRAPH)
+            part = PARTITIONERS[c["partitioner"]](g, WORLD)
+            dims = [GRAPH["feature_dim"]] + [HIDDEN] * (LAYERS - 1) + [
+                GRAPH["num_classes"]]
+            assert comm["halo_bytes"] == STEPS * (
+                cost_models.edge_cut_halo_bytes_per_step(
+                    g, part, dims, model=c["model"]))
+        elif c["threshold"] == 0.0:
+            assert info["sync"] and not info["halo"]
+        else:
+            assert info["sync"] and info["halo"]
+    if info["B1"]:
+        assert np.array_equal(res[f"{tag}/0/installments"],
+                              jx[f"{tag}/installments"])
+        assert (max(info["B1"], info["B2"]) > 1) == (c["buckets"] > 1)
+
+
+def _replica_calls(c, info):
+    """Collective calls of the STEPS training steps and of one sweep of a
+    replica configuration.  A layer runs the halo exchange (hybrid, where
+    there is one) and the replica combine (where there are replicas):
+    broadcast an all_gather per chunk each, the ring k - 1 rotations each
+    (the halo's per chunk, the combine's unchunked), p2p per chunk an
+    all_to_all per installment (the halo's Bh, the combine's B1 + B2 over
+    its two phases).  gat exchanges Hw's halo unchunked and adds a max
+    combine (unchunked: broadcast one all_gather, the ring k - 1
+    rotations, p2p B1 + B2 all_to_alls) with no backward.  The backward
+    runs each exchange's reverse wherever its table needs a gradient (not
+    layer 0's constant features, but gat's Hw): a reduce-scatter, a
+    reverse rotation or a reverse all_to_all.  Then one all_reduce a step;
+    the sweep adds one all_gather of its output rows."""
+    C, k, L, ex = c["chunks"], WORLD, LAYERS, c["execution"]
+    gat = c["model"] == "gat"
+    key = dict(broadcast="all_gather", ring="ppermute", p2p="all_to_all")[ex]
+    back = dict(broadcast="reduce_scatter", ring="ppermute",
+                p2p="all_to_all")[ex]
+    per_halo = dict(broadcast=1, ring=k - 1, p2p=info["Bh"])[ex]
+    per_sync = dict(broadcast=1, ring=k - 1, p2p=info["B1"] + info["B2"])[ex]
+    halo_n = per_halo * (1 if gat else C) if info["halo"] else 0
+    sync_n = per_sync * (1 if ex == "ring" else C) if info["sync"] else 0
+    max_n = per_sync if info["sync"] and gat else 0
+    fwd = L * (halo_n + sync_n + max_n)
+    bwd = (L if gat else L - 1) * (halo_n + sync_n)
+    steps = {key: fwd * STEPS}
+    steps[back] = steps.get(back, 0) + bwd * STEPS
+    steps["all_reduce"] = STEPS
+    sweep = {key: fwd}
+    sweep["all_gather"] = sweep.get("all_gather", 0) + 1
+    return steps, sweep
 
 
 def test_default_config_is_p2p_metis_like(runs):

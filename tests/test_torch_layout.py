@@ -3,7 +3,11 @@ equal for one seed, every partitioner's assignment and quality metrics
 equal, the bucketing helpers equal, and the vectorised edge-cut layout build
 array-for-array equal to the reference's loop build (labels and loss
 weights included; the p2p plan at 1, 2 and 4 buckets; the ring plan and the
-boundary mask at k = 1, 3 and 4), at k = 1 and k = 4 (numpy build only)."""
+boundary mask at k = 1, 3 and 4), at k = 1 and k = 4 (numpy build only).
+The replica families likewise: the three vertex cuts assignment for
+assignment, the replica layout and the replica-sync plan of every execution
+model array for array, the hybrid layout and its halo tables at four hub
+thresholds, and the vertex-cut and hybrid cost models number for number."""
 import dataclasses
 
 import numpy as np
@@ -19,7 +23,14 @@ from repro.core.graph import er_graph as jer_graph, sbm_graph as jsbm_graph
 from repro.core.partition import cost_models as jcost
 from repro.core.partition import edge_cut as jedge_cut
 from repro.core.partition.edge_cut import PARTITIONERS as JPARTITIONERS
+from repro.core.execution import replica_sync as jreplica_sync
+from repro.core.partition import hybrid_cut as jhybrid_cut
+from repro.core.partition import vertex_cut as jvertex_cut
+from repro.core.partition import vertex_layout as jvertex_layout
 from repro.core.partition.layout_api import EdgeCutLayout as JEdgeCutLayout
+from repro.core.partition.layout_api import (
+    VertexCutFamilyLayout as JVertexCutFamilyLayout,
+)
 from repro_torch import utils
 from repro_torch.configs import gcn_paper
 from repro_torch.core.engine import EngineConfig
@@ -28,7 +39,13 @@ from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.graph import er_graph, sbm_graph
 from repro_torch.core.partition import cost_models, edge_cut
 from repro_torch.core.partition.edge_cut import PARTITIONERS
-from repro_torch.core.partition.layout_api import EdgeCutLayout
+from repro_torch.core.execution import replica_sync
+from repro_torch.core.partition import hybrid_cut, vertex_cut, vertex_layout
+from repro_torch.core.partition.layout_api import (
+    EdgeCutLayout,
+    VertexCutFamilyLayout,
+    get_layout_builder,
+)
 
 GRAPHS = {
     "er": (er_graph, jer_graph,
@@ -226,12 +243,236 @@ def test_ring_layout_and_boundary_mask_equal(name, k, partitioner):
 
 
 def test_layout_for_an_unported_plan_raises():
-    """Only the edge-cut family's layouts are ported; the replica families
-    raise at the builder, naming their slice."""
-    from repro_torch.core.partition.layout_api import get_layout_builder
+    """Every partition family is ported; what the reference refuses the
+    port refuses alike, at the builder: an unknown family, and a replica
+    family under a mini-batch mode (the mini-batch path is item 8)."""
+    with pytest.raises(ValueError, match="unknown partition family"):
+        get_layout_builder("nope")
     for family in ("vertex_cut", "hybrid"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            get_layout_builder(family)
+        builder = get_layout_builder(family)
+        assert builder.family == family
+        with pytest.raises(ValueError, match="full_graph"):
+            builder.validate(EngineConfig(partition_family=family,
+                                          batching="node_wise"))
+
+
+def _equal_arrays(pairs):
+    for name, ours, theirs in pairs:
+        theirs = np.asarray(theirs)
+        assert ours.dtype == theirs.dtype, (name, ours.dtype, theirs.dtype)
+        assert np.array_equal(ours, theirs), name
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("cut", ["random", "cartesian2d", "libra"])
+def test_vertex_cuts_equal(cut, k):
+    """Each vertex cut gives the reference's edge owners and masters for one
+    seed, with the same replica counts and replication factor (libra, a
+    loop over every edge, on the sbm graph only)."""
+    assert sorted(vertex_cut.VERTEX_CUTS) == sorted(jvertex_cut.VERTEX_CUTS)
+    assert vertex_cut.grid_for(k) == jvertex_cut.grid_for(k)
+    for name in (["sbm"] if cut == "libra" else sorted(GRAPHS)):
+        g, jg = _graphs(name)
+        for seed in (0, 3):
+            vc = vertex_cut.VERTEX_CUTS[cut](g, k, seed=seed)
+            jvc = jvertex_cut.VERTEX_CUTS[cut](jg, k, seed=seed)
+            assert vc.num_parts == jvc.num_parts == k
+            _equal_arrays([("edge_owner", vc.edge_owner, jvc.edge_owner),
+                           ("masters", vc.masters, jvc.masters)])
+            for inc in (False, True):
+                _equal_arrays([("replica_counts",
+                                vc.replica_counts(g, include_masters=inc),
+                                jvc.replica_counts(jg, include_masters=inc))])
+            assert vc.replication_factor(g) == jvc.replication_factor(jg)
+    src, dst = vertex_cut.edge_endpoints(g)
+    jsrc, jdst = jvertex_cut.edge_endpoints(jg)
+    _equal_arrays([("src", src, jsrc), ("dst", dst, jdst)])
+    assert np.array_equal(g.out_degree(), jg.out_degree())
+
+
+LAYOUT_FIELDS = ("vert_ids", "slot_of", "master_mask", "rep_count",
+                 "ids_owned", "mask_owned", "deg", "bmask", "X", "y",
+                 "train_w", "test_w", "master_counts")
+
+
+def _same_layout(lay, jlay):
+    assert (lay.k, lay.nv, lay.Kc, lay.Rm, lay.sorted_masters) == (
+        jlay.k, jlay.nv, jlay.Kc, jlay.Rm, jlay.sorted_masters)
+    _equal_arrays([(f, getattr(lay, f), getattr(jlay, f))
+                   for f in LAYOUT_FIELDS])
+    assert lay.replication_factor() == jlay.replication_factor()
+
+
+@pytest.mark.parametrize("sorted_masters", [False, True])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("cut", ["random", "cartesian2d"])
+def test_vertex_layout_equal(cut, k, sorted_masters):
+    for name in sorted(GRAPHS):
+        g, jg = _graphs(name)
+        lay = vertex_layout.build_vertex_layout(
+            g, vertex_cut.VERTEX_CUTS[cut](g, k), k, sorted_masters)
+        jlay = jvertex_layout.build_vertex_layout(
+            jg, jvertex_cut.VERTEX_CUTS[cut](jg, k), k, sorted_masters)
+        _same_layout(lay, jlay)
+
+
+PLAN_KEYS = {"broadcast": ("rep_ids", "rep_mask"), "ring": ("ring_ids",),
+             "p2p": ("send1", "gather_ids", "gather_mask", "send2",
+                     "scatter_ids")}
+
+
+def _same_plan(plan, jplan, execution):
+    """The plan's tables, rows_per_layer and caps equal the reference's;
+    p2p's send masks mark exactly the need entries (rows_per_layer of them
+    over the two phases, no send id on a pad entry)."""
+    assert plan["rows_per_layer"] == jplan["rows_per_layer"]
+    assert plan.get("caps") == jplan.get("caps")
+    _equal_arrays([(key, plan[key], jplan[key])
+                   for key in PLAN_KEYS[execution]])
+    if execution == "p2p":
+        for n in ("1", "2"):
+            send, mask = plan["send" + n], plan[f"send{n}_mask"]
+            assert mask.shape == send.shape
+            assert not send[mask == 0].any()
+        assert (int(plan["send1_mask"].sum() + plan["send2_mask"].sum())
+                == plan["rows_per_layer"])
+
+
+@pytest.mark.parametrize("buckets", [1, 2])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("execution", ["broadcast", "ring", "p2p"])
+def test_replica_sync_plan_equal(execution, k, buckets):
+    """`build_replica_sync_plan` (p2p's lists vectorised) against the
+    reference's loops, for the random and the libra cut (libra on the sbm
+    graph), and with sorted masters."""
+    for name, cut, sm in (("er", "random", False), ("sbm", "libra", False),
+                          ("sbm", "random", True)):
+        g, jg = _graphs(name)
+        vc = vertex_cut.VERTEX_CUTS[cut](g, k)
+        jvc = jvertex_cut.VERTEX_CUTS[cut](jg, k)
+        lay = vertex_layout.build_vertex_layout(g, vc, k, sm)
+        jlay = jvertex_layout.build_vertex_layout(jg, jvc, k, sm)
+        rf, rp = replica_sync._vertex_replica_tables(lay)
+        jrf, jrp = jreplica_sync._vertex_replica_tables(jlay)
+        _equal_arrays([("rep_flat", rf, jrf), ("rep_part", rp, jrp)])
+        plan = replica_sync.build_replica_sync_plan(lay, vc.masters,
+                                                    execution, buckets)
+        jplan = jreplica_sync.build_replica_sync_plan(jlay, jvc.masters,
+                                                      execution, buckets)
+        _same_plan(plan, jplan, execution)
+        if execution == "p2p" and k > 1:
+            assert plan["rows_per_layer"] == 2 * int(
+                np.maximum(lay.rep_count - 1, 0).sum()) > 0
+    with pytest.raises(ValueError, match="execution must be one of"):
+        replica_sync.build_replica_sync_plan(lay, vc.masters, "spmm_1d")
+
+
+@pytest.mark.parametrize("execution", ["broadcast", "ring", "p2p"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_vertex_cut_family_layout_equal(k, execution):
+    """The engine-facing vertex-cut layout: the flattened replica space,
+    the reference ELL, the sync plan's flattened tables, the rank-leading
+    keys, the wire bytes and the master-row embeddings."""
+    g, jg = _graphs("er")
+    for cut, sm in (("cartesian2d", False), ("random", True)):
+        cfg = EngineConfig(partition_family="vertex_cut", vertex_cut=cut,
+                           execution=execution, sorted_masters=sm,
+                           p2p_buckets=2)
+        jcfg = JEngineConfig(partition_family="vertex_cut", vertex_cut=cut,
+                             execution=execution, sorted_masters=sm,
+                             p2p_buckets=2)
+        lay = VertexCutFamilyLayout(g, k, cfg)
+        jlay = JVertexCutFamilyLayout(jg, k, jcfg)
+        assert (lay.nb, lay.nv, lay.Vp, lay.K) == (jlay.nb, jlay.nv, jlay.Vp,
+                                                    jlay.K)
+        assert lay.table_rows == lay.nv + 1
+        assert set(jlay.squeeze_keys) <= set(lay.squeeze_keys)
+        consts, jconsts = lay.exchange_consts(), jlay.exchange_consts()
+        assert set(jconsts) <= set(consts)
+        _equal_arrays([(key, consts[key], jconsts[key]) for key in jconsts]
+                      + [(f, getattr(lay, f), getattr(jlay, f)) for f in (
+                          "ids_global", "mask", "deg", "y", "train_w",
+                          "test_w", "bmask", "ref_vert_ids")]
+                      + [("X", lay.X.numpy(), jlay.X)])
+        assert lay._vc_rows_per_layer == jlay._vc_rows_per_layer
+        for model, dims in (("gcn", [12, 8, 5]), ("gat", [12, 8, 8, 5])):
+            assert (lay.wire_fields_per_step(model, dims)
+                    == jlay.wire_fields_per_step(model, dims))
+        H = np.random.default_rng(0).standard_normal(
+            (lay.Vp, 4)).astype(np.float32)
+        assert np.array_equal(lay.global_embeddings(H),
+                              jlay.global_embeddings(H))
+
+
+HUB_THRESHOLDS = [None, 6.0, np.inf, 0.0]
+
+
+@pytest.mark.parametrize("execution", ["broadcast", "ring", "p2p"])
+@pytest.mark.parametrize("threshold", HUB_THRESHOLDS,
+                         ids=["auto", "six", "inf", "zero"])
+def test_hybrid_layout_equal(threshold, execution):
+    """The hybrid cut and layout at four hub thresholds, 4 parts: the cut,
+    the inner replica layout, the halo need lists, the owned-edge ELL
+    with its halo columns and the reference ELL, the boundary mask, the
+    sync plan, the execution's halo table, the flags, the wire bytes.
+    Threshold inf: no replica, the halo is the edge-cut p2p halo (the
+    partition's communication volume); 0: no halo."""
+    k = 4
+    for name, partitioner, buckets in (("er", "metis_like", 2),
+                                       ("sbm", "hash", 1)):
+        g, jg = _graphs(name)
+        cfg = EngineConfig(partition_family="hybrid", execution=execution,
+                           partitioner=partitioner, hub_threshold=threshold,
+                           p2p_buckets=buckets)
+        jcfg = JEngineConfig(partition_family="hybrid", execution=execution,
+                             partitioner=partitioner,
+                             hub_threshold=threshold, p2p_buckets=buckets)
+        lay = hybrid_cut.HybridLayout(g, k, cfg)
+        jlay = jhybrid_cut.HybridLayout(jg, k, jcfg)
+        cut, jcut = lay.cut, jlay.cut
+        assert cut.threshold == jcut.threshold
+        _equal_arrays([("hub", cut.hub, jcut.hub),
+                       ("masters", cut.masters, jcut.masters),
+                       ("edge_owner", cut.edge_owner, jcut.edge_owner)])
+        _same_layout(lay.layout, jlay.layout)
+        for d in range(k):
+            _equal_arrays([(f"need {d} {s}", lay.halo_need[d][s],
+                            jlay.halo_need[d][s]) for s in range(k)])
+        assert (lay.halo_rows, lay.halo_rows_exec, lay.halo_widths,
+                lay.halo_active, lay.sync_active) == (
+            jlay.halo_rows, jlay.halo_rows_exec, jlay.halo_widths,
+            jlay.halo_active, jlay.sync_active)
+        consts, jconsts = lay.exchange_consts(), jlay.exchange_consts()
+        assert set(jconsts) <= set(consts)
+        assert set(jlay.squeeze_keys) <= set(lay.squeeze_keys)
+        _equal_arrays([(key, consts[key], jconsts[key]) for key in jconsts]
+                      + [(f, getattr(lay, f), getattr(jlay, f)) for f in (
+                          "ids_global", "mask", "deg", "bmask", "train_w")])
+        halo_key = dict(p2p="halo_send", broadcast="halo_src",
+                        ring="halo_ring")[execution]
+        Hbuf = consts[halo_key][0].size if lay.halo_active else 0
+        if execution == "ring" and lay.halo_active:
+            Hbuf = consts[halo_key].shape[-1]
+        assert lay.table_rows == lay.nv + Hbuf + 1
+        if execution == "p2p" and lay.halo_active:
+            assert int(consts["halo_send_mask"].sum()) == lay.halo_rows
+        if threshold == np.inf:
+            assert not lay.sync_active and lay.halo_active
+            assert lay.halo_rows == lay.part.communication_volume(g)
+        if threshold == 0.0:
+            assert lay.sync_active and not lay.halo_active
+        for model, dims in (("gcn", [12, 8, 5]), ("gat", [12, 8, 8, 5])):
+            assert (lay.wire_fields_per_step(model, dims)
+                    == jlay.wire_fields_per_step(model, dims))
+        H = np.random.default_rng(0).standard_normal(
+            (lay.Vp, 4)).astype(np.float32)
+        assert np.array_equal(lay.global_embeddings(H),
+                              jlay.global_embeddings(H))
+    assert hybrid_cut.auto_hub_threshold(g) == jhybrid_cut.auto_hub_threshold(jg)
+    for thr in (-1.0, np.nan):
+        with pytest.raises(ValueError, match="hub_threshold"):
+            hybrid_cut.HybridLayout.validate(
+                EngineConfig(partition_family="hybrid", hub_threshold=thr))
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
@@ -259,6 +500,23 @@ def test_cost_models_equal(execution, k):
                                                       model=model))
     if p2p and k > 1:
         assert ours > 0
+    dims = [16, 8, 3]
+    lay = vertex_layout.build_vertex_layout(
+        g, vertex_cut.VERTEX_CUTS["random"](g, k), k)
+    for model in ("gcn", "gat"):
+        kw = dict(model=model, family="vertex_cut", k=k, nv=lay.nv,
+                  rep_counts=lay.rep_count)
+        assert (cost_models.inference_bytes_per_sweep(execution, dims, **kw)
+                == jcost.inference_bytes_per_sweep(execution, dims, **kw))
+        assert (cost_models.replica_sync_bytes_per_step(
+            lay.rep_count, k, lay.nv, execution, dims, model=model)
+                == jcost.replica_sync_bytes_per_step(
+            lay.rep_count, k, lay.nv, execution, dims, model=model))
+        assert (cost_models.hybrid_exchange_widths(model, [16, 8, 8, 3])
+                == jcost.hybrid_exchange_widths(model, [16, 8, 8, 3]))
+        for halo, sync in ((0, 0), (37, 0), (0, 11), (37, 11)):
+            assert (cost_models.hybrid_bytes_per_step(halo, sync, dims, model)
+                    == jcost.hybrid_bytes_per_step(halo, sync, dims, model))
 
 
 def test_feature_store_update_rows_is_live():

@@ -133,9 +133,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_engine_rejects_what_is_not_ported(case):
     """Each unported axis raises naming its slice; a partition whose part
     count is not the process group's rank count (one rank here: no group)
-    is a caller's error.  Every model, execution model and protocol is
-    ported: the ``model`` case holds layer_wise mini-batch, the
-    ``execution`` case the hybrid family."""
+    is a caller's error.  Every model, execution model, protocol and
+    partition family is ported, so each case holds a mini-batch mode of
+    the edge-cut family (item 8): ``model`` layer_wise, ``execution``
+    subgraph under the ring, ``family`` subgraph under broadcast (the
+    replica families refuse mini-batch with a ValueError, as the
+    reference: `test_torch_replica.py`)."""
     g = er_graph(**GRAPH)
     cfg, partition = EngineConfig(), None
     error, match = NotImplementedError, "slice"
@@ -143,12 +146,14 @@ def test_engine_rejects_what_is_not_ported(case):
         cfg.batching = "layer_wise"
         match = "item 8"
     elif case == "execution":
-        cfg.partition_family = "hybrid"
-        match = "item 7"
+        cfg.execution, cfg.batching = "ring", "subgraph"
+        match = "item 8"
     elif case == "batching":
         cfg.batching = "node_wise"
     elif case == "family":
-        cfg.partition_family = "vertex_cut"
+        cfg.partition_family = "edge_cut"
+        cfg.execution, cfg.batching = "broadcast", "subgraph"
+        match = "item 8"
     else:
         partition = hash_partition(g, 4)
         error, match = ValueError, "4 parts and the process group 1 rank"
