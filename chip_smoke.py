@@ -55,7 +55,25 @@ bitwise equal to the runs without a group).  At one rank the replica
 combine reads one replica a vertex, so each replica phase is also held to
 the same model's edge-cut phase of this run (the family anchor: losses and
 sweep within 1e-4; gcn's bit for bit, gat's not, its stabilizer is floored
-at 0).  Each
+at 0).  Last, the sampled mini-batch step at the same width (MB_SAMPLERS:
+node-wise batch 64 with fanouts 15, 10, 5, layer-wise 4096 a layer,
+subgraph 1024 roots and walks of 4; lr MB_LR): gcn node-wise under p2p
+through `run_epoch_minibatch` (phase `mb_node_p2p`, with the epoch's
+sample, extract and train seconds, and a second `sample_minibatch(0)`
+equal array for array) and one traced step of it (`mb_train_profile`);
+sage, gin and gat over the same batches (`mb_node_sage`, `mb_node_gin`,
+`mb_node_gat`) and gcn in a world-size-1 NCCL group (`nccl_mb_node_p2p`,
+bitwise equal to `mb_node_p2p`, its all_to_all and all_reduce calls
+counted); gcn under broadcast and the ring (`mb_node_broadcast`,
+`mb_node_ring`: two steps each, bitwise equal to `mb_node_p2p`'s first
+two at one rank), layer-wise and subgraph under p2p (`mb_layer_p2p`,
+`mb_subgraph_p2p`); and `serve_gnn`'s path (`mb_serve`: a node-wise
+engine trains, then sweeps, bitwise equal to a full-graph engine's sweep
+of the same params).  Each mini-batch phase runs twice from the same
+state (bitwise equal), each step of the second run beside the reference
+step from the same state (loss and target logits within 1e-4), with the
+ELL forward's launches (p2p's K = 1 send gather, a chunk and an
+installment a step; none in the reference) counted exactly.  Each
 phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
@@ -109,6 +127,22 @@ MODELS = ("gcn", "sage", "gin", "gat")
 # the models and exchange_chunks the world-size-1 NCCL group runs; the ring
 # runs the same models and ignores exchange_chunks
 NCCL_MODELS, NCCL_CHUNKS = ("gcn", "gat"), 2
+# the sampled mini-batch phases: 5 steps (2 for the broadcast and ring
+# phases, held to the p2p phase's first two; 2 training steps before
+# mb_serve's sweep).  Node-wise: DGL's GraphSAGE fan_out 5,10,15 written
+# target layer first, as `fanouts` are, its batch of 1000 cut to 64 (dense
+# padded blocks: caps [67584, 11264, 1024, 64], a first block of
+# 11264 x 67584 fp32, 3.04 GB; at 1000 targets about 740 GB).  Layer-wise:
+# 4096 vertices a layer, batch 512; subgraph: 1024 roots, walks of 4.
+MB_STEPS, MB_BASELINE_STEPS, MB_SERVE_STEPS = 5, 2, 2
+# every model's mini-batch lr: each step draws a new batch, so the loss
+# need not fall; on the CPU at 4096 vertices gat's rose to 136 at lr 1.0
+MB_LR = 0.1
+MB_SAMPLERS = {
+    "node_wise": ["--batch-size", "64", "--fanouts", "15,10,5"],
+    "layer_wise": ["--batch-size", "512", "--layer-sizes", "4096,4096,4096"],
+    "subgraph": ["--batch-size", "1024", "--walk-length", "4"],
+}
 # the historical-embedding protocols, each run with gcn at the p2p phases'
 # settings
 ASYNC_PROTOCOLS = ("epoch_fixed", "epoch_adaptive", "variation")
@@ -1660,6 +1694,349 @@ def profile_phase(phase, fn, kernels, **fields):
          - sum(us for _, (_, us) in top) / 1e3)
 
 
+# ---------------------------------------------------------------------------
+# the sampled mini-batch phases
+# ---------------------------------------------------------------------------
+
+
+def build_mb_engine(g, device, model, execution, batching, group=()):
+    """One mini-batch configuration's engine at full width through the
+    training launcher's options (lr MB_LR, the hash partition, the
+    sampler settings of MB_SAMPLERS), after the earlier engines are
+    released.  Returns (engine, setup seconds)."""
+    from repro_torch.launch import train_gnn
+
+    release()
+    t0 = time.perf_counter()
+    args = train_gnn.parse_args([
+        "--device", str(device), "--exec", execution, "--partitioner", "hash",
+        "--model", model, "--hidden", "256", "--layers", "3", "--lr",
+        str(MB_LR), "--batching", batching, *MB_SAMPLERS[batching], *group])
+    eng = train_gnn.build_engine(args, g)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def mb_phase_name(eng) -> str:
+    """mb_node_<execution> (gcn), mb_node_<model> (p2p), mb_layer_p2p,
+    mb_subgraph_p2p; nccl_ first in a process group."""
+    from repro_torch.core.execution import collectives
+
+    c = eng.cfg
+    short = {"node_wise": "node", "layer_wise": "layer",
+             "subgraph": "subgraph"}[c.batching]
+    tag = c.execution if c.model == "gcn" else c.model
+    name = f"mb_{short}_{tag}"
+    return f"nccl_{name}" if collectives.group_active() else name
+
+
+def mb_launches(eng, steps: int) -> dict:
+    """Kernel launches of `steps` mini-batch steps: p2p's frontier fetch
+    gathers its send rows by the ELL forward at K = 1, one launch a feature
+    chunk and an installment; broadcast and the ring gather by
+    `index_select`, and the dense blocks are cuBLAS products: no kernel.
+    The reference step launches none."""
+    if eng.cfg.execution != "p2p":
+        return {}
+    return dict(ell_spmm=eng.cfg.exchange_chunks * len(eng.fcap_widths)
+                * steps)
+
+
+def mb_calls(eng, steps: int) -> dict:
+    """Collective calls of `steps` mini-batch steps in a process group: per
+    feature chunk an all_gather (broadcast) or an all_to_all an installment
+    (p2p), k - 1 rotations (the ring, none at k = 1), and one all_reduce a
+    step; the fetch has no backward.  The reference calls none."""
+    c = eng.cfg
+    out = dict(all_reduce=steps)
+    if c.execution == "p2p":
+        out["all_to_all"] = c.exchange_chunks * len(eng.fcap_widths) * steps
+    elif c.execution == "broadcast":
+        out["all_gather"] = c.exchange_chunks * steps
+    else:
+        out["ppermute"] = (eng.k - 1) * steps
+    return out
+
+
+def host_rss_gb() -> float:
+    """The process's largest resident set so far, GB (Linux: KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def param_copies(params, keys) -> list:
+    return [{key: p[key].cpu() for key in keys} for p in params["layers"]]
+
+
+def minibatch_phase(eng, setup_s, batches=None, baseline=None,
+                    steps=MB_STEPS, resample=False) -> dict:
+    """A mini-batch phase at full width.  Without ``batches``: the epoch
+    through `run_epoch_minibatch(steps, "conventional")`, which samples,
+    extracts and uploads each batch (the batches are kept for the checks
+    and later phases), with its StageTimes; with ``resample`` a second
+    `sample_minibatch(0)` must equal the first array for array.  With
+    ``batches``: `steps` timed steps of `make_minibatch_step` over them (the
+    batch arrays do not depend on the model).  Kernel launches and, in a
+    group, collective calls counted from 0 around the run (`mb_launches`,
+    `mb_calls`).  Then a second run from the same initial state, timed step
+    by step, with the reference step from the same state on the same batch
+    beside each: bitwise equal to the first run (losses and params), each
+    step's loss and target logits within TOL of the reference's, and the
+    reference launching nothing.  ``baseline``: a phase whose first steps
+    this one must equal bit for bit (losses and params after as many
+    steps).  Returns (result, launches); the result holds the epoch's
+    batches under "batches"."""
+    from repro_torch.core.execution import collectives
+    from repro_torch.core.models.gnn import PARAM_KEYS
+
+    c = eng.cfg
+    keys = PARAM_KEYS[c.model]
+    name = mb_phase_name(eng)
+    group = collectives.group_active()
+    t0 = time.perf_counter()
+    check(eng.k == 1, f"{name}: {eng.k} ranks on one card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' kept batches
+    zero_counts()
+    collectives.zero_calls()
+    stage, walls, captured = None, None, batches is None
+    if captured:
+        made = []
+        make = eng._make_batch
+
+        def capture(mbs):
+            made.append(make(mbs))
+            return made[-1]
+        eng._make_batch = capture
+        try:
+            state, losses, times = eng.run_epoch_minibatch(steps)
+        finally:
+            del eng._make_batch
+        batches = made
+        stage = dict(sample_s=times.sample, extract_s=times.extract,
+                     train_s=times.train, wall_s=times.wall)
+    else:
+        step, state, losses, walls = (eng.make_minibatch_step(),
+                                      eng.init_minibatch_state(), [], [])
+        for b in batches[:steps]:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            state, metrics, _ = step(state, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - s0)
+    launches = read_counts()
+    calls = collectives.read_calls()
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(launches, mb_launches(eng, steps), name)
+    check_calls(calls, mb_calls(eng, steps) if group else {}, name)
+    check(bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
+    comm = dict(pull_bytes=eng.comm_stats.pull_bytes,
+                cache_hit_bytes=eng.comm_stats.cache_hit_bytes)
+    # the second run, with the reference step from the same state beside
+    # each step
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.zero_calls()
+    step, ref_step = eng.make_minibatch_step(), eng.make_reference_minibatch_step()
+    st = eng.init_minibatch_state()
+    again, walls2, gaps, logit_gaps, by_step = [], [], [], [], []
+    for b in batches[:steps]:
+        _, ref_metrics, ref_logits = ref_step(st, b)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        st, metrics, logits = step(st, b)
+        again.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls2.append(time.perf_counter() - s0)
+        gaps.append(abs(again[-1] - float(ref_metrics["loss"])))
+        check(tuple(logits.shape) == tuple(ref_logits.shape)
+              == (1, eng.caps[-1], eng.dims[-1]), f"{name}: logits "
+              f"{tuple(logits.shape)}, reference {tuple(ref_logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{name}: logits")
+        logit_gaps.append(float((logits - ref_logits).abs().max()))
+        by_step.append(param_copies(st["params"], keys))
+        del ref_logits, logits
+    ref_peak = torch.cuda.max_memory_allocated()
+    check_counts(read_counts(), mb_launches(eng, steps),
+                 f"{name} with its reference")
+    check_calls(collectives.read_calls(), mb_calls(eng, steps) if group
+                else {}, f"{name} with its reference")
+    bitwise = again == losses and all(
+        torch.equal(a[key], b[key]) for a, b in
+        zip(state["params"]["layers"], st["params"]["layers"]) for key in keys)
+    check(bitwise, f"{name}: two runs from the same state differ")
+    check(max(gaps) <= TOL and max(logit_gaps) <= TOL,
+          f"{name}: step vs reference step: loss gaps {gaps}, logits "
+          f"{logit_gaps} > {TOL}")
+    extra = dict(stage or {})
+    if resample:
+        zero_counts()
+        s0 = time.perf_counter()
+        resampled = eng.sample_minibatch(0)["arrays"]
+        extra["resample_s"] = time.perf_counter() - s0
+        first = batches[0]["arrays"]
+        check(resampled.keys() == first.keys() and all(
+            np.array_equal(resampled[key], first[key]) for key in first),
+            f"{name}: a second sample_minibatch(0) differs")
+        check_counts(read_counts(), {}, f"{name} sampling")
+        extra["resample_equal"] = True
+        del resampled
+    median_s = float(np.median(walls2))
+    result = dict(losses=losses, params=by_step[-1], by_step=by_step,
+                  median_ms=median_s * 1e3)
+    if captured:  # kept for later phases only when asked for
+        result["batches"] = batches
+    if baseline is not None:
+        n = len(losses)
+        same = (losses == baseline["losses"][:n] and all(
+            torch.equal(a[key], b[key]) for a, b in
+            zip(result["params"], baseline["by_step"][n - 1]) for key in a))
+        check(same, f"{name}: differs from {baseline['name']}'s first {n} "
+              "steps")
+        extra.update({f"bitwise_equal_to_{baseline['name']}": True,
+                      f"{baseline['name']}_median_ms": baseline["median_ms"]})
+    result["name"] = name
+    arrays = batches[0]["arrays"]
+    emit(name, model=c.model, execution=c.execution, batching=c.batching,
+         exchange_chunks=c.exchange_chunks, vertices=eng.g.num_vertices,
+         dims=eng.dims, lr=c.lr, batch_size=c.batch_size,
+         fanouts=list(c.fanouts), layer_sizes=list(c.layer_sizes),
+         walk_length=c.walk_length, caps=list(eng.caps), fcap=eng.fcap,
+         fcap_widths=eng.fcap_widths, steps=steps,
+         frontier_occupancy=int((arrays["frontier"] < eng.Vp).sum()),
+         first_block_bytes=int(arrays["adj0"][0].nbytes),
+         losses=losses, ref_loss_gaps=gaps, ref_logit_gaps=logit_gaps,
+         oracle_tol=TOL, walls_ms=None if walls is None else
+         [w * 1e3 for w in walls], walls_second_run_ms=[w * 1e3 for w in walls2],
+         median_step_ms=median_s * 1e3, launches=launches,
+         collective_calls=calls, bitwise_equal_runs=bitwise,
+         max_memory_allocated=peak,
+         max_memory_allocated_with_reference=ref_peak,
+         memory_allocated_at_start=held, host_max_rss_gb=host_rss_gb(),
+         setup_s=setup_s, **comm,
+         seconds=time.perf_counter() - t0, **extra)
+    return result, launches
+
+
+def mb_serve_phase(g, device):
+    """`serve_gnn`'s path at full width: a node_wise engine (the sampler
+    settings of the node-wise phases; serve's own lr and cache) trains
+    MB_SERVE_STEPS steps through `serve_gnn.train_params`, then one
+    layer-wise sweep of the trained params through `serve_gnn.run_sweep`,
+    its launches counted; the same sweep on a full-graph engine
+    (`build_engine`, p2p) must give the same bits."""
+    from repro_torch.launch import serve_gnn
+
+    release()
+    t0 = time.perf_counter()
+    args = serve_gnn.parse_args([
+        "--device", str(device), "--exec", "p2p", "--partitioner", "hash",
+        "--hidden", "256", "--layers", "3", "--train-steps",
+        str(MB_SERVE_STEPS), *MB_SAMPLERS["node_wise"]])
+    eng = serve_gnn.build_engine(args, g)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_counts()
+    trained = serve_gnn.train_params(eng, args.train_steps)
+    train_launches = read_counts()
+    check_counts(train_launches, mb_launches(eng, args.train_steps),
+                 "mb_serve training")
+    params = trained["params"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    emb, wall = serve_gnn.run_sweep(eng, params)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = len(eng.dims) - 1
+    B = len(eng.playout.p2p_widths)
+    want = dict(ell_spmm=L * eng.cfg.exchange_chunks * (1 + B))
+    check_counts(launches, want, "mb_serve sweep")
+    check(emb.shape == (g.num_vertices, eng.dims[-1])
+          and bool(np.isfinite(emb).all()), f"mb_serve sweep {emb.shape}")
+    full, full_setup_s = build_engine(g, eng.cfg.exchange_chunks, device,
+                                      "gcn", execution="p2p")
+    full_emb, full_wall = serve_gnn.run_sweep(full, params)
+    check(np.array_equal(emb, full_emb),
+          "mb_serve: the mini-batch engine's sweep differs from the "
+          "full-graph engine's")
+    emit("mb_serve", model=eng.cfg.model, execution=eng.cfg.execution,
+         batching=eng.cfg.batching, cache=eng.cfg.cache_policy,
+         cache_capacity=eng.cfg.cache_capacity, lr=eng.cfg.lr,
+         train_steps=args.train_steps, losses=trained["losses"],
+         train_launches=train_launches, sweep_ms=wall * 1e3,
+         full_graph_sweep_ms=full_wall * 1e3, launches=launches,
+         bitwise_equal_to_full_graph_sweep=True, max_memory_allocated=peak,
+         setup_s=setup_s, full_graph_setup_s=full_setup_s,
+         seconds=time.perf_counter() - t0)
+    add = dict(train_launches)
+    add_counts(add, launches)
+    return add
+
+
+def minibatch_phases(g, device) -> dict:
+    """Every mini-batch phase; returns their kernel launches.  gcn node-wise
+    under p2p first (`mb_node_p2p`, the epoch, its batches kept) and one
+    traced step of it (`mb_train_profile`); sage, gin and gat over the same
+    batches; the same in a world-size-1 NCCL group (`nccl_mb_node_p2p`,
+    bitwise equal to `mb_node_p2p`); then, the batches released, gcn
+    node-wise under broadcast and the ring (two steps each, bitwise equal
+    to `mb_node_p2p`'s first two at one rank), layer-wise and subgraph
+    under p2p, and `mb_serve`."""
+    from repro_torch.launch import train_gnn
+    from repro_torch.launch.common import join_group, leave_group
+
+    total = {}
+    eng, setup_s = build_mb_engine(g, device, "gcn", "p2p", "node_wise")
+    node, n = minibatch_phase(eng, setup_s, resample=True)
+    add_counts(total, n)
+    batches = node.pop("batches")
+    step, state = eng.make_minibatch_step(), eng.init_minibatch_state()
+    profile_phase("mb_train_profile", lambda: step(state, batches[0]),
+                  {"ell_spmm_kernel": mb_launches(eng, 1)["ell_spmm"]},
+                  model="gcn", batching="node_wise", execution="p2p",
+                  exchange_chunks=eng.cfg.exchange_chunks)
+    del eng, step, state
+    for model in ("sage", "gin", "gat"):
+        eng, setup_s = build_mb_engine(g, device, model, "p2p", "node_wise")
+        _, n = minibatch_phase(eng, setup_s, batches=batches)
+        add_counts(total, n)
+        del eng
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_mb_")
+    group = ["--world-size", "1", "--rank", "0", "--init-method",
+             f"file://{rendezvous}/rendezvous"]
+    group_args = train_gnn.parse_args(["--device", str(device), *group])
+    join_group(group_args)
+    try:
+        eng, setup_s = build_mb_engine(g, device, "gcn", "p2p", "node_wise",
+                                       group)
+        _, n = minibatch_phase(eng, setup_s, batches=batches, baseline=node)
+        add_counts(total, n)
+        del eng
+    finally:
+        release()
+        leave_group(group_args)
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    del batches
+    for execution in ("broadcast", "ring"):
+        eng, setup_s = build_mb_engine(g, device, "gcn", execution,
+                                       "node_wise")
+        res, n = minibatch_phase(eng, setup_s, baseline=node,
+                                 steps=MB_BASELINE_STEPS)
+        add_counts(total, n)
+        del eng, res  # and the phase's batches with it
+    for batching in ("layer_wise", "subgraph"):
+        eng, setup_s = build_mb_engine(g, device, "gcn", "p2p", batching)
+        res, n = minibatch_phase(eng, setup_s, resample=True)
+        add_counts(total, n)
+        del eng, res
+    add_counts(total, mb_serve_phase(g, device))
+    release()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jsonl", help="also append every phase line to this file")
@@ -1844,6 +2221,9 @@ def main(argv=None) -> int:
         release()
         leave_group(group_args)
         shutil.rmtree(rendezvous, ignore_errors=True)
+    # the sampled mini-batch step at the same width, after the full-graph
+    # phases: its kept batches would count in their peaks
+    add_counts(launches, minibatch_phases(g, device))
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 

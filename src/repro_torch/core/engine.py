@@ -40,14 +40,34 @@ scatter-adds every replica's partial into the global vertex space
 (`replica_sync.reference_combine`, `reference_combine_max` for gat's
 stabilizer) and gathers back.  The loss weights live on the master slots.
 
+The sampled mini-batch path (batching node_wise, layer_wise, subgraph; the
+edge-cut family): every rank samples and extracts the whole padded batch
+on the host (`sampling/host_batch.py`, deterministic in (seed, step,
+rank)) and uploads its own slice; `_fetch_frontier` reads the frontier's
+input features under no gradient, the resident cache's rows plus the
+misses through the execution model (an all_gather a feature chunk under
+broadcast; under p2p the bucketed all_to_all of the batch's send rows, a
+chunk and an installment at a time, each installment's gather the ELL
+forward kernel at K = 1; exactly k - 1 rotations of the ring); then the
+model runs over the dense padded blocks (`models/gnn.py`
+`padded_minibatch_forward`, fp32 products) under autograd, and the loss
+numerator, the loss weights and the gradients are summed over the ranks
+in one all_reduce.  `make_reference_minibatch_step` runs every rank's
+block of the same batch on every rank, features read straight from the
+global table, with no collective.
+
 Ported: models gcn, sage, gat and gin, partition families edge_cut (every
 partitioner), vertex_cut (random, cartesian2d, libra) and hybrid (any
 hub_threshold, over any partitioner), execution p2p (the default, as in
-the reference), broadcast and ring, batching full_graph, protocols sync,
-epoch_fixed, epoch_adaptive and variation, on any number of ranks.  The
-ranks are the process group's (`execution/collectives.py`); without one
-the engine runs on one rank.
-Everything else raises NotImplementedError naming the slice it waits for.
+the reference), broadcast and ring, batching full_graph, node_wise,
+layer_wise and subgraph (edge cut; the replica families refuse mini-batch
+with a ValueError, as the reference does), the static feature cache
+policies, the conventional, factored and operator_parallel schedules,
+protocols sync, epoch_fixed, epoch_adaptive and variation (full graph), on
+any number of ranks.  The ranks are the process group's
+(`execution/collectives.py`); without one the engine runs on one rank.
+Everything else raises NotImplementedError naming the slice it waits for
+(trainable features, item 10; the pipelined schedules, item 8b).
 Telemetry arrives with its own slice.
 """
 from __future__ import annotations
@@ -59,7 +79,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.execution import collectives
+from repro_torch.core.execution.bucketing import bucketed_cap_widths
 from repro_torch.core.execution.exchange_api import make_backend
+from repro_torch.core.execution.minibatch_pipeline import SCHEDULES
+from repro_torch.core.execution.pipeline_exchange import (
+    bucketed_all_to_all,
+    chunked_overlap,
+    ring_blocks,
+    zero_pad_row,
+)
 from repro_torch.core.execution.replica_sync import (
     reference_combine,
     reference_combine_max,
@@ -69,12 +97,17 @@ from repro_torch.core.models.gnn import (
     PARAM_KEYS,
     accuracy,
     init_gnn_params,
+    padded_minibatch_forward,
     softmax_xent,
 )
 from repro_torch.core.partition.edge_cut import Partition
 from repro_torch.core.partition.layout_api import get_layout_builder
 from repro_torch.core.protocols.async_hist import block_refresh
+from repro_torch.core.sampling.cache import CACHE_POLICIES, device_cache_ids
 from repro_torch.core.sampling.distributed import CommStats
+from repro_torch.core.sampling.host_batch import HostBatchBuilder
+from repro_torch.core.sampling.partition_batch import p2p_frontier_halo_cap
+from repro_torch.core.sampling.samplers import frontier_caps
 from repro_torch.kernels.ops import (
     ell_attend,
     ell_spmm,
@@ -86,6 +119,7 @@ GNN_MODELS = ("gcn", "sage", "gat", "gin")
 PROTOCOLS = ("sync", "epoch_fixed", "epoch_adaptive", "variation")
 BATCHING_MODES = ("full_graph", "node_wise", "layer_wise", "subgraph")
 PARTITION_FAMILIES = ("edge_cut", "vertex_cut", "hybrid")
+ENGINE_CACHE_POLICIES = ("none",) + tuple(CACHE_POLICIES)
 
 # layout attributes the engine mirrors, so callers keep reading eng.<attr>
 ENGINE_MIRROR_ATTRS = ("nb", "Vp", "K", "ids_global", "store", "y",
@@ -105,9 +139,19 @@ class EngineConfig:
     #   edge-cut dataflow, 0 = pure (src-replicating) vertex cut
     sorted_masters: bool = False  # vertex_cut: master slots first per rank
     batching: str = "full_graph"  # full_graph | node_wise | layer_wise | subgraph
+    batch_size: int = 16  # per-rank targets (node/layer-wise) or walk roots
+    fanouts: Tuple[int, ...] = (4, 4)  # node_wise, target layer first;
+    #   len == num_layers
+    layer_sizes: Tuple[int, ...] = (32, 32)  # layer_wise; len == num_layers
+    walk_length: int = 4  # subgraph random walk
+    cache_policy: str = "none"  # none | any key of sampling CACHE_POLICIES
+    cache_capacity: int = 0  # remote feature rows resident per rank
     exchange_chunks: int = 1  # feature-dim chunks of the exchange
     p2p_buckets: int = 1  # power-of-two installments splitting the p2p
-    #   all_to_all send caps (1 = single max-pairwise-need buffer)
+    #   all_to_all send caps (1 = single max-pairwise-need buffer); the
+    #   full-graph halo plan and the mini-batch frontier fetch alike
+    trainable_features: bool = False  # layer-0 rows as learnable
+    #   embeddings: not ported (item 10)
     hidden: int = 32
     num_layers: int = 2
     lr: float = 0.5  # SGD step of the training step
@@ -209,17 +253,30 @@ class DistGNNEngine:
                 f"partition_family must be one of {PARTITION_FAMILIES}")
         if cfg.protocol not in PROTOCOLS:
             raise ValueError(f"protocol must be one of {PROTOCOLS}")
+        if cfg.cache_policy not in ENGINE_CACHE_POLICIES:
+            raise ValueError(
+                f"cache_policy must be one of {ENGINE_CACHE_POLICIES}")
+        if cfg.batching != "full_graph" and cfg.protocol != "sync":
+            raise ValueError(
+                "mini-batch training supports protocol='sync' only: the "
+                "historical-embedding protocols are full-graph state")
+        if cfg.trainable_features and cfg.protocol != "sync":
+            raise ValueError(
+                "trainable_features requires protocol='sync': the "
+                "historical-embedding protocols cache layer outputs of a "
+                "FROZEN layer-0 table")
         if cfg.exchange_chunks < 1:
             raise ValueError("exchange_chunks must be >= 1")
         if cfg.p2p_buckets < 1:
             raise ValueError("p2p_buckets must be >= 1")
         builder = get_layout_builder(cfg.partition_family)
         builder.validate(cfg, partition=partition)
-        if cfg.batching != "full_graph":
+        if cfg.trainable_features:
             raise NotImplementedError(
-                f"batching={cfg.batching!r}: only full_graph is ported; the "
-                "sampled mini-batch path arrives with its own slice (ROADMAP "
-                "queue 1 item 8)")
+                "trainable_features=True: layer-0 rows as learnable "
+                "embeddings (the row-sparse AdamW, the fetch inside the "
+                "gradient) arrive with their own slice (ROADMAP queue 1 "
+                "item 10)")
         self.k = collectives.world_size()
         if partition is not None and partition.num_parts != self.k:
             raise ValueError(
@@ -276,7 +333,11 @@ class DistGNNEngine:
         self._infer_step = None
         self._step = None
         self._ref_step = None
+        self._mb_step = None
+        self._mb_ref_step = None
         self.comm_stats = CommStats()
+        if cfg.batching != "full_graph":
+            self._build_minibatch_plan()
 
     # ------------------------------------------------------------------
     # shared layer math
@@ -662,6 +723,337 @@ class DistGNNEngine:
             return collectives.all_gather_rows(H.contiguous())()
 
     # ------------------------------------------------------------------
+    # the sampled mini-batch path (§5 batch generation)
+    # ------------------------------------------------------------------
+
+    def _build_minibatch_plan(self):
+        """Static mini-batch plan: the frontier caps of the sampler config
+        (every batch's shapes), the p2p frontier halo cap and its
+        installments, and the per-rank resident feature cache (remote hot
+        rows a cache policy picks; exact, never stale, while the input
+        features are frozen), then the host batch builder."""
+        c, g, k = self.cfg, self.g, self.k
+        L = c.num_layers
+        part, new_of_old = self.playout.part, self.playout.new_of_old
+        self.caps = frontier_caps(
+            c.batching, L, c.batch_size, fanouts=c.fanouts,
+            layer_sizes=c.layer_sizes, walk_length=c.walk_length,
+            num_vertices=g.num_vertices)
+        # p2p halo slots per (dst, src) pair: bounded by the measured halo,
+        # the largest single-owner share of any destination's hops-hop
+        # in-neighborhood, not by the worst case caps[0]; row t of a pair's
+        # need list lands in installment t // w at offset t % w, so the
+        # installments' shapes never change across batches
+        self.fcap, self.fcap_widths = self.caps[0], None
+        if c.execution == "p2p":
+            hops = c.walk_length if c.batching == "subgraph" else c.num_layers
+            self.fcap = p2p_frontier_halo_cap(g, part, hops, self.caps[0])
+            self.fcap_widths = bucketed_cap_widths(self.fcap, c.p2p_buckets)
+        Ccap = max(int(c.cache_capacity), 1)
+        cache_ids = [device_cache_ids(g, part.assignment, d, c.cache_policy,
+                                      c.cache_capacity) for d in range(k)]
+        cache_slots = [{int(v): j for j, v in enumerate(ids_d)}
+                       for ids_d in cache_ids]
+        cache_sets = [frozenset(int(v) for v in ids_d) for ids_d in cache_ids]
+        # the cache is a hot-row overlay on the feature store: a snapshot
+        # of each rank's pinned remote rows; this rank keeps its own
+        # [Ccap, D] table and a zero row (the misses' and pads' slot)
+        self.store.attach_overlay(
+            [new_of_old[ids_d].astype(np.int64) for ids_d in cache_ids], Ccap)
+        cache = torch.from_numpy(self.store.overlay_table()[self.rank])
+        self._cache_table = torch.cat(
+            [cache, zero_pad_row(cache)], 0).to(self.device)
+        self.host_builder = HostBatchBuilder(
+            batching=c.batching, execution=c.execution, seed=c.seed,
+            batch_size=c.batch_size, fanouts=tuple(c.fanouts),
+            layer_sizes=tuple(c.layer_sizes), walk_length=c.walk_length,
+            num_layers=L, k=k, nb=self.nb,
+            caps=tuple(int(x) for x in self.caps), fcap=int(self.fcap),
+            fcap_widths=(None if self.fcap_widths is None
+                         else tuple(int(x) for x in self.fcap_widths)),
+            Ccap=Ccap, feature_dim=g.features.shape[1],
+            assignment=part.assignment, new_of_old=new_of_old,
+            labels=np.asarray(g.labels),
+            train_mask=(None if g.train_mask is None
+                        else np.asarray(g.train_mask)),
+            cache_slots=cache_slots, cache_sets=cache_sets, graph=g)
+
+    def _sample_host(self, step_idx: int):
+        """Host sampling stage (`HostBatchBuilder.sample`): every rank's
+        MiniBatch, deterministic in (seed, step, rank)."""
+        return self.host_builder.sample(step_idx)
+
+    def _make_batch(self, mbs) -> Dict:
+        """Extract stage: the builder pads, relabels and builds the fetch
+        plan in numpy; `_finish_batch` takes the result in."""
+        return self._finish_batch(*self.host_builder.extract(mbs))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _upload_block(self, arrays, b: int) -> Dict:
+        """Block b of a host batch on the engine's device: the frontier
+        (new ids, pad Vp), the loss labels and weights, the dense blocks
+        and self indices, the cache slots."""
+        L = self.cfg.num_layers
+        return dict(
+            frontier=self._upload(arrays["frontier"][b]).long(),
+            y=self._upload(arrays["y"][b]).long(),
+            w=self._upload(arrays["w"][b]),
+            adj=tuple(self._upload(arrays[f"adj{l}"][b]) for l in range(L)),
+            self_idx=tuple(self._upload(arrays[f"self_idx{l}"][b]).long()
+                           for l in range(L)),
+            cache_ids=self._upload(arrays["cache_ids"][b]).long())
+
+    def _finish_batch(self, arrays, meta) -> Dict:
+        """Take one extracted batch in: every rank's CommStats byte deltas
+        are applied (so every rank's counters equal the reference's
+        single-host ones), and this rank's slice goes to the device, with
+        its fetch plan (broadcast: the ids into the gathered table; ring:
+        the ids into each owner's block; p2p: the send installments as
+        K = 1 ELLs, whose pad entries ship row 0 as the reference's do,
+        and the ids into [own rows | halo rows | zero row]).  The host
+        arrays stay in the batch: the reference step reads every rank's
+        block."""
+        for dd in meta["per_device"]:
+            for name, dv in dd["stats"].items():
+                setattr(self.comm_stats, name,
+                        getattr(self.comm_stats, name) + dv)
+        r = self.rank
+        batch = self._upload_block(arrays, r)
+        ex = self.cfg.execution
+        if ex == "broadcast":
+            batch["bc_ids"] = self._upload(arrays["bc_ids"][r]).long()
+        elif ex == "ring":
+            batch["ring_ids"] = self._upload(arrays["ring_ids"][r]).long()
+        else:
+            send = []
+            for ids in arrays["send_rows"][r]:  # [k, w] an installment
+                ids = self._upload(ids.reshape(-1, 1))
+                send.append((ids, torch.ones(ids.shape, dtype=torch.float32,
+                                             device=self.device), None))
+            batch["send"] = send
+            batch["tab_ids"] = self._upload(arrays["tab_ids"][r]).long()
+        batch["arrays"] = arrays
+        return batch
+
+    def sample_minibatch(self, step_idx: int) -> Dict:
+        """sample + extract: one static-shape batch for `step_idx`, this
+        rank's slice on the device."""
+        return self._make_batch(self._sample_host(step_idx))
+
+    def _check_minibatch_runnable(self):
+        """Validate the config once at epoch entry: a config mutated after
+        construction would otherwise fail deep inside the step."""
+        c = self.cfg
+        if c.batching == "full_graph":
+            raise ValueError(
+                "batching='full_graph' has no mini-batch epoch; use train() "
+                "/ make_step(), or rebuild the engine with a sampled "
+                "batching mode (node_wise | layer_wise | subgraph)")
+        if c.protocol != "sync":
+            raise ValueError(
+                f"mini-batch training supports protocol='sync' only, but "
+                f"this engine's config now has protocol={c.protocol!r} "
+                f"(changed after construction?); rebuild the engine with "
+                f"protocol='sync', or use batching='full_graph' to train "
+                f"with {c.protocol!r}.")
+
+    def init_minibatch_state(self, params: Optional[Dict] = None) -> Dict:
+        """The mini-batch training state ``{params, step}``: ``params``
+        drawn with `init_gnn_params` from a generator seeded with
+        ``cfg.seed`` unless given (a carry-over)."""
+        if params is None:
+            params = init_gnn_params(
+                self.cfg.model, self.dims,
+                torch.Generator().manual_seed(self.cfg.seed), self.device)
+        return dict(params=params, step=0)
+
+    def _fetch_frontier(self, X_local: torch.Tensor, bl: Dict) -> torch.Tensor:
+        """The input features of this rank's frontier, [cap0, D], outside
+        the gradient (the features are frozen): the resident cache's rows
+        plus the misses through the execution model.  Every valid frontier
+        slot is covered by exactly one of the two (the other reads a zero
+        row), so the sum is exact.  broadcast and p2p are feature-chunked
+        (chunk c+1's collective issued before chunk c is gathered); the
+        ring rotates this rank's rows (and their zero row) exactly k - 1
+        times, round r gathering owner (rank + r) % k's rows.  Every gather
+        is an `index_select`: nothing here has a backward."""
+        c = self.cfg
+        with torch.no_grad():
+            F = torch.index_select(self._cache_table, 0, bl["cache_ids"])
+            if c.execution == "ring":
+                tab0 = torch.cat([X_local, zero_pad_row(X_local)], 0)
+                for owner, blk in ring_blocks(tab0, self.k, self.rank):
+                    F = F + torch.index_select(blk, 0, bl["ring_ids"][owner])
+                return F
+            if c.execution == "broadcast":
+                ids = bl["bc_ids"]
+                if collectives.group_active():
+                    def exchange(hc):
+                        gathered = collectives.all_gather_rows(hc.contiguous())
+                        return lambda: torch.cat(
+                            [gathered(), zero_pad_row(hc)], 0)
+                else:
+                    def exchange(hc):
+                        return lambda: torch.cat([hc, zero_pad_row(hc)], 0)
+            else:
+                ids, send = bl["tab_ids"], bl["send"]
+
+                def exchange(hc):
+                    hc = hc.contiguous()
+                    recv = bucketed_all_to_all(hc, send)
+                    return lambda: torch.cat([hc, recv(), zero_pad_row(hc)],
+                                             0)
+            return F + chunked_overlap(
+                X_local, c.exchange_chunks, exchange,
+                lambda tab: torch.index_select(tab, 0, ids))
+
+    def _numerator(self, params, bl, F):
+        """The block's forward and its loss numerator sum((lse - ll) * w);
+        returns (numerator, logits [cap_L, C])."""
+        logits = padded_minibatch_forward(
+            params, bl["adj"], F, model=self.cfg.model,
+            self_idx=bl["self_idx"])
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, bl["y"][:, None])[:, 0]
+        return ((lse - ll) * bl["w"]).sum(), logits
+
+    def make_minibatch_step(self):
+        """The mini-batch step: (state, batch) -> (state, {"loss"}, this
+        rank's target logits [1, cap_L, C]).  The frontier fetch runs
+        outside the gradient; the forward over the dense blocks runs under
+        autograd on this rank's loss numerator; the numerator, the sum of
+        the loss weights and every gradient (`PARAM_KEYS` order) are then
+        summed over the ranks in one flat all_reduce and divided by
+        den = max(sum of the weights, 1), as in the reference, before SGD.
+        Without a process group the sums are the local values."""
+        if self._mb_step is not None:
+            return self._mb_step
+        if self.cfg.batching == "full_graph":
+            raise ValueError("batching='full_graph' has no mini-batch step; "
+                             "use make_step()")
+        lr = self.cfg.lr
+        keys = PARAM_KEYS[self.cfg.model]
+
+        def step(state, batch):
+            F = self._fetch_frontier(self.store.device_table(), batch)
+            leaves = [p.detach().requires_grad_() for p in
+                      _leaves(state["params"], keys)]
+            with torch.enable_grad():
+                num, logits = self._numerator(_from_leaves(leaves, keys),
+                                              batch, F)
+                grads = torch.autograd.grad(num, leaves)
+            with torch.no_grad():
+                w_sum = batch["w"].sum()
+                num = num.detach()
+                if collectives.group_active():
+                    num, w_sum, *grads = collectives.all_reduce_flat(
+                        [num, w_sum, *grads])
+                den = torch.clamp(w_sum, min=1.0)
+                loss = num / den
+                params2 = _from_leaves([p - lr * (g / den)
+                                        for p, g in zip(leaves, grads)], keys)
+            return (dict(params=params2, step=state["step"] + 1),
+                    dict(loss=loss), logits.detach()[None])
+
+        self._mb_step = step
+        return step
+
+    def make_reference_minibatch_step(self):
+        """The single-device oracle of the mini-batch step: the same batch,
+        every rank's block in turn (uploaded from the batch's host arrays;
+        this rank's is already on the device), features read straight from
+        the global table by frontier id (pads read its zero row), the loss
+        over all k blocks, SGD; no collective.  Returns the target logits
+        of every block, [k, cap_L, C]."""
+        if self._mb_ref_step is not None:
+            return self._mb_ref_step
+        lr = self.cfg.lr
+        keys = PARAM_KEYS[self.cfg.model]
+        X = self._global_features()
+        table0 = torch.cat([X, zero_pad_row(X)], 0)
+
+        def ref_step(state, batch):
+            blocks = [batch if b == self.rank
+                      else self._upload_block(batch["arrays"], b)
+                      for b in range(self.k)]
+            leaves = [p.detach().requires_grad_() for p in
+                      _leaves(state["params"], keys)]
+            with torch.enable_grad():
+                params = _from_leaves(leaves, keys)
+                nums, logits = zip(*[
+                    self._numerator(params, bl, torch.index_select(
+                        table0, 0, bl["frontier"])) for bl in blocks])
+                w_sum = sum(bl["w"].sum() for bl in blocks)
+                loss = sum(nums) / torch.clamp(w_sum, min=1.0)
+                grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                params2 = _from_leaves([p - lr * g
+                                        for p, g in zip(leaves, grads)], keys)
+            return (dict(params=params2, step=state["step"] + 1),
+                    dict(loss=loss.detach()),
+                    torch.stack([t.detach() for t in logits]))
+
+        self._mb_ref_step = ref_step
+        return ref_step
+
+    def run_epoch_minibatch(self, num_batches: int,
+                            schedule: str = "conventional", state=None,
+                            reference: bool = False):
+        """Drive the §6.1 blocking mini-batch schedules (conventional,
+        factored, operator_parallel) with the engine's real stages: host
+        sampling, padded-batch extraction (the fetch plan and this rank's
+        upload) and the training step.  Returns (state, losses,
+        StageTimes).  Batches are deterministic in (seed, step, rank), so
+        every schedule gives the same losses.  A fresh run (state=None)
+        resets CommStats, as `train` does; a state passed in continues
+        accumulating."""
+        self._check_minibatch_runnable()
+        if schedule == "pipelined":
+            raise NotImplementedError(
+                "schedule='pipelined' (the prefetch thread and the sampling "
+                "process pool) arrives with its own slice (ROADMAP queue 1 "
+                "item 8b)")
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {tuple(SCHEDULES)} "
+                             f"or 'pipelined'; got {schedule!r}")
+        step = (self.make_reference_minibatch_step() if reference
+                else self.make_minibatch_step())
+        if state is None:
+            self.comm_stats.reset()
+        holder = dict(state=state if state is not None
+                      else self.init_minibatch_state())
+        losses: List[float] = []
+
+        def train_fn(mbs, batch):
+            holder["state"], metrics, _ = step(holder["state"], batch)
+            losses.append(float(metrics["loss"]))
+
+        times = SCHEDULES[schedule](list(range(num_batches)),
+                                    self._sample_host, self._make_batch,
+                                    train_fn)
+        return holder["state"], losses, times
+
+    def minibatch_accuracy(self, logits: torch.Tensor, batch) -> float:
+        """Accuracy over the batch's weighted (owned train) targets of
+        every rank.  ``logits`` [1, cap_L, C], this rank's (the step's):
+        the counts are summed over the ranks in one all_reduce; or
+        [k, cap_L, C], every rank's (`train`, the reference step), against
+        the batch's host labels and weights."""
+        if logits.shape[0] == 1:
+            y, w = batch["y"][None], batch["w"][None]
+        else:
+            arrays = batch["arrays"]
+            y = torch.from_numpy(arrays["y"]).to(logits.device).long()
+            w = torch.from_numpy(arrays["w"]).to(logits.device)
+        correct = (torch.argmax(logits, -1) == y).float()
+        num, den = (correct * w).sum(), w.sum()
+        if logits.shape[0] == 1 and collectives.group_active():
+            num, den = collectives.all_reduce_flat([num, den])
+        return float(num / torch.clamp(den, min=1.0))
+
+    # ------------------------------------------------------------------
     # training loop
     # ------------------------------------------------------------------
 
@@ -676,7 +1068,24 @@ class DistGNNEngine:
         """Run `epochs` steps from `init_state()`; returns (losses, final
         logits [Vp, C] on every rank).  The distributed run resets CommStats
         and accrues each step's wire bytes; the reference run accrues
-        none."""
+        none.  Mini-batch modes: `epochs` steps from `init_minibatch_state()`
+        over `sample_minibatch(i)`, CommStats reset and accruing the
+        feature fetch bytes; the final logits are every rank's targets,
+        [k, cap_L, C] (one all_gather after the run)."""
+        if self.cfg.batching != "full_graph":
+            self._check_minibatch_runnable()
+            step = (self.make_reference_minibatch_step() if reference
+                    else self.make_minibatch_step())
+            state = self.init_minibatch_state()
+            self.comm_stats.reset()
+            losses, logits = [], None
+            for i in range(epochs):
+                state, metrics, logits = step(state, self.sample_minibatch(i))
+                losses.append(float(metrics["loss"]))
+            if not reference and logits is not None:
+                logits = self.gather_rows(logits[0]).view(
+                    self.k, *logits.shape[1:])
+            return losses, logits
         step = self.make_reference_step() if reference else self.make_step()
         state = self.init_state(reference=reference)
         if not reference:

@@ -3,13 +3,15 @@ copy of `repro/core/graph.py`).
 
 The generators make the same numpy RNG calls in the same order as the
 reference, so one seed gives a bitwise-identical graph in both packages.
-`powerlaw_graph` is not copied: its Python loop is O(V*E) and cannot build
-the 2**20-vertex gcn-paper graph; the full-width run uses `er_graph`.
+`powerlaw_graph` (the cache policies' skewed graph) is a Python loop over
+every vertex with a growing pool: fine at thousands of vertices, it cannot
+build the 2**20-vertex gcn-paper graph, which uses `er_graph`.
+`subgraph` and `to_dense_adj` serve the subgraph sampler.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +42,44 @@ class Graph:
         it appears as someone's in-neighbor."""
         return np.bincount(self.indices, minlength=self.num_vertices).astype(np.int64)
 
+    def to_dense_adj(self, normalized: bool = True) -> np.ndarray:
+        """[V, V] adjacency, row v holding v's in-neighbors; normalized:
+        with self loops, D^-1/2 (A + I) D^-1/2."""
+        V = self.num_vertices
+        A = np.zeros((V, V), np.float32)
+        for v in range(V):
+            A[v, self.neighbors(v)] = 1.0
+        if normalized:
+            A = A + np.eye(V, dtype=np.float32)
+            d = A.sum(1)
+            dinv = 1.0 / np.sqrt(np.maximum(d, 1.0))
+            A = dinv[:, None] * A * dinv[None, :]
+        return A
+
+    def subgraph(self, vertices: np.ndarray) -> Tuple["Graph", np.ndarray]:
+        """Induced subgraph; returns (sub, mapping old->new (-1 outside))."""
+        vertices = np.asarray(vertices)
+        remap = np.full(self.num_vertices, -1, np.int64)
+        remap[vertices] = np.arange(len(vertices))
+        indptr = [0]
+        idx = []
+        for v in vertices:
+            nb = remap[self.neighbors(v)]
+            nb = nb[nb >= 0]
+            idx.append(nb)
+            indptr.append(indptr[-1] + len(nb))
+        sub = Graph(
+            indptr=np.asarray(indptr, np.int64),
+            indices=(np.concatenate(idx).astype(np.int32) if idx and indptr[-1]
+                     else np.zeros((0,), np.int32)),
+            num_vertices=len(vertices),
+            features=None if self.features is None else self.features[vertices],
+            labels=None if self.labels is None else self.labels[vertices],
+            train_mask=(None if self.train_mask is None
+                        else self.train_mask[vertices]),
+        )
+        return sub, remap
+
 
 def from_edges(src: np.ndarray, dst: np.ndarray, num_vertices: int, **kw) -> Graph:
     """Build CSR of in-neighbors: edge (u -> v) stores u in v's list."""
@@ -64,6 +104,30 @@ def _attach(g: Graph, feature_dim: int, num_classes: int, train_frac: float,
     g.val_mask = (masks >= train_frac) & (masks < train_frac + 0.1)
     g.test_mask = masks >= train_frac + 0.1
     return g
+
+
+def powerlaw_graph(num_vertices: int, avg_degree: int = 8, feature_dim: int = 32,
+                   num_classes: int = 8, train_frac: float = 0.3,
+                   seed: int = 0) -> Graph:
+    """Preferential-attachment power-law graph: each new vertex attaches to
+    m = avg_degree // 2 targets drawn from the edge-endpoint multiset, both
+    directions."""
+    rng = np.random.default_rng(seed)
+    m = max(avg_degree // 2, 1)
+    targets = list(range(min(m + 1, num_vertices)))
+    src, dst = [], []
+    pool = list(targets)
+    for v in range(len(targets), num_vertices):
+        pool_arr = np.asarray(pool)
+        pick = rng.choice(pool_arr, size=min(m, len(pool_arr)), replace=False)
+        for u in np.unique(pick):
+            src.append(int(u))
+            dst.append(v)
+            src.append(v)
+            dst.append(int(u))
+            pool.extend([int(u), v])
+    g = from_edges(np.asarray(src), np.asarray(dst), num_vertices)
+    return _attach(g, feature_dim, num_classes, train_frac, rng)
 
 
 def sbm_graph(num_vertices: int, num_blocks: int = 4, p_in: float = 0.05,

@@ -1,0 +1,235 @@
+"""Host-side mini-batch construction (the port's copy of
+`repro/core/sampling/host_batch.py`, numpy only).
+
+`HostBatchBuilder` is the engine's sample and extract stages: `sample` draws
+each rank's targets from its own partition block and expands them with the
+configured sampler, deterministic in (seed, step, rank); `extract` pads every
+rank's MiniBatch to the static caps, relabels the frontiers into the
+engine's vertex space and builds the execution model's fetch plan (cache
+hits short-circuit the exchange), returning flat numpy arrays of the shapes
+`array_layout` names and, per rank, the CommStats byte deltas the batch
+costs.  Every rank builds the whole [k, ...] batch, as the reference's one
+host does: p2p's send table needs every destination's needs.  The engine
+uploads its own rank's slice.
+
+The process-pool producer (`produce`, the pickling hooks) arrives with the
+pipelined schedules, the trainable-embedding ids with trainable features.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.execution.bucketing import bucketed_send_table, halo_slot
+from repro_torch.core.graph import Graph
+from repro_torch.core.partition.edge_cut import Partition
+from repro_torch.core.sampling.distributed import CommStats, feature_fetch_bytes
+from repro_torch.core.sampling.partition_batch import partition_targets
+from repro_torch.core.sampling.samplers import (
+    layer_wise_sample,
+    node_wise_sample,
+    pad_minibatch,
+    subgraph_sample,
+)
+
+
+@dataclasses.dataclass
+class HostBatchBuilder:
+    """The engine's host sampling and padded-batch extraction, built once
+    per mini-batch plan by `DistGNNEngine._build_minibatch_plan`."""
+
+    # config scalars (a slice of EngineConfig)
+    batching: str
+    execution: str
+    seed: int
+    batch_size: int
+    fanouts: Tuple[int, ...]
+    layer_sizes: Tuple[int, ...]
+    walk_length: int
+    num_layers: int
+    # static plan (engine layout + fetch-plan caps)
+    k: int
+    nb: int
+    caps: Tuple[int, ...]
+    fcap: int
+    fcap_widths: Optional[Tuple[int, ...]]  # p2p only
+    Ccap: int
+    feature_dim: int
+    # O(V) layout arrays
+    assignment: np.ndarray
+    new_of_old: np.ndarray
+    labels: np.ndarray
+    train_mask: Optional[np.ndarray]
+    # per-rank resident-cache plan
+    cache_slots: List[Dict[int, int]]  # old global id -> overlay row
+    cache_sets: List[frozenset]
+    graph: Graph
+
+    def _part(self) -> Partition:
+        p = self.__dict__.get("_part_cache")
+        if p is None:
+            p = Partition(assignment=self.assignment, num_parts=self.k)
+            self.__dict__["_part_cache"] = p
+        return p
+
+    # -- the two stages ----------------------------------------------------
+
+    def sample(self, step_idx: int) -> List:
+        """Per rank, draw targets from its OWNED partition block and expand
+        them with the configured sampler.  Deterministic in (seed, step,
+        rank), so the reference step and any rerun see the same batches."""
+        g = self.graph
+        part = self._part()
+        mbs = []
+        for d in range(self.k):
+            rng = np.random.default_rng([self.seed, 7919, step_idx, d])
+            targets = partition_targets(g, part, d, self.batch_size, rng)
+            if self.batching == "node_wise":
+                mb = node_wise_sample(g, targets, self.fanouts, rng)
+            elif self.batching == "layer_wise":
+                mb = layer_wise_sample(g, targets, self.layer_sizes, rng)
+            else:  # subgraph
+                mb = subgraph_sample(g, targets, self.walk_length, rng,
+                                     num_layers=self.num_layers)
+            mbs.append(mb)
+        return mbs
+
+    def extract(self, mbs) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """Pad each rank's MiniBatch to the static caps, relabel frontiers
+        into the engine's new-id space, and build the execution model's
+        fetch plan (cache hits short-circuit the exchange).
+
+        Returns ``(arrays, meta)``: ``arrays`` the flat numpy batch
+        (`array_layout()` shapes and dtypes exactly); ``meta["per_device"]``
+        per rank the CommStats byte deltas this batch costs, the frontier
+        occupancy and the cache hits."""
+        k, nb, L = self.k, self.nb, self.num_layers
+        Vp = k * nb
+        caps, fcap, Ccap = self.caps, self.fcap, self.Ccap
+        D = self.feature_dim
+        part = self._part()
+        frontier = np.full((k, caps[0]), Vp, np.int64)
+        y = np.zeros((k, caps[-1]), np.int32)
+        w = np.zeros((k, caps[-1]), np.float32)
+        adj = [np.zeros((k, caps[l + 1], caps[l]), np.float32)
+               for l in range(L)]
+        self_idx = [np.zeros((k, caps[l + 1]), np.int32) for l in range(L)]
+        cache_ids = np.full((k, caps[0]), Ccap, np.int32)
+        if self.execution == "broadcast":
+            bc_ids = np.full((k, caps[0]), Vp, np.int64)
+        elif self.execution == "ring":
+            ring_ids = np.full((k, k, caps[0]), nb, np.int32)
+        else:
+            widths = list(self.fcap_widths)
+            B, wdt = len(widths), widths[0]
+            need_lists = [[np.zeros(0, np.int64) for _ in range(k)]
+                          for _ in range(k)]
+            tab_ids = np.full((k, caps[0]), nb + B * k * wdt, np.int32)
+        per_device = []
+        for d, mb in enumerate(mbs):
+            padded = pad_minibatch(mb, caps)
+            for l in range(L):
+                adj[l][d] = padded["adj"][l]
+                self_idx[l][d] = padded["self_idx"][l]
+            tgt, tmask = padded["tgt"], padded["tmask"]
+            safe_tgt = np.clip(tgt, 0, None)
+            y[d] = np.where(tgt >= 0, self.labels[safe_tgt], 0)
+            # loss only on OWNED train targets: subgraph walks visit remote
+            # vertices, and a boundary vertex reached by two ranks' walks
+            # would otherwise count twice in the summed loss and gradient
+            tw = tmask * np.where(
+                tgt >= 0, self.assignment[safe_tgt] == d, False)
+            if self.train_mask is not None:
+                tw = tw * np.where(
+                    tgt >= 0, self.train_mask[safe_tgt], False)
+            w[d] = tw
+            old = padded["frontier"]
+            slot = self.cache_slots[d]
+            occ = remote = cache_hits = 0
+            # p2p: halo slot of each needed local src row, per source rank
+            need = [dict() for _ in range(k)]
+            for j in range(caps[0]):
+                o = int(old[j])
+                if o < 0:
+                    continue
+                occ += 1
+                fn = int(self.new_of_old[o])
+                frontier[d, j] = fn
+                s = fn // nb
+                remote += s != d
+                cslot = slot.get(o, -1)
+                if s != d and cslot >= 0:
+                    cache_hits += 1
+                    cache_ids[d, j] = cslot
+                    continue  # served by the resident cache
+                if self.execution == "broadcast":
+                    bc_ids[d, j] = fn
+                elif self.execution == "ring":
+                    ring_ids[d, s, j] = fn % nb
+                else:  # p2p
+                    if s == d:
+                        tab_ids[d, j] = fn % nb
+                    else:
+                        li = fn % nb
+                        pos = need[s].setdefault(li, len(need[s]))
+                        tab_ids[d, j] = int(halo_slot(pos, s, wdt, k, nb))
+            if self.execution == "p2p":
+                for s in range(k):
+                    if s != d and need[s]:
+                        assert len(need[s]) <= fcap, (
+                            f"p2p halo cap overflow: device {d} needs "
+                            f"{len(need[s])} rows from {s}, fcap={fcap}")
+                        # dict preserves insertion order == pos order
+                        need_lists[s][d] = np.fromiter(
+                            need[s], np.int64, len(need[s]))
+            # byte accounting into a throwaway CommStats: the engine applies
+            # the deltas when it takes the batch in
+            delta = CommStats()
+            feature_fetch_bytes(part, d, mb.layer_vertices[0], D,
+                                cached_ids=self.cache_sets[d], stats=delta)
+            per_device.append(dict(
+                stats={f.name: getattr(delta, f.name)
+                       for f in dataclasses.fields(CommStats)
+                       if getattr(delta, f.name)},
+                occupancy=occ, remote=remote, cache_hits=cache_hits))
+        arrays = dict(frontier=frontier.astype(np.int32), y=y, w=w,
+                      cache_ids=cache_ids)
+        for l in range(L):
+            arrays[f"adj{l}"] = adj[l]
+            arrays[f"self_idx{l}"] = self_idx[l]
+        if self.execution == "broadcast":
+            arrays["bc_ids"] = bc_ids.astype(np.int32)
+        elif self.execution == "ring":
+            arrays["ring_ids"] = ring_ids
+        else:
+            # the one write side matching halo_slot's read side, shared with
+            # the full-graph plan
+            arrays["send_rows"] = bucketed_send_table(need_lists, k, widths)
+            arrays["tab_ids"] = tab_ids
+        return arrays, dict(per_device=per_device)
+
+    def array_layout(self) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
+        """name -> (shape, dtype) of every array `extract` returns: static
+        across batches (the padding caps)."""
+        k, caps, L = self.k, self.caps, self.num_layers
+        lay: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {
+            "frontier": ((k, caps[0]), np.dtype(np.int32)),
+            "y": ((k, caps[-1]), np.dtype(np.int32)),
+            "w": ((k, caps[-1]), np.dtype(np.float32)),
+            "cache_ids": ((k, caps[0]), np.dtype(np.int32)),
+        }
+        for l in range(L):
+            lay[f"adj{l}"] = ((k, caps[l + 1], caps[l]),
+                              np.dtype(np.float32))
+            lay[f"self_idx{l}"] = ((k, caps[l + 1]), np.dtype(np.int32))
+        if self.execution == "broadcast":
+            lay["bc_ids"] = ((k, caps[0]), np.dtype(np.int32))
+        elif self.execution == "ring":
+            lay["ring_ids"] = ((k, k, caps[0]), np.dtype(np.int32))
+        else:
+            B, wdt = len(self.fcap_widths), self.fcap_widths[0]
+            lay["send_rows"] = ((k, B, k, wdt), np.dtype(np.int32))
+            lay["tab_ids"] = ((k, caps[0]), np.dtype(np.int32))
+        return lay

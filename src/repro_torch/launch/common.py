@@ -66,6 +66,15 @@ def partition_config(args) -> dict:
                 hub_threshold=args.hub_threshold)
 
 
+def per_layer(arg, default: int, layers: int) -> tuple:
+    """A comma-separated per-layer option (``--fanouts``, ``--layer-sizes``)
+    as a tuple; ``default`` a layer when not given (the reference's "4,4"
+    and "32,32" at its two layers)."""
+    if arg is None:
+        return (default,) * layers
+    return tuple(int(x) for x in arg.split(","))
+
+
 def device_of(args) -> torch.device:
     """``cuda:<rank>`` for ``--device cuda`` (the default), else the device
     asked for."""

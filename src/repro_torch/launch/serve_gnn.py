@@ -2,14 +2,18 @@
 the THROUGHPUT tier, ``DistGNNEngine.infer_full_graph``, one O(L)
 layer-wise sweep that produces final-layer embeddings for EVERY vertex.
 
-Params come from `init_gnn_params` (seeded, for the chosen model, the same
-on every rank); the reference's ``--train-steps`` trains mini-batch and
-arrives with the mini-batch slice, and the latency tier (`GNNQueryEngine`)
-with a later one.  One process per rank (`launch/common.py`): without
-``--init-method`` it runs alone.
+As in the reference, the params come from ``--train-steps`` steps of
+training first: the edge-cut engine is a node_wise mini-batch engine
+(``--batch-size``, ``--fanouts``, the static feature cache ``--cache`` /
+``--cache-capacity``) trained by `run_epoch_minibatch`; the replica
+families train full-graph steps.  ``--train-steps 0`` sweeps the seeded
+initial params (`init_gnn_params`, the same on every rank).  The latency
+tier (`GNNQueryEngine`) arrives with a later slice.  One process per rank
+(`launch/common.py`): without ``--init-method`` it runs alone.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --train-steps 3 --cache none
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --model gat --device cpu --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --partition-family vertex_cut --vertex-cut libra --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
@@ -24,7 +28,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DistGNNEngine, EngineConfig
+from repro_torch.core.engine import (
+    ENGINE_CACHE_POLICIES,
+    DistGNNEngine,
+    EngineConfig,
+)
 from repro_torch.core.graph import sbm_graph
 from repro_torch.launch.common import (
     add_group_args,
@@ -32,6 +40,7 @@ from repro_torch.launch.common import (
     join_group,
     leave_group,
     partition_config,
+    per_layer,
 )
 from repro_torch.core.models.gnn import init_gnn_params
 from repro_torch.utils import get_logger
@@ -46,12 +55,44 @@ PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
 
 def build_engine(args, g):
     """The engine on this rank's device; the process group, if any, must
-    already be joined (`join_group`)."""
+    already be joined (`join_group`).  The edge-cut family serves from a
+    node_wise mini-batch engine (its training mode; the sweep runs the
+    full-graph exchange either way), the replica families from a
+    full-graph one, as in the reference."""
+    edge = args.partition_family == "edge_cut"
     cfg = EngineConfig(execution=args.exec, model=args.model,
                        **partition_config(args),
                        exchange_chunks=args.exchange_chunks,
-                       hidden=args.hidden, num_layers=args.layers)
+                       hidden=args.hidden, num_layers=args.layers,
+                       seed=args.seed,
+                       batching="node_wise" if edge else "full_graph",
+                       batch_size=args.batch_size,
+                       fanouts=per_layer(args.fanouts, 4, args.layers),
+                       cache_policy=args.cache if edge else "none",
+                       cache_capacity=args.cache_capacity if edge else 0)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
+
+
+def train_params(eng, steps: int) -> dict:
+    """The params to serve: ``steps`` training steps from the engine's
+    initial state (mini-batch steps through `run_epoch_minibatch` on a
+    mini-batch engine, full-graph steps otherwise), or with no step the
+    initial params themselves.  Returns the params and the losses."""
+    if steps <= 0:
+        return dict(params=init_gnn_params(
+            eng.cfg.model, eng.dims,
+            torch.Generator().manual_seed(eng.cfg.seed), eng.device),
+            losses=[])
+    if eng.cfg.batching != "full_graph":
+        state, losses, _ = eng.run_epoch_minibatch(steps)
+    else:
+        step, state, losses = eng.make_step(), eng.init_state(), []
+        for _ in range(steps):
+            state, metrics, _ = step(state)
+            losses.append(float(metrics["loss"]))
+    log.info("trained %d %s steps: loss %.4f -> %.4f", steps,
+             eng.cfg.batching, losses[0], losses[-1])
+    return dict(params=state["params"], losses=losses)
 
 
 def _sync(device: torch.device) -> None:
@@ -99,6 +140,20 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--vertices", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0, help="params generator seed")
+    ap.add_argument("--train-steps", type=int, default=10,
+                    help="training steps before the sweep (node_wise "
+                         "mini-batch steps on the edge-cut engine); 0 sweeps "
+                         "the initial params")
+    ap.add_argument("--batch-size", type=int, default=16,
+                    help="per-rank mini-batch targets")
+    ap.add_argument("--fanouts", default=None,
+                    help="comma-separated node_wise fanouts, target layer "
+                         "first (default 4 a layer)")
+    ap.add_argument("--cache", default="static_degree",
+                    choices=list(ENGINE_CACHE_POLICIES),
+                    help="the mini-batch engine's resident feature cache")
+    ap.add_argument("--cache-capacity", type=int, default=32,
+                    help="remote feature rows cached per rank")
     ap.add_argument("--oracle-check", action="store_true")
     return ap.parse_args(argv)
 
@@ -113,9 +168,7 @@ def main(argv=None):
         log.info("engine: model=%s exec=%s family=%s rank %d of k=%d (nb=%d, "
                  "K=%d) on %s", args.model, args.exec, args.partition_family,
                  eng.rank, eng.k, eng.nb, eng.K, eng.device)
-        params = init_gnn_params(args.model, eng.dims,
-                                 torch.Generator().manual_seed(args.seed),
-                                 eng.device)
+        params = train_params(eng, args.train_steps)["params"]
         return run_sweep(eng, params, oracle_check=args.oracle_check)
     finally:
         leave_group(args)

@@ -1,8 +1,11 @@
-"""Full-graph GNN training entry point (the port's counterpart of the full-graph
-engine branch of `examples/train_gnn_distributed.py`): `DistGNNEngine`'s
-training step (synchronous, or under a historical-embedding protocol), timed
-step by step, with the single-device oracle and the layer-wise inference
-sweep as checks.  One process per rank
+"""GNN training entry point (the port's counterpart of the engine branch of
+`examples/train_gnn_distributed.py`): `DistGNNEngine`'s full-graph training
+step (synchronous, or under a historical-embedding protocol), timed step by
+step, or with ``--batching node_wise|layer_wise|subgraph`` the sampled
+mini-batch epoch under a blocking schedule (``--schedule``; ``--batch-size``,
+``--fanouts``, ``--layer-sizes``, ``--walk-length``, the static feature cache
+``--cache`` / ``--cache-capacity``), with the single-device oracle and the
+layer-wise inference sweep as checks.  One process per rank
 (`launch/common.py`): without ``--init-method`` it runs alone.
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --oracle-check
@@ -11,6 +14,7 @@ sweep as checks.  One process per rank
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --exec ring --protocol epoch_fixed --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family vertex_cut --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family hybrid --model gat --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --cache static_degree --cache-capacity 32 --oracle-check --infer
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -18,12 +22,18 @@ sweep as checks.  One process per rank
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DistGNNEngine, EngineConfig
+from repro_torch.core.engine import (
+    BATCHING_MODES,
+    ENGINE_CACHE_POLICIES,
+    DistGNNEngine,
+    EngineConfig,
+)
 from repro_torch.core.graph import sbm_graph
 from repro_torch.launch.common import (
     add_group_args,
@@ -31,6 +41,7 @@ from repro_torch.launch.common import (
     join_group,
     leave_group,
     partition_config,
+    per_layer,
 )
 from repro_torch.utils import get_logger
 
@@ -41,6 +52,8 @@ log = get_logger("repro_torch.train_gnn")
 PORTED_EXECUTION_MODELS = ("p2p", "broadcast", "ring")
 PORTED_PROTOCOLS = ("sync", "epoch_fixed", "epoch_adaptive", "variation")
 PORTED_GNN_MODELS = ("gcn", "sage", "gat", "gin")
+SCHEDULE_CHOICES = ("conventional", "factored", "operator_parallel",
+                    "pipelined")
 ORACLE_TOL = 1e-4  # the repo's oracle bound for every step and sweep
 
 
@@ -50,13 +63,33 @@ def build_engine(args, g):
     cfg = EngineConfig(execution=args.exec, protocol=args.protocol,
                        model=args.model, **partition_config(args),
                        exchange_chunks=args.exchange_chunks,
-                       hidden=args.hidden, num_layers=args.layers, lr=args.lr)
+                       hidden=args.hidden, num_layers=args.layers, lr=args.lr,
+                       batching=args.batching, batch_size=args.batch_size,
+                       fanouts=per_layer(args.fanouts, 4, args.layers),
+                       layer_sizes=per_layer(args.layer_sizes, 32,
+                                             args.layers),
+                       walk_length=args.walk_length, cache_policy=args.cache,
+                       cache_capacity=args.cache_capacity)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def sweep_gap(eng, params) -> float:
+    """The layer-wise sweep at ``params`` against the reference sweep: the
+    largest gap, which must be within ORACLE_TOL."""
+    emb = eng.global_embeddings(eng.infer_full_graph(params=params))
+    ref = eng.global_embeddings(eng.infer_full_graph(params=params,
+                                                     reference=True))
+    err = float(np.max(np.abs(emb - ref)))
+    log.info("layer-wise inference sweep: embeddings %s, oracle gap %.2e",
+             emb.shape, err)
+    if not err <= ORACLE_TOL:
+        raise RuntimeError(f"sweep diverged from the reference: {err}")
+    return err
 
 
 def run_training(eng, epochs: int, *, oracle_check: bool = False,
@@ -101,16 +134,45 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
             raise RuntimeError(f"training diverged from the reference: {gap}")
         out.update(ref_losses=ref_losses, oracle_gap=gap)
     if infer:
-        params = state["params"]
-        emb = eng.global_embeddings(eng.infer_full_graph(params=params))
-        ref = eng.global_embeddings(eng.infer_full_graph(params=params,
-                                                         reference=True))
-        err = float(np.max(np.abs(emb - ref)))
-        log.info("layer-wise inference sweep: embeddings %s, oracle gap %.2e",
-                 emb.shape, err)
-        if not err <= ORACLE_TOL:
-            raise RuntimeError(f"sweep diverged from the reference: {err}")
-        out.update(infer_gap=err)
+        out.update(infer_gap=sweep_gap(eng, state["params"]))
+    return out
+
+
+def run_minibatch(eng, epochs: int, *, schedule: str = "conventional",
+                  oracle_check: bool = False, infer: bool = False) -> dict:
+    """One mini-batch epoch of `epochs` batches under ``schedule``
+    (`run_epoch_minibatch`; ``pipelined`` is refused, item 8b), CommStats
+    reset first.  Returns the losses, the final state, the StageTimes, the
+    CommStats of the epoch and the accuracy of the final params on the last
+    batch; with ``oracle_check`` also the reference run's losses and the
+    largest per-step loss gap, and with ``infer`` the layer-wise sweep's
+    gap to the reference sweep at the final params."""
+    state, losses, times = eng.run_epoch_minibatch(epochs, schedule=schedule)
+    s = eng.comm_stats
+    comm = dataclasses.asdict(s)
+    for e in range(0, epochs, max(epochs // 4, 1)):
+        log.info("batch %3d loss %.4f", e, losses[e])
+    log.info("schedule=%s: wall %.3fs (sample %.3f, extract %.3f, train "
+             "%.3f s)", schedule, times.wall, times.sample, times.extract,
+             times.train)
+    log.info("feature fetch: %.3f MB pulled, %.3f MB served by the %r cache "
+             "(%.1f%% of the bytes asked for)", s.pull_bytes / 1e6,
+             s.cache_hit_bytes / 1e6, eng.cfg.cache_policy,
+             100.0 * s.cache_hit_bytes / max(s.requested(), 1))
+    batch = eng.sample_minibatch(epochs - 1)
+    _, _, logits = eng.make_minibatch_step()(state, batch)
+    acc = eng.minibatch_accuracy(logits, batch)
+    log.info("final: batch train_acc=%.3f", acc)
+    out = dict(losses=losses, state=state, times=times, comm=comm, acc=acc)
+    if oracle_check:
+        ref_losses, _ = eng.train(epochs, reference=True)
+        gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        log.info("oracle gap (max |loss_dist - loss_ref|) = %.2e", gap)
+        if not gap <= ORACLE_TOL:
+            raise RuntimeError(f"training diverged from the reference: {gap}")
+        out.update(ref_losses=ref_losses, oracle_gap=gap)
+    if infer:
+        out.update(infer_gap=sweep_gap(eng, state["params"]))
     return out
 
 
@@ -129,6 +191,29 @@ def parse_args(argv=None):
     ap.add_argument("--vertices", type=int, default=512)
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--lr", type=float, default=0.5)
+    ap.add_argument("--batching", default="full_graph",
+                    choices=list(BATCHING_MODES),
+                    help="full_graph partition batches or sampled "
+                         "mini-batches (the edge-cut family)")
+    ap.add_argument("--batch-size", type=int, default=16,
+                    help="per-rank mini-batch targets / walk roots")
+    ap.add_argument("--fanouts", default=None,
+                    help="node_wise: comma-separated fanouts, target layer "
+                         "first (default 4 a layer)")
+    ap.add_argument("--layer-sizes", default=None,
+                    help="layer_wise: comma-separated sample sizes "
+                         "(default 32 a layer)")
+    ap.add_argument("--walk-length", type=int, default=4,
+                    help="subgraph: random-walk length")
+    ap.add_argument("--cache", default="none",
+                    choices=list(ENGINE_CACHE_POLICIES),
+                    help="the resident feature cache policy")
+    ap.add_argument("--cache-capacity", type=int, default=0,
+                    help="remote feature rows cached per rank")
+    ap.add_argument("--schedule", default="conventional",
+                    choices=list(SCHEDULE_CHOICES),
+                    help="mini-batch stage schedule (survey §6.1); "
+                         "pipelined is not ported yet")
     ap.add_argument("--oracle-check", action="store_true",
                     help="rerun on the single-device reference; fail past 1e-4")
     ap.add_argument("--infer", action="store_true",
@@ -148,6 +233,10 @@ def main(argv=None):
                  "k=%d (nb=%d, K=%d) on %s", args.model, args.exec,
                  args.protocol, args.partition_family, eng.rank, eng.k,
                  eng.nb, eng.K, eng.device)
+        if args.batching != "full_graph":
+            return run_minibatch(eng, args.epochs, schedule=args.schedule,
+                                 oracle_check=args.oracle_check,
+                                 infer=args.infer)
         return run_training(eng, args.epochs, oracle_check=args.oracle_check,
                             infer=args.infer)
     finally:

@@ -133,28 +133,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_engine_rejects_what_is_not_ported(case):
     """Each unported axis raises naming its slice; a partition whose part
     count is not the process group's rank count (one rank here: no group)
-    is a caller's error.  Every model, execution model, protocol and
-    partition family is ported, so each case holds a mini-batch mode of
-    the edge-cut family (item 8): ``model`` layer_wise, ``execution``
-    subgraph under the ring, ``family`` subgraph under broadcast (the
-    replica families refuse mini-batch with a ValueError, as the
-    reference: `test_torch_replica.py`)."""
+    is a caller's error.  Every model, execution model, protocol, batching
+    mode and partition family is ported, so each case holds trainable
+    features (item 10) of the edge-cut family: ``model`` under layer_wise,
+    ``execution`` under subgraph and the ring, ``batching`` under
+    node_wise, ``family`` under subgraph and broadcast (the replica
+    families refuse mini-batch with a ValueError, as the reference:
+    `test_torch_replica.py`)."""
     g = er_graph(**GRAPH)
-    cfg, partition = EngineConfig(), None
-    error, match = NotImplementedError, "slice"
+    cfg, partition = EngineConfig(trainable_features=True), None
+    error, match = NotImplementedError, "item 10"
     if case == "model":
         cfg.batching = "layer_wise"
-        match = "item 8"
     elif case == "execution":
         cfg.execution, cfg.batching = "ring", "subgraph"
-        match = "item 8"
     elif case == "batching":
         cfg.batching = "node_wise"
     elif case == "family":
         cfg.partition_family = "edge_cut"
         cfg.execution, cfg.batching = "broadcast", "subgraph"
-        match = "item 8"
     else:
+        cfg.trainable_features = False
         partition = hash_partition(g, 4)
         error, match = ValueError, "4 parts and the process group 1 rank"
     with pytest.raises(error, match=match):
