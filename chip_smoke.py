@@ -64,15 +64,21 @@ equal array for array) and one traced step of it (`mb_train_profile`);
 sage, gin and gat over the same batches (`mb_node_sage`, `mb_node_gin`,
 `mb_node_gat`) and gcn in a world-size-1 NCCL group (`nccl_mb_node_p2p`,
 bitwise equal to `mb_node_p2p`, its all_to_all and all_reduce calls
-counted); gcn under broadcast and the ring (`mb_node_broadcast`,
-`mb_node_ring`: two steps each, bitwise equal to `mb_node_p2p`'s first
-two at one rank), layer-wise and subgraph under p2p (`mb_layer_p2p`,
-`mb_subgraph_p2p`); and `serve_gnn`'s path (`mb_serve`: a node-wise
-engine trains, then sweeps, bitwise equal to a full-graph engine's sweep
-of the same params).  Each mini-batch phase runs twice from the same
-state (bitwise equal), each step of the second run beside the reference
-step from the same state (loss and target logits within 1e-4), with the
-ELL forward's launches (p2p's K = 1 send gather, a chunk and an
+counted); the pipelined epoch over the same traffic with the prefetch
+thread (`mb_node_pipelined`) and the pool of sampling processes over a
+shared-memory ring (`mb_node_process`, then a second epoch on the same
+pool, its LRU serving every batch, then a steady epoch, the LRU emptied,
+and the pool closed with no segment left), each bitwise equal to
+`mb_node_p2p` (losses, params, CommStats), with its StageTimes beside
+`pipelined_wall_model`; gcn under broadcast and the ring
+(`mb_node_broadcast`, `mb_node_ring`: two steps each, bitwise equal to
+`mb_node_p2p`'s first two at one rank), layer-wise and subgraph under p2p
+(`mb_layer_p2p`, `mb_subgraph_p2p`); and `serve_gnn`'s path (`mb_serve`:
+a node-wise engine trains, then sweeps, bitwise equal to a full-graph
+engine's sweep of the same params).  Each mini-batch phase runs twice
+from the same state (bitwise equal), each step of the second run beside
+the reference step from the same state (loss and target logits within
+1e-4), with the ELL forward's launches (p2p's K = 1 send gather, a chunk and an
 installment a step; none in the reference) counted exactly.  Each
 phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
@@ -135,6 +141,10 @@ NCCL_MODELS, NCCL_CHUNKS = ("gcn", "gat"), 2
 # 11264 x 67584 fp32, 3.04 GB; at 1000 targets about 740 GB).  Layer-wise:
 # 4096 vertices a layer, batch 512; subgraph: 1024 roots, walks of 4.
 MB_STEPS, MB_BASELINE_STEPS, MB_SERVE_STEPS = 5, 2, 2
+# the pipelined phases: the reference driver's defaults (two batches
+# ahead; two sampling processes, a 3.09 GB ring slot each at node-wise)
+MB_PREFETCH_DEPTH, MB_SAMPLE_WORKERS = 2, 2
+SHM_RATE_BYTES = 1 << 29  # the array `shm_rates` moves (512 MiB)
 # every model's mini-batch lr: each step draws a new batch, so the loss
 # need not fall; on the CPU at 4096 vertices gat's rose to 136 at lr 1.0
 MB_LR = 0.1
@@ -1699,11 +1709,12 @@ def profile_phase(phase, fn, kernels, **fields):
 # ---------------------------------------------------------------------------
 
 
-def build_mb_engine(g, device, model, execution, batching, group=()):
+def build_mb_engine(g, device, model, execution, batching, group=(),
+                    extra=()):
     """One mini-batch configuration's engine at full width through the
     training launcher's options (lr MB_LR, the hash partition, the
-    sampler settings of MB_SAMPLERS), after the earlier engines are
-    released.  Returns (engine, setup seconds)."""
+    sampler settings of MB_SAMPLERS, then ``extra``), after the earlier
+    engines are released.  Returns (engine, setup seconds)."""
     from repro_torch.launch import train_gnn
 
     release()
@@ -1711,7 +1722,8 @@ def build_mb_engine(g, device, model, execution, batching, group=()):
     args = train_gnn.parse_args([
         "--device", str(device), "--exec", execution, "--partitioner", "hash",
         "--model", model, "--hidden", "256", "--layers", "3", "--lr",
-        str(MB_LR), "--batching", batching, *MB_SAMPLERS[batching], *group])
+        str(MB_LR), "--batching", batching, *MB_SAMPLERS[batching], *group,
+        *extra])
     eng = train_gnn.build_engine(args, g)
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
@@ -1886,9 +1898,10 @@ def minibatch_phase(eng, setup_s, batches=None, baseline=None,
         del resampled
     median_s = float(np.median(walls2))
     result = dict(losses=losses, params=by_step[-1], by_step=by_step,
-                  median_ms=median_s * 1e3)
+                  median_ms=median_s * 1e3, comm=comm)
     if captured:  # kept for later phases only when asked for
         result["batches"] = batches
+        result["wall_s"] = stage["wall_s"]
     if baseline is not None:
         n = len(losses)
         same = (losses == baseline["losses"][:n] and all(
@@ -1919,6 +1932,218 @@ def minibatch_phase(eng, setup_s, batches=None, baseline=None,
          setup_s=setup_s, **comm,
          seconds=time.perf_counter() - t0, **extra)
     return result, launches
+
+
+def proc_memory_gb(pid="self") -> dict:
+    """A process's resident set now, GB (/proc/<pid>/statm: a worker's
+    own, which the parent's getrusage does not see), and its peak where
+    /proc/<pid>/status reports one (VmHWM; None where it does not)."""
+    with open(f"/proc/{pid}/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    peak = None
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                peak = int(line.split()[1]) * 1024 / 1e9
+    return dict(rss_gb=rss, peak_gb=peak)
+
+
+def host_memory() -> dict:
+    """The shared-memory mount and the host's memory, as `df -B1 /dev/shm`
+    and `free -g` print them."""
+    return {name: subprocess.run(cmd, capture_output=True, text=True,
+                                 check=True).stdout.strip()
+            for name, cmd in (("df_dev_shm", ["df", "-B1", "/dev/shm"]),
+                              ("free_g", ["free", "-g"]))}
+
+
+def shm_rates(nbytes: int) -> dict:
+    """GB/s of writing an ``nbytes`` array into a fresh shared-memory
+    segment (every page faulted in on first touch, as a ring slot's first
+    write in each worker is), into the same segment again, and into fresh
+    anonymous memory (the trainer's copy out of a slot, the LRU's copy):
+    what moving a batch through the ring costs a byte on this host."""
+    from repro_torch.core.sampling.proc_prefetch import _ShmArena
+
+    src = np.ones(nbytes // 4, np.float32)
+    arena = _ShmArena()
+    try:
+        view = np.ndarray(src.shape, src.dtype,
+                          buffer=arena.create(nbytes, "rate").buf)
+        out = {}
+        for key in ("shm_first_write", "shm_rewrite"):
+            s0 = time.perf_counter()
+            np.copyto(view, src)
+            out[f"{key}_gb_s"] = nbytes / 1e9 / (time.perf_counter() - s0)
+        s0 = time.perf_counter()
+        view.copy()
+        out["anon_copy_gb_s"] = nbytes / 1e9 / (time.perf_counter() - s0)
+        del view
+    finally:
+        arena.close()
+    return out
+
+
+def record_arrivals(eng, into: list):
+    """Wrap the engine's `_finish_batch` (the process mode's take-in on the
+    trainer thread) to record, per batch, when it arrived, how long the
+    take-in (the upload) took, and the pool's metadata: the worker, the
+    seconds it waited for a ring slot, its sample and extract seconds."""
+    take = eng._finish_batch
+
+    def finish(arrays, meta):
+        s0 = time.perf_counter()
+        batch = take(arrays, meta)
+        pm = meta.get("_pool", {})
+        into.append(dict(t=s0, upload_s=time.perf_counter() - s0,
+                         worker=pm.get("worker"),
+                         stall_s=pm.get("stall_seconds", 0.0),
+                         sample_s=meta.get("sample_seconds"),
+                         extract_s=meta.get("extract_seconds")))
+        return batch
+    eng._finish_batch = finish
+
+
+def check_pipelined(name, state, losses, comm, baseline, keys) -> None:
+    """A pipelined epoch against the blocking phase it repeats: the losses
+    and the final params bit for bit, the CommStats bytes equal."""
+    params = param_copies(state["params"], keys)
+    same = losses == baseline["losses"] and all(
+        torch.equal(a[key], b[key])
+        for a, b in zip(params, baseline["params"]) for key in a)
+    check(same, f"{name}: differs from {baseline['name']} (losses {losses}, "
+          f"{baseline['name']} {baseline['losses']})")
+    check(comm == baseline["comm"], f"{name}: CommStats {comm}, "
+          f"{baseline['name']} {baseline['comm']}")
+
+
+def pipelined_phase(g, device, baseline, mode):
+    """The pipelined schedule at full width over ``baseline``'s traffic
+    (`mb_node_p2p`: gcn, p2p, node-wise, the sampler settings of
+    MB_SAMPLERS): a fresh engine runs `run_epoch_minibatch(MB_STEPS,
+    "pipelined")` with the prefetch thread (``mode`` "thread": phase
+    mb_node_pipelined) or with the pool of MB_SAMPLE_WORKERS sampling
+    processes over a ring of MB_PREFETCH_DEPTH shared-memory slots
+    ("process": mb_node_process).  The losses,
+    final params and CommStats bytes must equal ``baseline``'s bit for bit
+    and the ELL forward's launches `mb_launches`.  Reports the StageTimes,
+    busy / wall, `pipelined_wall_model` beside the measured wall, peak
+    device memory and host memory.  Process mode also times the pool's
+    start-up (`_ensure_proc_pool`: the graph shared, the workers started),
+    reports the slot bytes, `/dev/shm` and free RAM read before it, each
+    worker's resident set and each batch's arrival (`record_arrivals`);
+    then a second epoch on the same pool, whose LRU serves every batch
+    (producer seconds 0), and a steady epoch with the LRU emptied (the
+    workers write slots they have written before), each bitwise equal
+    again, with `shm_rates`; then `close_prefetch_pool()`, after which
+    none of this process's segments is left in /dev/shm.  Returns the
+    launches."""
+    from repro_torch.core.execution.minibatch_pipeline import (
+        pipelined_wall_model,
+    )
+    from repro_torch.core.models.gnn import PARAM_KEYS
+    from repro_torch.core.sampling import proc_prefetch
+
+    name = f"mb_node_{'pipelined' if mode == 'thread' else 'process'}"
+    keys = PARAM_KEYS["gcn"]
+    eng, setup_s = build_mb_engine(
+        g, device, "gcn", "p2p", "node_wise", extra=[
+            "--schedule", "pipelined", "--prefetch-mode", mode,
+            "--prefetch-depth", str(MB_PREFETCH_DEPTH),
+            "--num-sample-workers", str(MB_SAMPLE_WORKERS)])
+    t0 = time.perf_counter()
+    extra = dict(prefetch_depth=eng.cfg.prefetch_depth)
+    launches = {}
+
+    def epoch(what, arrivals=None):
+        """One pipelined epoch, its launches counted from 0 and added to
+        the phase's, held bit for bit to ``baseline``; returns its
+        StageTimes."""
+        if arrivals is not None:
+            record_arrivals(eng, arrivals)
+        zero_counts()
+        start = time.perf_counter()
+        try:
+            state, losses, times = eng.run_epoch_minibatch(
+                MB_STEPS, "pipelined", prefetch_mode=mode)
+        finally:
+            eng.__dict__.pop("_finish_batch", None)
+        for a in arrivals or ():  # seconds into the epoch
+            a["t"] -= start
+        n = read_counts()
+        check_counts(n, mb_launches(eng, MB_STEPS), what)
+        add_counts(launches, n)
+        comm = dict(pull_bytes=eng.comm_stats.pull_bytes,
+                    cache_hit_bytes=eng.comm_stats.cache_hit_bytes)
+        check_pipelined(what, state, losses, comm, baseline, keys)
+        extra.setdefault("losses", losses)
+        extra.setdefault("comm", comm)
+        return times
+
+    def lanes(prefix, times):
+        return {f"{prefix}sample_s": times.sample,
+                f"{prefix}extract_s": times.extract,
+                f"{prefix}train_s": times.train, f"{prefix}wall_s": times.wall,
+                f"{prefix}busy_over_wall": times.busy() / times.wall,
+                f"{prefix}wall_model_s": pipelined_wall_model(times,
+                                                              MB_STEPS)}
+
+    if mode == "process":
+        extra.update(host_memory(), num_sample_workers=MB_SAMPLE_WORKERS,
+                     shm_free_bytes=proc_prefetch.shm_free_bytes(),
+                     graph_shm_bytes=proc_prefetch.graph_shm_nbytes(eng.g))
+        s0 = time.perf_counter()
+        pool = eng._ensure_proc_pool(eng.cfg.prefetch_depth)
+        extra.update(pool_startup_s=time.perf_counter() - s0,
+                     slot_bytes=pool.slot_nbytes,
+                     ring_bytes=pool.slot_nbytes * pool.depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    arrivals = [] if mode == "process" else None
+    times = epoch(name, arrivals)
+    peak = torch.cuda.max_memory_allocated()
+    extra.update(lanes("", times), wall_per_batch_s=times.wall / MB_STEPS,
+                 producer_per_batch_s=(times.sample + times.extract)
+                 / MB_STEPS,
+                 **{f"{baseline['name']}_wall_s": baseline.get("wall_s"),
+                    f"bitwise_equal_to_{baseline['name']}": True})
+    if mode == "process":
+        extra.update(arrivals=arrivals, workers_memory=[
+            proc_memory_gb(p.pid) for p in pool._procs])
+        lru = epoch(f"{name} second epoch")
+        check(eng._proc_pool is pool and pool.alive and pool.workers_alive,
+              f"{name}: the second epoch did not reuse the pool")
+        check(lru.sample == 0.0 and lru.extract == 0.0,
+              f"{name}: the second epoch's producer seconds {lru.sample}, "
+              f"{lru.extract} (the LRU serves it)")
+        # the steady state: the LRU emptied, the workers produce again
+        # into ring slots every one of them has written before
+        pool._cache.clear()
+        steady_arrivals = []
+        steady = epoch(f"{name} steady epoch", steady_arrivals)
+        check(eng._proc_pool is pool and steady.sample > 0,
+              f"{name}: the steady epoch did not run on the pool's workers")
+        extra.update(second_epoch_wall_s=lru.wall,
+                     second_epoch_train_s=lru.train,
+                     second_epoch_bitwise_equal=True,
+                     **lanes("steady_", steady),
+                     steady_arrivals=steady_arrivals,
+                     steady_bitwise_equal=True, **shm_rates(SHM_RATE_BYTES))
+        mark = f"-{os.getpid():x}-"
+        eng.close_prefetch_pool()
+        left = [f for f in os.listdir(proc_prefetch.SHM_DIR)
+                if f.startswith(proc_prefetch.SHM_PREFIX) and mark in f]
+        check(not left and not pool.alive,
+              f"{name}: segments left after close_prefetch_pool: {left}")
+        extra["segments_left"] = 0
+    comm = extra.pop("comm")
+    emit(name, model="gcn", execution="p2p", batching="node_wise",
+         prefetch_mode=mode, steps=MB_STEPS, launches=launches,
+         max_memory_allocated=peak, memory_allocated_at_start=held,
+         host_max_rss_gb=host_rss_gb(), host_memory_now=proc_memory_gb(),
+         setup_s=setup_s, **comm, seconds=time.perf_counter() - t0, **extra)
+    return launches
 
 
 def mb_serve_phase(g, device):
@@ -1981,10 +2206,12 @@ def minibatch_phases(g, device) -> dict:
     under p2p first (`mb_node_p2p`, the epoch, its batches kept) and one
     traced step of it (`mb_train_profile`); sage, gin and gat over the same
     batches; the same in a world-size-1 NCCL group (`nccl_mb_node_p2p`,
-    bitwise equal to `mb_node_p2p`); then, the batches released, gcn
-    node-wise under broadcast and the ring (two steps each, bitwise equal
-    to `mb_node_p2p`'s first two at one rank), layer-wise and subgraph
-    under p2p, and `mb_serve`."""
+    bitwise equal to `mb_node_p2p`); then, the batches released, the
+    pipelined epoch over `mb_node_p2p`'s traffic with the prefetch thread
+    (`mb_node_pipelined`) and the sampling-process pool (`mb_node_process`),
+    each bitwise equal to `mb_node_p2p`; gcn node-wise under broadcast and
+    the ring (two steps each, bitwise equal to `mb_node_p2p`'s first two
+    at one rank), layer-wise and subgraph under p2p, and `mb_serve`."""
     from repro_torch.launch import train_gnn
     from repro_torch.launch.common import join_group, leave_group
 
@@ -2020,6 +2247,10 @@ def minibatch_phases(g, device) -> dict:
         leave_group(group_args)
         shutil.rmtree(rendezvous, ignore_errors=True)
     del batches
+    # the pipelined schedules over mb_node_p2p's traffic: the prefetch
+    # thread, then the sampling-process pool
+    for mode in ("thread", "process"):
+        add_counts(total, pipelined_phase(g, device, node, mode))
     for execution in ("broadcast", "ring"):
         eng, setup_s = build_mb_engine(g, device, "gcn", execution,
                                        "node_wise")

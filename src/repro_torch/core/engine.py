@@ -54,7 +54,13 @@ model runs over the dense padded blocks (`models/gnn.py`
 numerator, the loss weights and the gradients are summed over the ranks
 in one all_reduce.  `make_reference_minibatch_step` runs every rank's
 block of the same batch on every rank, features read straight from the
-global table, with no collective.
+global table, with no collective.  `run_epoch_minibatch` drives the §6.1
+schedules: the blocking ones stage by stage, and ``pipelined`` with a
+producer lane beside the trainer's, a `PrefetchWorker` thread or a
+persistent pool of sampling processes writing finished batches into a
+shared-memory ring (`sampling/proc_prefetch.py`); the trainer dispatches
+each step without waiting for the card and synchronizes once at the end
+of the epoch, bitwise equal to the blocking epoch.
 
 Ported: models gcn, sage, gat and gin, partition families edge_cut (every
 partitioner), vertex_cut (random, cartesian2d, libra) and hybrid (any
@@ -62,12 +68,12 @@ hub_threshold, over any partitioner), execution p2p (the default, as in
 the reference), broadcast and ring, batching full_graph, node_wise,
 layer_wise and subgraph (edge cut; the replica families refuse mini-batch
 with a ValueError, as the reference does), the static feature cache
-policies, the conventional, factored and operator_parallel schedules,
-protocols sync, epoch_fixed, epoch_adaptive and variation (full graph), on
-any number of ranks.  The ranks are the process group's
-(`execution/collectives.py`); without one the engine runs on one rank.
-Everything else raises NotImplementedError naming the slice it waits for
-(trainable features, item 10; the pipelined schedules, item 8b).
+policies, the conventional, factored, operator_parallel and pipelined
+schedules (prefetch thread or sampling-process pool), protocols sync,
+epoch_fixed, epoch_adaptive and variation (full graph), on any number of
+ranks.  The ranks are the process group's (`execution/collectives.py`);
+without one the engine runs on one rank.  Trainable features raise
+NotImplementedError naming the slice they wait for (item 10).
 Telemetry arrives with its own slice.
 """
 from __future__ import annotations
@@ -81,7 +87,11 @@ import torch
 from repro_torch.core.execution import collectives
 from repro_torch.core.execution.bucketing import bucketed_cap_widths
 from repro_torch.core.execution.exchange_api import make_backend
-from repro_torch.core.execution.minibatch_pipeline import SCHEDULES
+from repro_torch.core.execution.minibatch_pipeline import (
+    SCHEDULES,
+    run_pipelined,
+    run_pipelined_process,
+)
 from repro_torch.core.execution.pipeline_exchange import (
     bucketed_all_to_all,
     chunked_overlap,
@@ -107,6 +117,10 @@ from repro_torch.core.sampling.cache import CACHE_POLICIES, device_cache_ids
 from repro_torch.core.sampling.distributed import CommStats
 from repro_torch.core.sampling.host_batch import HostBatchBuilder
 from repro_torch.core.sampling.partition_batch import p2p_frontier_halo_cap
+from repro_torch.core.sampling.proc_prefetch import (
+    ProcPrefetchPool,
+    share_graph,
+)
 from repro_torch.core.sampling.samplers import frontier_caps
 from repro_torch.kernels.ops import (
     ell_attend,
@@ -119,6 +133,7 @@ GNN_MODELS = ("gcn", "sage", "gat", "gin")
 PROTOCOLS = ("sync", "epoch_fixed", "epoch_adaptive", "variation")
 BATCHING_MODES = ("full_graph", "node_wise", "layer_wise", "subgraph")
 PARTITION_FAMILIES = ("edge_cut", "vertex_cut", "hybrid")
+PREFETCH_MODES = ("thread", "process")
 ENGINE_CACHE_POLICIES = ("none",) + tuple(CACHE_POLICIES)
 
 # layout attributes the engine mirrors, so callers keep reading eng.<attr>
@@ -150,6 +165,13 @@ class EngineConfig:
     p2p_buckets: int = 1  # power-of-two installments splitting the p2p
     #   all_to_all send caps (1 = single max-pairwise-need buffer); the
     #   full-graph halo plan and the mini-batch frontier fetch alike
+    prefetch_depth: int = 2  # batches the pipelined epoch builds ahead
+    prefetch_mode: str = "thread"  # thread | process: who runs the
+    #   pipelined producer.  "thread": the in-process `PrefetchWorker`
+    #   (its overlap limited by the GIL).  "process": a `ProcPrefetchPool`
+    #   of sampling processes feeding a shared-memory batch ring
+    #   (sampling/proc_prefetch.py), bitwise equal all the same
+    num_sample_workers: int = 2  # process-pool size for prefetch_mode=process
     trainable_features: bool = False  # layer-0 rows as learnable
     #   embeddings: not ported (item 10)
     hidden: int = 32
@@ -269,6 +291,12 @@ class DistGNNEngine:
             raise ValueError("exchange_chunks must be >= 1")
         if cfg.p2p_buckets < 1:
             raise ValueError("p2p_buckets must be >= 1")
+        if cfg.prefetch_depth < 1:
+            raise ValueError("prefetch_depth must be >= 1")
+        if cfg.prefetch_mode not in PREFETCH_MODES:
+            raise ValueError("prefetch_mode must be 'thread' or 'process'")
+        if cfg.num_sample_workers < 1:
+            raise ValueError("num_sample_workers must be >= 1")
         builder = get_layout_builder(cfg.partition_family)
         builder.validate(cfg, partition=partition)
         if cfg.trainable_features:
@@ -335,6 +363,8 @@ class DistGNNEngine:
         self._ref_step = None
         self._mb_step = None
         self._mb_ref_step = None
+        self._proc_pool = None  # the sampling processes: _ensure_proc_pool
+        self._proc_pool_key = None
         self.comm_stats = CommStats()
         if cfg.batching != "full_graph":
             self._build_minibatch_plan()
@@ -998,42 +1028,117 @@ class DistGNNEngine:
         self._mb_ref_step = ref_step
         return ref_step
 
+    def _ensure_proc_pool(self, depth: int) -> ProcPrefetchPool:
+        """The engine's persistent sampling-process pool (prefetch_mode
+        "process"), built at first use and reused across epochs: the
+        graph's CSR arrays and labels go to shared memory once, each worker
+        runs an unpickled copy of `host_builder` whose ``graph`` is the
+        shared handle (attached read-only at first use), and finished
+        batches come back through the shared-memory ring.  Rebuilt when
+        the depth or cfg.num_sample_workers changes.  A graph or a ring
+        the shared-memory mount cannot hold is refused with its sizes
+        (`proc_prefetch.require_shm`), and what was shared is unlinked."""
+        key = (int(depth), int(self.cfg.num_sample_workers))
+        pool = self._proc_pool
+        if pool is not None and pool.alive and self._proc_pool_key == key:
+            return pool
+        self.close_prefetch_pool()
+        hb = self.host_builder
+        shared, arena = share_graph(hb._g())
+        try:
+            builder = dataclasses.replace(hb, graph=shared)
+            self._proc_pool = ProcPrefetchPool(
+                builder.produce, hb.array_layout(), depth=key[0],
+                num_workers=key[1], shared_inputs=(arena,))
+        except BaseException:
+            arena.close()
+            raise
+        self._proc_pool_key = key
+        return self._proc_pool
+
+    def close_prefetch_pool(self) -> None:
+        """Stop the sampling processes and unlink their shared memory.
+        Idempotent; safe to call with no pool built."""
+        if self._proc_pool is not None:
+            self._proc_pool.close()
+            self._proc_pool = None
+
+    def _finalize(self) -> None:
+        """The pipelined epoch's one synchronize: the card's queued steps
+        finish inside the timed window."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def run_epoch_minibatch(self, num_batches: int,
                             schedule: str = "conventional", state=None,
-                            reference: bool = False):
-        """Drive the §6.1 blocking mini-batch schedules (conventional,
-        factored, operator_parallel) with the engine's real stages: host
+                            reference: bool = False,
+                            prefetch_depth: Optional[int] = None,
+                            prefetch_mode: Optional[str] = None):
+        """Drive the §6.1 mini-batch schedules (conventional, factored,
+        operator_parallel, pipelined) with the engine's real stages: host
         sampling, padded-batch extraction (the fetch plan and this rank's
         upload) and the training step.  Returns (state, losses,
         StageTimes).  Batches are deterministic in (seed, step, rank), so
-        every schedule gives the same losses.  A fresh run (state=None)
-        resets CommStats, as `train` does; a state passed in continues
-        accumulating."""
+        every schedule gives the same losses, params and CommStats, bit for
+        bit.  A fresh run (state=None) resets CommStats, as `train` does; a
+        state passed in continues accumulating.
+
+        ``schedule="pipelined"`` runs the producer lane for real, bounded
+        ``prefetch_depth`` batches ahead (default cfg.prefetch_depth), while
+        the trainer lane dispatches step i without waiting for the card:
+        the losses stay tensors until the epoch's one synchronize
+        (`_finalize`).  ``prefetch_mode`` (default cfg.prefetch_mode) picks
+        the producer: "thread", a `PrefetchWorker` in this process, which
+        also uploads each batch (on the default stream, ahead of the steps
+        that read it); "process", the persistent `ProcPrefetchPool` of
+        cfg.num_sample_workers processes (`_ensure_proc_pool`), whose
+        batches this thread takes in (`_finish_batch`: CommStats, upload).
+        Call `close_prefetch_pool()` when done (GC also reclaims it)."""
         self._check_minibatch_runnable()
-        if schedule == "pipelined":
-            raise NotImplementedError(
-                "schedule='pipelined' (the prefetch thread and the sampling "
-                "process pool) arrives with its own slice (ROADMAP queue 1 "
-                "item 8b)")
         if schedule not in SCHEDULES:
-            raise ValueError(f"schedule must be one of {tuple(SCHEDULES)} "
-                             f"or 'pipelined'; got {schedule!r}")
+            raise ValueError(f"schedule must be one of {tuple(SCHEDULES)}; "
+                             f"got {schedule!r}")
+        pipelined = schedule == "pipelined"
+        if pipelined:
+            depth = (self.cfg.prefetch_depth if prefetch_depth is None
+                     else prefetch_depth)
+            mode = (self.cfg.prefetch_mode if prefetch_mode is None
+                    else prefetch_mode)
+            if mode not in PREFETCH_MODES:
+                raise ValueError("prefetch_mode must be 'thread' or "
+                                 f"'process'; got {mode!r}")
         step = (self.make_reference_minibatch_step() if reference
                 else self.make_minibatch_step())
         if state is None:
             self.comm_stats.reset()
         holder = dict(state=state if state is not None
                       else self.init_minibatch_state())
-        losses: List[float] = []
+        losses: List = []
 
         def train_fn(mbs, batch):
             holder["state"], metrics, _ = step(holder["state"], batch)
-            losses.append(float(metrics["loss"]))
+            # pipelined lane: no float() here, which would wait for the card
+            losses.append(metrics["loss"] if pipelined
+                          else float(metrics["loss"]))
 
-        times = SCHEDULES[schedule](list(range(num_batches)),
-                                    self._sample_host, self._make_batch,
-                                    train_fn)
-        return holder["state"], losses, times
+        batch_ids = list(range(num_batches))
+        if not pipelined:
+            times = SCHEDULES[schedule](batch_ids, self._sample_host,
+                                        self._make_batch, train_fn)
+            return holder["state"], losses, times
+        if mode == "process":
+            def train_fn_proc(item, arrays, meta):
+                train_fn(None, self._finish_batch(arrays, meta))
+
+            times = run_pipelined_process(
+                batch_ids, self._ensure_proc_pool(depth), train_fn_proc,
+                finalize_fn=self._finalize)
+        else:
+            times = run_pipelined(batch_ids, self._sample_host,
+                                  self._make_batch, train_fn,
+                                  prefetch_depth=depth,
+                                  finalize_fn=self._finalize)
+        return holder["state"], [float(x) for x in losses], times
 
     def minibatch_accuracy(self, logits: torch.Tensor, batch) -> float:
         """Accuracy over the batch's weighted (owned train) targets of

@@ -1,21 +1,25 @@
-"""Mini-batch execution schedules (the port's copy of the blocking part of
+"""Mini-batch execution models (the port's copy of
 `repro/core/execution/minibatch_pipeline.py`, survey §6.1): conventional,
-factored and operator-parallel, as an explicit stage scheduler with
-per-stage timing.
+factored, operator-parallel, pipelined, and P3 pull-push, as an explicit
+stage scheduler with per-stage timing, so the overlap claims are
+measurable.
 
-Each runs the real sample, extract and train callables one after another
-and times every stage on the host clock; ``conventional`` reports the
-measured wall, ``factored`` and ``operator_parallel`` MODEL the overlap of
-their lanes from the stage times (their batches, and so their results, are
-the conventional schedule's).  The pipelined schedules, which execute the
-overlap, arrive with their own slice.  ``telemetry`` is accepted for the
-reference's signature; the port has no spans yet.
+Stage latencies are measured on the host clock from the real sampler,
+extract and train callables.  ``conventional`` / ``factored`` /
+``operator_parallel`` run the stages one after another and MODEL the
+overlap of their lanes from the stage times (their batches, and so their
+results, are the conventional schedule's); ``pipelined`` EXECUTES it: a
+`PrefetchWorker` thread (`run_pipelined`) or the sampling processes of a
+`ProcPrefetchPool` (`run_pipelined_process`) really build batch i+1 while
+the trainer lane runs step i, and ``wall`` is the measured wall clock up
+to and including the end-of-epoch device synchronize.  ``telemetry`` is
+accepted for the reference's signature; the port has no spans yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -83,11 +87,139 @@ def run_operator_parallel(batch_ids: List, sample_fn, extract_fn, train_fn,
     return t
 
 
+def run_pipelined(batch_ids: List, sample_fn, extract_fn, train_fn, *,
+                  prefetch_depth: int = 2,
+                  finalize_fn: Optional[Callable] = None,
+                  telemetry=None) -> StageTimes:
+    """Measured-lanes pipelined executor: the factored model made REAL.
+
+    A `PrefetchWorker` thread runs sample_fn + extract_fn for batch i+1
+    (bounded ``prefetch_depth`` batches ahead) while the trainer lane runs
+    train_fn on batch i.  train_fn should DISPATCH the device step without
+    blocking on its result (no per-step ``float()`` or synchronize) so the
+    step, the host-to-device copy and host sampling genuinely overlap;
+    ``finalize_fn`` is the end-of-epoch sync barrier (the engine's
+    ``torch.cuda.synchronize``), so ``wall`` is an honest epoch time.
+
+    Stage seconds are accumulated per lane (sample/extract on the worker
+    thread, train on the trainer thread: disjoint writers, read after
+    join), so ``busy() > wall`` is the direct measurement of overlap."""
+    from repro_torch.core.sampling.prefetch import PrefetchWorker
+
+    t = StageTimes()
+
+    def produce(ids):
+        s0 = time.perf_counter()
+        mb = sample_fn(ids)
+        t.sample += time.perf_counter() - s0
+        s0 = time.perf_counter()
+        feats = extract_fn(mb)
+        t.extract += time.perf_counter() - s0
+        return mb, feats
+
+    t0 = time.perf_counter()
+    worker = PrefetchWorker(batch_ids, produce, depth=prefetch_depth,
+                            telemetry=telemetry)
+    try:
+        for mb, feats in worker:
+            s0 = time.perf_counter()
+            train_fn(mb, feats)
+            t.train += time.perf_counter() - s0
+        if finalize_fn is not None:
+            # the end-of-epoch device sync, counted on the trainer lane
+            s0 = time.perf_counter()
+            finalize_fn()
+            t.train += time.perf_counter() - s0
+    finally:
+        worker.close()
+    t.wall = time.perf_counter() - t0
+    return t
+
+
+def run_pipelined_process(batch_ids: List, pool, train_fn, *,
+                          finalize_fn: Optional[Callable] = None,
+                          telemetry=None) -> StageTimes:
+    """GIL-free pipelined executor: sample+extract run in the WORKER
+    PROCESSES of a `ProcPrefetchPool` (`sampling/proc_prefetch.py`), batches
+    arrive through shared memory, and only train_fn runs here.
+
+    Same lane accounting as `run_pipelined`, except the producer lane is
+    measured remotely: each delivered ``meta`` carries ``sample_seconds`` /
+    ``extract_seconds`` (0 for a batch the pool's LRU served).  Because the
+    producers hold their own GILs, the overlap does not depend on the
+    trainer releasing this process's.
+
+    ``train_fn(item, arrays, meta)`` should dispatch without blocking;
+    ``finalize_fn`` is the end-of-epoch sync, as in `run_pipelined`.  The
+    pool outlives the call (workers and shm are reused across epochs):
+    closing it is the owner's job."""
+    t = StageTimes()
+    t0 = time.perf_counter()
+    it = pool.run(batch_ids)
+    try:
+        for item, arrays, meta in it:
+            t.sample += meta.get("sample_seconds", 0.0)
+            t.extract += meta.get("extract_seconds", 0.0)
+            s0 = time.perf_counter()
+            train_fn(item, arrays, meta)
+            t.train += time.perf_counter() - s0
+        if finalize_fn is not None:
+            s0 = time.perf_counter()
+            finalize_fn()
+            t.train += time.perf_counter() - s0
+    finally:
+        it.close()
+    t.wall = time.perf_counter() - t0
+    return t
+
+
+def pipelined_wall_model(t: StageTimes, num_batches: int) -> float:
+    """Overlap-aware wall-clock model for the two-lane pipeline, held to the
+    MEASURED lanes of `run_pipelined`: the lanes run concurrently, so the
+    steady-state wall is the slower lane, plus the pipeline fill of one
+    batch on the faster lane.  A lower bound for the measured wall
+    (scheduling overheads only add), and below the blocking busy sum
+    whenever both lanes do real work."""
+    n = max(int(num_batches), 1)
+    producer = t.sample + t.extract
+    trainer = t.train
+    return max(producer, trainer) + min(producer, trainer) / n
+
+
 # schedule registry (`DistGNNEngine.run_epoch_minibatch` selects by name);
 # every entry shares the (batch_ids, sample_fn, extract_fn, train_fn) ->
-# StageTimes signature
+# StageTimes signature (``pipelined`` adds prefetch_depth / finalize_fn)
 SCHEDULES: Dict[str, Callable] = {
     "conventional": run_conventional,
     "factored": run_factored,
     "operator_parallel": run_operator_parallel,
+    "pipelined": run_pipelined,
 }
+
+
+@dataclasses.dataclass
+class PullPushPlan:
+    """P3: the first-hop aggregation runs model-parallel over column-sharded
+    features (push the tiny graph, not the fat features), then switches to
+    data parallel. comm_bytes compares against feature pulling."""
+    graph_bytes: int
+    hidden_bytes: int
+    feature_bytes_baseline: int
+
+    @property
+    def saving(self) -> float:
+        return 1.0 - (self.graph_bytes + self.hidden_bytes) / max(
+            self.feature_bytes_baseline, 1)
+
+
+def p3_plan(num_batch_vertices: int, num_batch_edges: int, feature_dim: int,
+            hidden_dim: int, num_workers: int) -> PullPushPlan:
+    """Byte accounting of P3 pull-push vs conventional feature pulling for one
+    mini-batch (Gandhi & Iyer §5): conventional moves D-dim input features of
+    every frontier vertex; P3 moves the subgraph structure + H-dim
+    activations."""
+    id_bytes = 8
+    graph = num_batch_edges * 2 * id_bytes * (num_workers - 1) // num_workers
+    hidden = num_batch_vertices * hidden_dim * 4
+    feats = num_batch_vertices * feature_dim * 4 * (num_workers - 1) // num_workers
+    return PullPushPlan(graph, hidden, feats)

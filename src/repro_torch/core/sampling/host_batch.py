@@ -12,18 +12,38 @@ costs.  Every rank builds the whole [k, ...] batch, as the reference's one
 host does: p2p's send table needs every destination's needs.  The engine
 uploads its own rank's slice.
 
-The process-pool producer (`produce`, the pickling hooks) arrives with the
-pipelined schedules, the trainable-embedding ids with trainable features.
+`produce` is the process-pool producer (`sampling/proc_prefetch.py`): the
+pool ships one builder to each sampling worker, which produces finished
+padded batches into shared-memory ring slots.  Three properties make that
+work:
+
+* **numpy-only**: nothing in this module (or its import chain) imports
+  torch; a worker never touches the parent's CUDA context, and does not pay
+  the import.  The upload and the CommStats accounting stay engine-side
+  (`DistGNNEngine._finish_batch`): the builder returns plain numpy arrays
+  plus a small metadata dict carrying the per-rank byte deltas and the
+  stage timings.
+* **picklable**: every field is plain data; the graph handle may be a
+  `Graph` or anything with a ``materialize()`` method returning one
+  (`proc_prefetch.SharedGraph`, which attaches to the parent's CSR arrays
+  in POSIX shared memory).  The lazily-derived caches live outside the
+  dataclass fields and are rebuilt after unpickling.
+* **deterministic**: sampling is seeded by (seed, step, rank), so a pooled
+  epoch is bitwise-identical to a blocking one whichever worker produced
+  which batch.
+
+The trainable-embedding ids arrive with trainable features.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.execution.bucketing import bucketed_send_table, halo_slot
-from repro_torch.core.graph import Graph
 from repro_torch.core.partition.edge_cut import Partition
 from repro_torch.core.sampling.distributed import CommStats, feature_fetch_bytes
 from repro_torch.core.sampling.partition_batch import partition_targets
@@ -35,10 +55,29 @@ from repro_torch.core.sampling.samplers import (
 )
 
 
+class _SpanRecorder:
+    """Collects (name, t0, dur, labels) tuples with `time.perf_counter`
+    timestamps: CLOCK_MONOTONIC on Linux, shared across processes on one
+    host, so a parent can lay a worker's spans onto its own timeline."""
+
+    def __init__(self):
+        self.spans: List[Tuple[str, float, float, Dict]] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str, **labels):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.spans.append((name, t0, time.perf_counter() - t0, labels))
+
+
 @dataclasses.dataclass
 class HostBatchBuilder:
     """The engine's host sampling and padded-batch extraction, built once
-    per mini-batch plan by `DistGNNEngine._build_minibatch_plan`."""
+    per mini-batch plan by `DistGNNEngine._build_minibatch_plan`;
+    `sample`/`extract` are the in-process path, `produce` the
+    worker-process entry point (sample + extract + timing in one call)."""
 
     # config scalars (a slice of EngineConfig)
     batching: str
@@ -65,7 +104,26 @@ class HostBatchBuilder:
     # per-rank resident-cache plan
     cache_slots: List[Dict[int, int]]  # old global id -> overlay row
     cache_sets: List[frozenset]
-    graph: Graph
+    # Graph, or anything with .materialize() -> Graph (attached lazily)
+    graph: object
+
+    # -- lazy derived state (rebuilt after unpickling) ---------------------
+
+    def __getstate__(self):
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def __setstate__(self, state):
+        for name, v in state.items():
+            setattr(self, name, v)
+
+    def _g(self):
+        g = self.__dict__.get("_g_cache")
+        if g is None:
+            g = (self.graph.materialize()
+                 if hasattr(self.graph, "materialize") else self.graph)
+            self.__dict__["_g_cache"] = g
+        return g
 
     def _part(self) -> Partition:
         p = self.__dict__.get("_part_cache")
@@ -79,8 +137,9 @@ class HostBatchBuilder:
     def sample(self, step_idx: int) -> List:
         """Per rank, draw targets from its OWNED partition block and expand
         them with the configured sampler.  Deterministic in (seed, step,
-        rank), so the reference step and any rerun see the same batches."""
-        g = self.graph
+        rank), so the reference step and any rerun, in any process, see the
+        same batches."""
+        g = self._g()
         part = self._part()
         mbs = []
         for d in range(self.k):
@@ -210,9 +269,32 @@ class HostBatchBuilder:
             arrays["tab_ids"] = tab_ids
         return arrays, dict(per_device=per_device)
 
+    # -- worker-process entry point ----------------------------------------
+
+    def produce(self, step) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """sample + extract for one step with stage timing: the
+        `ProcPrefetchPool` producer.  The returned meta adds
+        ``sample_seconds`` / ``extract_seconds`` (the producer lane's
+        seconds for StageTimes) and ``spans``, the two stages' spans."""
+        step = int(step)
+        rec = _SpanRecorder()
+        t0 = time.perf_counter()
+        with rec.span("sample", step=step):
+            mbs = self.sample(step)
+        t1 = time.perf_counter()
+        with rec.span("extract", step=step):
+            arrays, meta = self.extract(mbs)
+        t2 = time.perf_counter()
+        meta["sample_seconds"] = t1 - t0
+        meta["extract_seconds"] = t2 - t1
+        meta["spans"] = rec.spans
+        return arrays, meta
+
+    # -- the shm ring contract ---------------------------------------------
+
     def array_layout(self) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
         """name -> (shape, dtype) of every array `extract` returns: static
-        across batches (the padding caps)."""
+        across batches (the padding caps), so ring slots are sized once."""
         k, caps, L = self.k, self.caps, self.num_layers
         lay: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {
             "frontier": ((k, caps[0]), np.dtype(np.int32)),

@@ -2,9 +2,12 @@
 `examples/train_gnn_distributed.py`): `DistGNNEngine`'s full-graph training
 step (synchronous, or under a historical-embedding protocol), timed step by
 step, or with ``--batching node_wise|layer_wise|subgraph`` the sampled
-mini-batch epoch under a blocking schedule (``--schedule``; ``--batch-size``,
+mini-batch epoch under a schedule (``--schedule``; ``--batch-size``,
 ``--fanouts``, ``--layer-sizes``, ``--walk-length``, the static feature cache
-``--cache`` / ``--cache-capacity``), with the single-device oracle and the
+``--cache`` / ``--cache-capacity``; ``pipelined`` builds batches ahead on a
+prefetch thread or, with ``--prefetch-mode process``, in a pool of
+``--num-sample-workers`` sampling processes over a shared-memory ring,
+``--prefetch-depth`` batches ahead), with the single-device oracle and the
 layer-wise inference sweep as checks.  One process per rank
 (`launch/common.py`): without ``--init-method`` it runs alone.
 
@@ -15,6 +18,7 @@ layer-wise inference sweep as checks.  One process per rank
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family vertex_cut --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family hybrid --model gat --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --cache static_degree --cache-capacity 32 --oracle-check --infer
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --schedule pipelined --prefetch-mode process --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -31,6 +35,7 @@ import torch
 from repro_torch.core.engine import (
     BATCHING_MODES,
     ENGINE_CACHE_POLICIES,
+    PREFETCH_MODES,
     DistGNNEngine,
     EngineConfig,
 )
@@ -69,7 +74,10 @@ def build_engine(args, g):
                        layer_sizes=per_layer(args.layer_sizes, 32,
                                              args.layers),
                        walk_length=args.walk_length, cache_policy=args.cache,
-                       cache_capacity=args.cache_capacity)
+                       cache_capacity=args.cache_capacity,
+                       prefetch_depth=args.prefetch_depth,
+                       prefetch_mode=args.prefetch_mode,
+                       num_sample_workers=args.num_sample_workers)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
 
 
@@ -141,8 +149,8 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
 def run_minibatch(eng, epochs: int, *, schedule: str = "conventional",
                   oracle_check: bool = False, infer: bool = False) -> dict:
     """One mini-batch epoch of `epochs` batches under ``schedule``
-    (`run_epoch_minibatch`; ``pipelined`` is refused, item 8b), CommStats
-    reset first.  Returns the losses, the final state, the StageTimes, the
+    (`run_epoch_minibatch`; ``pipelined`` with the engine's prefetch mode,
+    depth and workers), CommStats reset first.  Returns the losses, the final state, the StageTimes, the
     CommStats of the epoch and the accuracy of the final params on the last
     batch; with ``oracle_check`` also the reference run's losses and the
     largest per-step loss gap, and with ``infer`` the layer-wise sweep's
@@ -213,7 +221,21 @@ def parse_args(argv=None):
     ap.add_argument("--schedule", default="conventional",
                     choices=list(SCHEDULE_CHOICES),
                     help="mini-batch stage schedule (survey §6.1); "
-                         "pipelined is not ported yet")
+                         "pipelined runs the producer lane for real (prefetch "
+                         "thread or sampling processes, steps dispatched "
+                         "without a per-step sync)")
+    ap.add_argument("--prefetch-mode", default="thread",
+                    choices=list(PREFETCH_MODES),
+                    help="pipelined schedule's producer: 'thread' shares "
+                         "the trainer's GIL; 'process' runs sampling in a "
+                         "pool of worker processes over a shared-memory "
+                         "batch ring (/dev/shm must hold depth slots and "
+                         "the graph's CSR)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="pipelined schedule: batches built ahead of the "
+                         "device step")
+    ap.add_argument("--num-sample-workers", type=int, default=2,
+                    help="worker processes for --prefetch-mode process")
     ap.add_argument("--oracle-check", action="store_true",
                     help="rerun on the single-device reference; fail past 1e-4")
     ap.add_argument("--infer", action="store_true",
@@ -225,6 +247,7 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     join_group(args)
+    eng = None
     try:
         g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003,
                       seed=0)
@@ -240,6 +263,8 @@ def main(argv=None):
         return run_training(eng, args.epochs, oracle_check=args.oracle_check,
                             infer=args.infer)
     finally:
+        if eng is not None:
+            eng.close_prefetch_pool()
         leave_group(args)
 
 

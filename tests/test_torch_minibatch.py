@@ -222,8 +222,9 @@ def test_minibatch_rejects_bad_config():
     """The reference's guards (`test_minibatch_rejects_bad_config`): an
     unknown batching, a mini-batch mode under an async protocol, an
     unknown cache policy, fanouts short of num_layers, a replica family
-    under mini-batch, each a ValueError; trainable features (item 10) and
-    the pipelined schedule (item 8b) are not ported."""
+    under mini-batch, each a ValueError; trainable features (item 10) are
+    not ported; the pipelined schedule refuses an unknown prefetch mode and
+    a depth of 0."""
     g = sbm_graph(**SBM)
     for cfg in (EngineConfig(batching="nope"),
                 EngineConfig(batching="node_wise", protocol="variation"),
@@ -241,8 +242,12 @@ def test_minibatch_rejects_bad_config():
                                           trainable_features=True),
                           device=CPU)
     eng = DistGNNEngine(g, EngineConfig(batching="node_wise"), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        eng.run_epoch_minibatch(2, schedule="pipelined")
+    # the pipelined schedule runs (the blocking epoch's losses) and refuses
+    # an unknown prefetch mode
+    assert (eng.run_epoch_minibatch(2, schedule="pipelined")[1]
+            == eng.run_epoch_minibatch(2)[1])
+    with pytest.raises(ValueError, match="prefetch_mode"):
+        eng.run_epoch_minibatch(2, schedule="pipelined", prefetch_mode="nope")
     with pytest.raises(ValueError, match="schedule"):
         eng.run_epoch_minibatch(2, schedule="nope")
     eng.cfg.protocol = "epoch_fixed"  # mutated after construction
@@ -252,9 +257,10 @@ def test_minibatch_rejects_bad_config():
     for call in (full.make_minibatch_step, lambda: full.run_epoch_minibatch(2)):
         with pytest.raises(ValueError, match="full_graph"):
             call()
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(ValueError, match="prefetch_depth"):
         train_gnn.main(["--device", "cpu", "--batching", "node_wise",
-                        "--schedule", "pipelined", "--vertices", "48"])
+                        "--schedule", "pipelined", "--prefetch-depth", "0",
+                        "--vertices", "48"])
 
 
 def test_entry_points_on_one_rank():
