@@ -185,6 +185,7 @@ WKV_TOL = (1e-4, 1e-3)
 # bf16 wkv outputs: kernel and plain both compute in fp32 and round once to
 # bf16, which may land one bf16 step (2**-7 relative) apart
 WKV_BF16_TOL = (1e-4, 2.0 ** -7)
+WKV_TILE = 32  # steps a tile of the wkv kernel (csrc/wkv_chunk.cu kTile)
 
 
 # torch.sparse (the library yardstick only) warns that it is in beta
@@ -1190,44 +1191,76 @@ def attention_phase(device):
     return rows, launches
 
 
-def wkv_case(name, r, k, v, g, u, chunk, reps, tol=WKV_TOL, want=None):
+def wkv_case(name, r, k, v, g, u, chunk, reps, tol=WKV_TOL, want=None,
+             plain_ms=None):
     """One WKV case: the kernel against the plain per-step recurrence on the
     clipped g (no single PyTorch call computes it: library_ms null), the
-    times of both, and the bound."""
+    times of both (the plain version's from the one call that checks the
+    kernel), and the bound.  ``want`` and ``plain_ms``, where given, are the
+    plain version's output and time on these same inputs from an earlier
+    case (the chunk reaches only the kernel).  Returns the plain
+    output, the row (emitted by `wkv_phase` once the trace has given its
+    device time) and the call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv_chunk import G_MIN, wkv
 
     B, H, S, K = r.shape
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
-    def plain():
-        return want if want is not None else ref.wkv_chunk_ref(
-            r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+    def plain():  # timed: the recurrence takes about 0.4 s at S = 4096
+        if want is not None:
+            return want
+        events[0].record()
+        out = ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+        events[1].record()
+        return out
 
-    want, row = held(name, lambda: wkv(r, k, v, g, u, chunk=chunk), plain, "wkv",
-                     tol=tol)
+    def kernel():
+        return wkv(r, k, v, g, u, chunk=chunk)
+
+    given = want is not None
+    want, row = held(name, kernel, plain, "wkv", tol=tol)
+    if not given:
+        plain_ms = events[0].elapsed_time(events[1])
     # r, k, v, g, u read once and y written once; per step the recurrence's
     # flops, whatever the chunk: r . state (2K^2), the decay, k (x) v and the
     # sum (3K^2), the bonus (r u k) v (4K)
     least_bytes = r.element_size() * (5 * B * H * S * K + H * K)
     ops = B * H * S * (5 * K * K + 4 * K)
+    kernel_ms = cuda_ms(kernel, reps)
     row.update(kernel="wkv", case=name, B=B, H=H, S=S, K=K, chunk=chunk,
-               dtype=dtype_name(r.dtype),
-               kernel_ms=cuda_ms(lambda: wkv(r, k, v, g, u, chunk=chunk), reps),
-               plain_ms=cuda_ms(lambda: ref.wkv_chunk_ref(
-                   r, k, v, torch.clamp(g, G_MIN, 0.0), u), 1),
-               library_ms=None, **bound(least_bytes, ops))
-    emit("kernel", **row)
-    return want, row
+               dtype=dtype_name(r.dtype), kernel_ms=kernel_ms,
+               # the kernel walks S in tiles of WKV_TILE steps, whatever the
+               # chunk: the time a CTA spends on one
+               tile_us=kernel_ms * 1e3 / -(-S // WKV_TILE),
+               plain_ms=plain_ms, library_ms=None, **bound(least_bytes, ops))
+    return want, row, kernel
+
+
+def wkv_device_ms(calls) -> list:
+    """Each call's kernel time on the device from one profiler trace of all
+    of them in turn (`trace`), taken again up to TRACE_ATTEMPTS times until
+    it holds one wkv kernel a call."""
+    for _ in range(TRACE_ATTEMPTS):
+        spans, _, _ = trace(lambda: [call() for call in calls])
+        ms = [(t - s) / 1e3 for s, t, name in sorted(spans)
+              if "wkv_chunk_kernel" in name]
+        if len(ms) == len(calls):
+            return ms
+    check(False, f"wkv: {TRACE_ATTEMPTS} traces, the last holds {len(ms)} "
+          f"kernels for {len(calls)} calls")
 
 
 def wkv_phase(device):
     """The kernel API's wkv at rwkv6-3b width (40 heads of key dim 64,
     chunk 64) over four train_4k sequences, fp32, inputs drawn as
     tests/test_kernels.py draws them: the main path through `ops.wkv` with
-    launches counted from 0, then every kernel case, counted apart."""
+    launches counted from 0, then every kernel case, counted apart, each
+    row with its device time from one profiler trace of them all."""
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.rwkv6_3b import CONFIG
     from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv_chunk import kernel_resources
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(4)
@@ -1248,31 +1281,55 @@ def wkv_phase(device):
     check_counts(launches, dict(wkv=1), "wkv")
     check(y.shape == (B, H, S, K) and y.dtype == r.dtype, f"wkv {y.shape}")
     check(bool(torch.isfinite(y).all()), "wkv: non-finite output")
-    rows = []
-    want, row = wkv_case(f"rwkv6-3b train_4k x{B} chunk={C}", r, k, v, g, u, C, 10)
-    rows.append(row)
-    # the chunk only regroups the same sums: 16 and 32 within the tolerance
-    # of the plain version, and of chunk 64's output
-    for chunk in (16, 32):
+    cases = []  # (row, call)
+    want, row, call = wkv_case(f"rwkv6-3b train_4k x{B} chunk={C}", r, k, v, g,
+                               u, C, 10)
+    cases.append((row, call))
+    # the chunk no longer reaches the kernel's arithmetic: 16 and 32 equal
+    # chunk 64's output bit for bit (and so sit within the tolerance of the
+    # plain version), and so do chunks past the previous kernel's 128
+    for chunk in (16, 32, 256, S):
         got = ops.wkv(r, k, v, g, u, chunk=chunk)
         gap = float(((got - y).abs() - WKV_TOL[1] * y.abs()).max())
         check(gap <= WKV_TOL[0], f"wkv chunk {chunk} vs {C}: {gap}")
-        rows.append(wkv_case(f"chunk={chunk}", r, k, v, g, u, chunk, 10,
-                             want=want)[1])
+        check(torch.equal(got, y), f"wkv chunk {chunk}: not bitwise chunk {C}'s")
+        del got
+        cases.append(wkv_case(f"chunk={chunk}", r, k, v, g, u, chunk, 10,
+                              want=want, plain_ms=row["plain_ms"])[1:])
     del want, y
-    # g at the clip floor everywhere: finite at chunk 64 and past the 74 at
-    # which the reference's factorised form overflows
+    # g at the clip floor everywhere: finite at chunk 64, past the 74 at
+    # which the reference's factorised form overflows, and at one chunk
     floor = torch.full_like(g, -1.2)
-    want, row = wkv_case("g = -1.2 (clip floor)", r, k, v, floor, u, C, 10)
-    rows.append(row)
-    rows.append(wkv_case("g = -1.2, chunk=128", r, k, v, floor, u, 128, 10,
-                         want=want)[1])
-    del floor, want
-    rows.append(wkv_case("g below the clip floor", r, k, v, g * 8.0, u, C, 10)[1])
-    rows.append(wkv_case("bf16 inputs", *(t.bfloat16() for t in (r, k, v, g, u)),
-                         C, 10, tol=WKV_BF16_TOL)[1])
+    want, row, call = wkv_case("g = -1.2 (clip floor)", r, k, v, floor, u, C, 10)
+    cases.append((row, call))
+    for chunk in (128, S):
+        cases.append(wkv_case(f"g = -1.2, chunk={chunk}", r, k, v, floor, u,
+                              chunk, 10, want=want,
+                              plain_ms=row["plain_ms"])[1:])
+    del want
+    cases.append(wkv_case("g below the clip floor", r, k, v, g * 8.0, u, C,
+                          10)[1:])
+    cases.append(wkv_case("bf16 inputs", *(t.bfloat16() for t in (r, k, v, g, u)),
+                          C, 10, tol=WKV_BF16_TOL)[1:])
+    # a ragged last tile: 1000 steps, 31 tiles and 8 steps, one chunk
+    cases.append(wkv_case("S=1000 chunk=1000", *(t[:, :, :1000].contiguous()
+                                                 for t in (r, k, v, g)), u,
+                          1000, 10)[1:])
+    # narrower keys at the same B, H, S: the walk's cost with less arithmetic
+    # a tile (a tenth of K = 64's at K = 16)
+    for Kn in (32, 16):
+        cases.append(wkv_case(f"K={Kn}", *(t[..., :Kn].contiguous()
+                                           for t in (r, k, v, g)),
+                              u[:, :Kn].contiguous(), C, 10)[1:])
+    rows = [row for row, _ in cases]
+    for row, ms in zip(rows, wkv_device_ms([call for _, call in cases])):
+        row["kernel_device_ms"] = ms
+        emit("kernel", **row)
     emit("wkv", model=CONFIG.name, B=B, H=H, S=S, K=K, chunk=C,
          launches=launches, ms=rows[0]["kernel_ms"],
+         device_ms=rows[0]["kernel_device_ms"], tile=WKV_TILE,
+         resources={dtype_name(dt): kernel_resources(K, dt)
+                    for dt in (torch.float32, torch.bfloat16)},
          seconds=time.perf_counter() - t0)
     return rows, launches
 

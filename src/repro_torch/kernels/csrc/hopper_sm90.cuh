@@ -59,6 +59,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned) into
+// shared memory by the TMA unit; completes on `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's generic-proxy accesses of shared memory before later
+// async-proxy (TMA) writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {

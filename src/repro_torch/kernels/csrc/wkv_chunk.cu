@@ -5,238 +5,551 @@
 //     state <- e^{g_t} * state + k_t (x) v_t
 //
 //   r, k, v, g [BH, S, K] (fp32 or bf16, loaded to fp32), u [H, K], y [BH, S, K]
-//   in the inputs' dtype.  g is clipped to [g_min, 0] as it is loaded (g_min
-//   is -1.2 rounded to the inputs' dtype, as the reference clips in it).
+//   in the inputs' dtype, rounded once on the store.  g is clipped to
+//   [g_min, 0] as it is loaded (g_min is -1.2 rounded to the inputs' dtype,
+//   as the reference clips in it).
 //
 // Replaces the Pallas TPU kernel `_wkv_kernel` / `wkv_chunk_pallas`
-// (src/repro/kernels/wkv_chunk.py:26,67).  The TPU walks its grid in order
-// and carries the [K, K] state across the chunk axis in VMEM scratch; blocks
-// on this card run in no order, so one CTA per (b, h) walks the S / C chunks
-// itself with the state in shared memory.  Per chunk of C steps (L the
-// inclusive cumulative decay of each key channel, in log2 units; Lp the
-// exclusive one):
+// (src/repro/kernels/wkv_chunk.py:26,67, pallas_call :83).  The TPU walks its
+// grid in order and carries the [K, K] state across the chunk axis in VMEM
+// scratch; blocks on this card run in no order, so each CTA walks S itself
+// with its part of the state in registers.
 //
-//   1. L[t, i] = sum_{s <= t} g[s, i]                      (one thread per i)
-//   2. A[t, s] = sum_i r[t, i] k[s, i] 2^{Lp[t, i] - L[s, i]}   for s < t
-//      A[t, t] = sum_i r[t, i] u[i] k[t, i]                (the bonus)
-//   3. y[t, :] = sum_{s <= t} A[t, s] v[s, :] + (r[t, :] 2^{Lp[t, :]}) . state
-//   4. state  = 2^{L[C-1, :]} * state + (k 2^{L[C-1] - L})^T . v
+// The tile.  The kernel walks S in tiles of its own kTile = 32 steps, whatever
+// the caller's chunk: the chunk only regrouped the same sums, so it no longer
+// changes the kernel's arithmetic, and any chunk the wrapper accepts runs the
+// same code (a ragged last tile is masked: g = 0, r = k = v = 0 past S).  Per
+// tile (L the inclusive cumulative decay of each key channel in log2 units,
+// Lp the exclusive one, Le = L at the tile's last step):
 //
-// Every exponent is <= 0, so every factor is <= 1 and the kernel is finite
-// wherever the recurrence is, for any chunk.  The Pallas kernel factorises
-// step 2 as (r 2^{Lp}) . (k 2^{-L})^T, whose k 2^{-L} overflows fp32 once
-// 1.2 * C > 88 (C >= 74 at the clip floor); the pairwise form costs one
-// exp2 per (t, s, i) with s < t instead of one per (t, i).
+//   1. L = scan of g over the tile's steps; q = r 2^{Lp}, ke = k 2^{-L}
+//      (one exp2 per (t, i)); the bonus sum_i r u k per step
+//   2. A[t, s] = q[t] . ke[s] for s < t, A[t, t] = the bonus, 0 above
+//   3. y = q . state + A . v
+//   4. state <- 2^{Le} (state + ke^T . v)
 //
-// The value columns are independent (y[:, j] and state[:, j] read only
-// v[:, j]), but this version keeps all K columns in one CTA: splitting them
-// would repeat step 2, which dominates.  160 CTAs at B = 4, H = 40, two per
-// SM fit in shared memory (about 100 KB each at C = K = 64).
+// This is the reference's factored form (q_eff k_eff^T), not pairwise
+// decays 2^{Lp[t]-L[s]}, which cost one exp2 per (t, s, i).  The exponent
+// margin: g >= -1.2 gives at most 1.2 log2(e) = 1.731 bits of decay a step,
+// so within a tile |L| <= 32 * 1.731 = 55.4 bits
+// (at 64 steps 110.8, still under fp32's 127; the reference overflows from
+// 74 steps, its chunk).  So ke <= |k| 2^55.4, every product and sum of steps 2
+// to 4 is finite for |k v| far past any real input, and 2^{Lp} r stays a
+// normal number for |r| > 2^-70.  Each product q[t] ke[s] with s < t equals
+// r k 2^{Lp[t]-L[s]} <= |r k| up to the rounding of two exp2; step 4's sum
+// carries the state's rounding at the scale of 2^{Le} state + sum_t 2^{Le-L}
+// k v, as the unfactored update does.
 //
-// Bound on this card: operations (fp32 FFMA and the exp2 of step 2; the
-// inputs and y are read and written once).  Sums run in a fixed order, so
-// two launches give bitwise equal outputs.
+// The products.  Steps 2 to 4 are four small matrix products a tile
+// ([32 x K] [K x 32], [32 x K] [K x VB], [32 x 32] [32 x VB], [K x 32]
+// [32 x VB]), run on the tensor cores as mma.sync m16n8k8 in 3xTF32: each
+// fp32 operand x is split into tf32 parts hi + lo (x - hi - lo within 2^-20
+// of x), and a b is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b in fp32, in
+// three accumulators (three independent chains of mma), which keeps the
+// error near that of fp32 FFMA (a one-pass TF32 product, 2^-11 of each term,
+// would not hold 1e-4 near zero).  A warp owns 16 rows of the state, in
+// accumulator registers, across the whole walk; y's first half and A share
+// the split fragments of q.
+//
+// The CTA.  The value columns are independent (y[:, j] and state[:, j] read
+// only v[:, j]), so a CTA takes one (b, h) and VB = min(K, 32) value columns:
+// B H K / VB CTAs, 320 at B 4, H 40, K 64, each recomputing steps 1 and 2 for
+// its tile (2x on those, nothing more in DRAM bytes: the two CTAs of one
+// (b, h) are adjacent in the grid and read r, k, g, v through L2 together).
+// 128 threads, three CTAs an SM (__launch_bounds__(128, 3): <= 168 registers
+// a thread; ptxas gives 155 at K = 64 in fp32, 152 in bf16, no spill), so
+// all 320 CTAs of the main row run at once.  The tile's r, k, g and v arrive
+// as four bulk copies of the TMA unit (8 KB each at K = 64, fp32) into one
+// stage, completing on an mbarrier; the next tile's copies start as soon as
+// step 1 has read the stage and land while this tile's products run.
+// A copy a row (128 a tile), or cp.async of 16 bytes a thread, stalled the
+// issuing warps on the H100: the copy's cost is its count of requests, not
+// its bytes.  Step 1 writes q, ke and the CTA's v columns as fp32 into padded
+// arrays whose strides make every fragment load of the products free of bank
+// conflicts or at most 2-way.  Shared memory a CTA: 71,176 bytes at K = 64 in
+// fp32, 54,792 in bf16 (`wkv_chunk_smem_bytes`).
+//
+// The shape: one pass.  The walk is paced by its arithmetic, not by its
+// serial chain: at K = 16, with a tenth of the arithmetic a tile, a tile
+// takes two fifths as long (`chip_smoke.py`'s wkv phase, `tile_us`).  The
+// two-pass shape (a state pass writing each tile's starting state, then an
+// output pass parallel over tiles) would add a 168 MB workspace and a second
+// read of k, v, g, a DRAM floor of 0.45-0.5 ms at the main row, to shorten
+// a chain that costs less.  A cluster of the two CTAs of a (b, h), each
+// doing half of steps 1 and 2 and writing the results into both through
+// distributed shared memory, was slower than the recomputation: its two
+// cluster barriers a tile cost more than the halved work saves.
+//
+// Bound on this card: bytes (r, k, v, g read once and y written once: 0.250
+// ms at B 4, H 40, S 4096, K 64 in fp32; the function's 5 K^2 + 4 K flops a
+// step take 0.203 ms at the fp32 rate).  The kernel is bound by its rate of
+// instructions, most of them the fragments' loads and splits around the
+// mma.  Sums run in a fixed order and no float atomics are used, so two
+// launches give bitwise equal outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 8;  // output rows (step 3) or state rows (step 4) per thread pass
+using sm90::bulk_load;
+using sm90::fence_proxy_async;
+using sm90::mbar_expect_tx;
+using sm90::mbar_fence_init;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+
+constexpr int kThreads = 128;  // four warps
+constexpr int kCtasPerSm = 3;
+constexpr int kTile = 32;      // steps a tile
+constexpr int kCopier = 64;    // the thread that starts the copies: warp 2's first
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// shared-memory layout (floats) for key width K and chunk C
-struct WkvLayout {
-  int CR;  // rows of R and A: C rounded up to kTile (extra rows stay 0)
-  int CP;  // row stride of KT and A, and rows of V: C rounded up to 4, + 4
-  int LS;  // row stride of LT: odd, so a warp walking i is conflict-free
-  int r, kt, v, lt, a, st, u, total;
-  __host__ __device__ WkvLayout(int K, int C) {
-    CR = (C + kTile - 1) / kTile * kTile;
-    CP = (C + 3) / 4 * 4 + 4;
-    LS = C % 2 ? C : C + 1;
-    r = 0;                 // R  [CR][K]   r, then r 2^{Lp}
-    kt = r + CR * K;       // KT [K][CP]   k transposed, then k 2^{L_end - L}
-    v = kt + K * CP;       // V  [CP][K]
-    lt = v + CP * K;       // LT [K][LS]   g, then L
-    a = lt + K * LS;       // A  [CR][CP]
-    st = a + CR * CP;      // St [K][K]    the carried state
-    u = st + K * K;        // U  [K]
-    total = u + K;
-  }
+// four consecutive elements as fp32 (16 bytes of fp32 or 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 2^x for x in [-56, 56]: one MUFU op, relative error about 2^-22
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- 3xTF32 on mma.sync m16n8k8 ---------------------------------------------
+
+// x = hi + lo exactly, hi = x cut to tf32's 10 mantissa bits (one LOP3, not
+// cvt.rna.tf32.f32, which sm_90 runs as four instructions); the mma reads
+// the top 19 bits of each operand, so lo loses under 2^-10 of itself, 2^-20
+// of x
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A lane's share of a 16 x 8 A (rows m, columns k) and of an 8 x 8 B (rows
+// k, columns n), gid = lane / 4, tig = lane % 4: A (gid, tig), (gid + 8, tig),
+// (gid, tig + 4), (gid + 8, tig + 4); B (tig, gid), (tig + 4, gid).  The
+// accumulator holds (gid, 2 tig), (gid, 2 tig + 1), (gid + 8, 2 tig) and
+// (gid + 8, 2 tig + 1).
+struct FragA {
+  Split x[4];
+};
+struct FragB {
+  Split x[2];
+};
+
+// A at (m0, k0) of a matrix whose element (m, k) is p[m * ld + k]
+__device__ __forceinline__ FragA frag_a_mk(const float* p, int ld, int m0, int k0,
+                                           int gid, int tig) {
+  const float* q = p + (m0 + gid) * ld + k0 + tig;
+  return {{split(q[0]), split(q[8 * ld]), split(q[4]), split(q[8 * ld + 4])}};
+}
+// ... whose element (m, k) is p[k * ld + m]
+__device__ __forceinline__ FragA frag_a_km(const float* p, int ld, int m0, int k0,
+                                           int gid, int tig) {
+  const float* q = p + (k0 + tig) * ld + m0 + gid;
+  return {{split(q[0]), split(q[8]), split(q[4 * ld]), split(q[4 * ld + 8])}};
+}
+// B at (k0, n0) of a matrix whose element (k, n) is p[k * ld + n]
+__device__ __forceinline__ FragB frag_b_kn(const float* p, int ld, int k0, int n0,
+                                           int gid, int tig) {
+  const float* q = p + (k0 + tig) * ld + n0 + gid;
+  return {{split(q[0]), split(q[4 * ld])}};
+}
+// ... whose element (k, n) is p[n * ld + k]
+__device__ __forceinline__ FragB frag_b_nk(const float* p, int ld, int k0, int n0,
+                                           int gid, int tig) {
+  const float* q = p + (n0 + gid) * ld + k0 + tig;
+  return {{split(q[0]), split(q[4])}};
+}
+
+// a b to fp32 accuracy in three accumulators, three independent chains of
+// mma: the two small products and the big one; `total` sums them, small first
+struct Acc3 {
+  float lo[4], mid[4], hi[4];
+};
+__device__ __forceinline__ void zero(Acc3& d) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d.lo[e] = d.mid[e] = d.hi[e] = 0.f;
+}
+__device__ __forceinline__ void mma3(Acc3& d, const FragA& a, const FragB& b) {
+  mma_tf32(d.lo, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, b.x[0].hi, b.x[1].hi);
+  mma_tf32(d.mid, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b.x[0].lo, b.x[1].lo);
+  mma_tf32(d.hi, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b.x[0].hi, b.x[1].hi);
+}
+__device__ __forceinline__ float total(const Acc3& d, int e) {
+  return (d.lo[e] + d.mid[e]) + d.hi[e];
+}
+
+// The shared-memory layout (byte offsets) for input type T and key width K.
+template <typename T, int K>
+struct Layout {
+  static constexpr int VB = K < 32 ? K : 32;  // value columns a CTA
+  // row strides (floats): Q and KE [kTile][QS] are read with k along a row
+  // (QS = 4 mod 8: conflict-free), V [kTile][VS] and the state St [K][VS]
+  // with k down a column (VS = 8 mod 16), A [kTile][AS] with k along a row
+  static constexpr int QS = K + 4;
+  static constexpr int VS = VB + 8;
+  static constexpr int AS = kTile + 4;
+  // the stage: r, k, g, v [kTile][K] each, as the bulk copies bring them
+  static constexpr int kArray = kTile * K * (int)sizeof(T);
+  static constexpr int kQ = 4 * kArray;
+  static constexpr int kKE = kQ + kTile * QS * 4;
+  static constexpr int kV = kKE + kTile * QS * 4;
+  static constexpr int kA = kV + kTile * VS * 4;
+  static constexpr int kState = kA + kTile * AS * 4;
+  static constexpr int kLe = kState + K * VS * 4;    // Le [K]
+  static constexpr int kU = kLe + K * 4;             // U [K]
+  static constexpr int kBonus = kU + K * 4;          // Bon [K / 16][kTile]
+  static constexpr int kBar = kBonus + K / 16 * kTile * 4;  // the stage's mbarrier
+  static constexpr int kBytes = kBar + 8;
 };
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads, 2)  // two CTAs per SM: <= 128 registers
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
-                 const T* __restrict__ u, T* __restrict__ y, int H, int S, int C,
+                 const T* __restrict__ u, T* __restrict__ y, int H, int S,
                  float g_min) {
-  extern __shared__ __align__(16) float sm[];
-  const WkvLayout lay(K, C);
-  const int CP = lay.CP, LS = lay.LS;
-  float* R = sm + lay.r;
-  float* KT = sm + lay.kt;
-  float* V = sm + lay.v;
-  float* LT = sm + lay.lt;
-  float* A = sm + lay.a;
-  float* St = sm + lay.st;
-  float* U = sm + lay.u;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x, h = bh % H;
+  using Lay = Layout<T, K>;
+  constexpr int VB = Lay::VB, QS = Lay::QS, VS = Lay::VS, AS = Lay::AS;
+  constexpr int NT = VB / 8;   // n8 tiles of the state's columns
+  constexpr int YN = VB / 16;  // n8 tiles of y a warp
+  static_assert(K % 16 == 0 && K <= 64, "K in {16, 32, 64}");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* raw = reinterpret_cast<const T*>(smem);  // r, k, g, v of the tile
+  float* Q = reinterpret_cast<float*>(smem + Lay::kQ);
+  float* KE = reinterpret_cast<float*>(smem + Lay::kKE);
+  float* V = reinterpret_cast<float*>(smem + Lay::kV);
+  float* As = reinterpret_cast<float*>(smem + Lay::kA);
+  float* St = reinterpret_cast<float*>(smem + Lay::kState);
+  float* Le = reinterpret_cast<float*>(smem + Lay::kLe);
+  float* U = reinterpret_cast<float*>(smem + Lay::kU);
+  float* Bon = reinterpret_cast<float*>(smem + Lay::kBonus);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lay::kBar);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x / (K / VB), jv = blockIdx.x % (K / VB) * VB;
+  const int h = bh % H;
   const long long base = (long long)bh * S * K;
+  const int ntiles = (S + kTile - 1) / kTile;
 
-  // zero everything once: the padding rows and columns stay 0 throughout
-  for (int i = tid; i < lay.total; i += kThreads) sm[i] = 0.f;
-  __syncthreads();
   for (int i = tid; i < K; i += kThreads) U[i] = to_f(u[h * K + i]);
-
-  const int j = tid % K;           // the value column of steps 3 and 4
-  const int grp = tid / K, ngrp = kThreads / K;
-
-  for (int t0 = 0; t0 < S; t0 += C) {
-    // stage the chunk (g clipped to [g_min, 0], in log2 units)
-    for (int idx = tid; idx < C * K; idx += kThreads) {
-      const int t = idx / K, i = idx % K;
-      const long long gi = base + (long long)(t0 + t) * K + i;
-      R[t * K + i] = to_f(r[gi]);
-      KT[i * CP + t] = to_f(k[gi]);
-      V[t * K + i] = to_f(v[gi]);
-      LT[i * LS + t] = fminf(fmaxf(to_f(g[gi]), g_min), 0.f) * kLog2e;
-    }
-    __syncthreads();
-    // 1. the inclusive cumulative decay, one thread per key channel
-    for (int i = tid; i < K; i += kThreads) {
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        acc += LT[i * LS + t];
-        LT[i * LS + t] = acc;
-      }
-    }
-    __syncthreads();
-    // 2. the intra-chunk weights: strictly past pairwise, the bonus on the
-    //    diagonal, 0 above it
-    for (int idx = tid; idx < C * C; idx += kThreads) {
-      const int t = idx / C, s = idx % C;
-      float a = 0.f;
-      if (s < t) {
-#pragma unroll 8
-        for (int i = 0; i < K; ++i)
-          a = fmaf(R[t * K + i] * KT[i * CP + s],
-                   exp2f(LT[i * LS + t - 1] - LT[i * LS + s]), a);
-      } else if (s == t) {
-#pragma unroll 8
-        for (int i = 0; i < K; ++i) a = fmaf(R[t * K + i] * U[i], KT[i * CP + t], a);
-      }
-      A[t * CP + s] = a;
-    }
-    __syncthreads();
-    // decay r to the chunk start and k to the chunk end
-    for (int idx = tid; idx < C * K; idx += kThreads) {
-      const int t = idx / K, i = idx % K;
-      const float* L = LT + i * LS;
-      R[t * K + i] *= exp2f(t > 0 ? L[t - 1] : 0.f);
-      KT[i * CP + t] *= exp2f(L[C - 1] - L[t]);
-    }
-    __syncthreads();
-    // 3. y: kTile output rows per pass, column j
-    for (int tb = grp * kTile; tb < C; tb += ngrp * kTile) {
-      float acc[kTile];
-#pragma unroll
-      for (int e = 0; e < kTile; ++e) acc[e] = 0.f;
-      for (int s = 0; s < CP - 4; s += 4) {
-        const float v0 = V[s * K + j], v1 = V[(s + 1) * K + j];
-        const float v2 = V[(s + 2) * K + j], v3 = V[(s + 3) * K + j];
-#pragma unroll
-        for (int e = 0; e < kTile; ++e) {
-          const float4 w = *reinterpret_cast<const float4*>(A + (tb + e) * CP + s);
-          acc[e] = fmaf(w.w, v3, fmaf(w.z, v2, fmaf(w.y, v1, fmaf(w.x, v0, acc[e]))));
-        }
-      }
-#pragma unroll 4
-      for (int i = 0; i < K; i += 4) {
-        const float s0 = St[i * K + j], s1 = St[(i + 1) * K + j];
-        const float s2 = St[(i + 2) * K + j], s3 = St[(i + 3) * K + j];
-#pragma unroll
-        for (int e = 0; e < kTile; ++e) {
-          const float4 q = *reinterpret_cast<const float4*>(R + (tb + e) * K + i);
-          acc[e] = fmaf(q.w, s3, fmaf(q.z, s2, fmaf(q.y, s1, fmaf(q.x, s0, acc[e]))));
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < kTile; ++e)
-        if (tb + e < C) store(y + base + (long long)(t0 + tb + e) * K + j, acc[e]);
-    }
-    __syncthreads();
-    // 4. the state update: kTile state rows per pass, column j
-    for (int ib = grp * kTile; ib < K; ib += ngrp * kTile) {
-      float acc[kTile];
-#pragma unroll
-      for (int e = 0; e < kTile; ++e)
-        acc[e] = St[(ib + e) * K + j] * exp2f(LT[(ib + e) * LS + C - 1]);
-      for (int s = 0; s < CP - 4; s += 4) {
-        const float v0 = V[s * K + j], v1 = V[(s + 1) * K + j];
-        const float v2 = V[(s + 2) * K + j], v3 = V[(s + 3) * K + j];
-#pragma unroll
-        for (int e = 0; e < kTile; ++e) {
-          const float4 w = *reinterpret_cast<const float4*>(KT + (ib + e) * CP + s);
-          acc[e] = fmaf(w.w, v3, fmaf(w.z, v2, fmaf(w.y, v1, fmaf(w.x, v0, acc[e]))));
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < kTile; ++e) St[(ib + e) * K + j] = acc[e];
-    }
-    __syncthreads();
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  // tile c's rows of r, k, g and v (all K columns), four bulk copies
+  auto load_tile = [&](int c) {
+    const int t0 = c * kTile;
+    const uint32_t bytes = min(kTile, S - t0) * K * (uint32_t)sizeof(T);
+    mbar_expect_tx(bar, 4 * bytes);
+    const T* const src[4] = {r, k, g, v};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      bulk_load(smem + a * Lay::kArray, src[a] + base + (long long)t0 * K, bytes, bar);
+  };
+  if (tid == kCopier) load_tile(0);
+
+  // warp w owns state rows 16 w .. 16 w + 15 (where 16 w < K, every warp at
+  // K = 64: known at compile time, so the shuffles below need no guard for
+  // divergence), every column
+  const bool s_owner = K == 64 || 16 * warp < K;
+  float st[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+  // and y rows ym .. ym + 15, columns yn .. yn + 8 YN - 1; warps 0, 1, 3
+  // also A's block of rows ym .. ym + 15 and columns an .. an + 15: (0, 0),
+  // (1, 0), (1, 1); warp 2, which has none, starts the copies (kCopier)
+  const int ym = 16 * (warp & 1), yn = (warp >> 1) * 8 * YN;
+  const bool a_owner = warp != 2;
+  const int an = warp == 3 ? 16 : 0;
+  // step 1: warp w takes key channels 16 w .. 16 w + 15 (where 16 w < K); a
+  // lane 4 channels i0 .. i0 + 3 of the 4 steps 4 seg .. 4 seg + 3
+  const int seg = lane >> 2, i0 = 16 * warp + 4 * (lane & 3);
+  const bool scanner = K == 64 || 16 * warp < K;
+
+  for (int c = 0; c < ntiles; ++c) {
+    const int t0 = c * kTile, rows = min(kTile, S - t0);
+    mbar_wait(bar, c & 1);
+    __syncthreads();  // tile c staged; every read of tile c - 1 done
+    if (s_owner) {  // the state at the tile's start
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float* p = St + (16 * warp + gid) * VS + 8 * n + 2 * tig;
+        *reinterpret_cast<float2*>(p) = make_float2(st[n][0], st[n][1]);
+        *reinterpret_cast<float2*>(p + 8 * VS) = make_float2(st[n][2], st[n][3]);
+      }
+    }
+    // the CTA's v columns in fp32 (rows past S: 0)
+    for (int idx = tid; idx < kTile * VB / 4; idx += kThreads) {
+      const int row = idx / (VB / 4), c4 = idx % (VB / 4);
+      *reinterpret_cast<float4*>(V + row * VS + 4 * c4) =
+          row < rows ? load4(raw + 3 * kTile * K + row * K + jv + 4 * c4)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    // 1. the decay scan, q, ke, the bonus
+    if (scanner) {
+      float L[4][4];  // [step j][channel e]: in the thread's 4 steps, then whole
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = 4 * seg + j;
+        const float4 g4 = t < rows ? load4(raw + 2 * kTile * K + t * K + i0)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float gl[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          L[j][e] = fminf(fmaxf(gl[e], g_min), 0.f) * kLog2e;
+          if (j) L[j][e] += L[j - 1][e];
+        }
+      }
+      // the segments' totals scanned across the 8 lanes of a channel group
+      float ex[4], prev[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float incl = L[3][e];
+#pragma unroll
+        for (int d = 1; d < 8; d <<= 1) {
+          const float o = __shfl_up_sync(0xffffffffu, incl, 4 * d);
+          if (seg >= d) incl += o;
+        }
+        ex[e] = __shfl_up_sync(0xffffffffu, incl, 4);
+        if (seg == 0) ex[e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) L[j][e] += ex[e];
+        // Lp of the segment's first step: L of the step before, as it was summed
+        prev[e] = __shfl_up_sync(0xffffffffu, L[3][e], 4);
+        if (seg == 0) prev[e] = 0.f;
+      }
+      if (seg == 7) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) Le[i0 + e] = L[3][e];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = 4 * seg + j;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 r4 = t < rows ? load4(raw + t * K + i0) : zero;
+        const float4 k4 = t < rows ? load4(raw + kTile * K + t * K + i0) : zero;
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w}, kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        float q[4], ke[4], bonus = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          q[e] = rr[e] * ex2(j ? L[j - 1][e] : prev[e]);
+          ke[e] = kk[e] * ex2(-L[j][e]);
+          bonus = fmaf(rr[e] * U[i0 + e], kk[e], bonus);
+        }
+        *reinterpret_cast<float4*>(Q + t * QS + i0) = make_float4(q[0], q[1], q[2], q[3]);
+        *reinterpret_cast<float4*>(KE + t * QS + i0) = make_float4(ke[0], ke[1], ke[2], ke[3]);
+        // the warp's 16 channels: the same sum on each of the 4 lanes
+        bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
+        bonus += __shfl_xor_sync(0xffffffffu, bonus, 2);
+        if ((lane & 3) == 0) Bon[warp * kTile + t] = bonus;
+      }
+    }
+    fence_proxy_async();  // the stage is read: the TMA may write it again
+    __syncthreads();      // q, ke, v, Le and the bonus partials in place
+    if (tid == kCopier && c + 1 < ntiles) load_tile(c + 1);
+
+    // 3 (first half) and 2. y = q . state, and A = q . ke^T on the warp's
+    // block, from the same fragments of q
+    Acc3 acc[YN], w[2];
+#pragma unroll
+    for (int n = 0; n < YN; ++n) zero(acc[n]);
+    zero(w[0]);
+    zero(w[1]);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const FragA a = frag_a_mk(Q, QS, ym, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < YN; ++n) mma3(acc[n], a, frag_b_kn(St, VS, k0, yn + 8 * n, gid, tig));
+      if (a_owner) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma3(w[n], a, frag_b_nk(KE, QS, k0, an + 8 * n, gid, tig));
+      }
+    }
+    if (a_owner) {  // strictly past, the bonus on the diagonal, 0 above
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = ym + gid + 8 * half;
+        float bonus = 0.f;
+#pragma unroll
+        for (int b = 0; b < K / 16; ++b) bonus += Bon[b * kTile + t];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int s = an + 8 * n + 2 * tig;
+          float out[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float past = total(w[n], 2 * half + e);
+            out[e] = s + e < t ? past : s + e == t ? bonus : 0.f;
+          }
+          *reinterpret_cast<float2*>(As + t * AS + s) = make_float2(out[0], out[1]);
+        }
+      }
+    }
+    // 4. state <- 2^{Le} (state + ke^T . v)
+    if (s_owner) {
+      Acc3 upd[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) zero(upd[n]);
+#pragma unroll
+      for (int k0 = 0; k0 < kTile; k0 += 8) {
+        const FragA a = frag_a_km(KE, QS, 16 * warp, k0, gid, tig);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma3(upd[n], a, frag_b_kn(V, VS, k0, 8 * n, gid, tig));
+      }
+      const float d0 = ex2(Le[16 * warp + gid]), d1 = ex2(Le[16 * warp + gid + 8]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[n][e] = (((st[n][e] + upd[n].lo[e]) + upd[n].mid[e]) + upd[n].hi[e]) *
+                     (e < 2 ? d0 : d1);
+      }
+    }
+    __syncthreads();  // A in place
+
+    // 3 (second half). y += A . v over the row block's own and earlier steps
+    for (int k0 = 0; k0 < ym + 16; k0 += 8) {
+      const FragA a = frag_a_mk(As, AS, ym, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < YN; ++n) mma3(acc[n], a, frag_b_kn(V, VS, k0, yn + 8 * n, gid, tig));
+    }
+#pragma unroll
+    for (int n = 0; n < YN; ++n) {
+      const int t = ym + gid, col = jv + yn + 8 * n + 2 * tig;
+      if (t < rows)
+        store2(y + base + (long long)(t0 + t) * K + col, total(acc[n], 0), total(acc[n], 1));
+      if (t + 8 < rows)
+        store2(y + base + (long long)(t0 + t + 8) * K + col, total(acc[n], 2),
+               total(acc[n], 3));
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t prepare(void (**kernel)(const T*, const T*, const T*, const T*,
+                                    const T*, T*, int, int, float)) {
+  *kernel = wkv_chunk_kernel<T, K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T, K>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <typename T, int K>
 int launch(const void* r, const void* k, const void* v, const void* g, const void* u,
-           void* y, int BH, int H, int S, int C, float g_min,
-           cudaStream_t stream) {
-  const int bytes = WkvLayout(K, C).total * (int)sizeof(float);
-  auto kernel = wkv_chunk_kernel<T, K>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+           void* y, int BH, int H, int S, float g_min, cudaStream_t stream) {
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int, int, float);
+  const cudaError_t err = prepare<T, K>(&kernel);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<BH, kThreads, bytes, stream>>>(
+  kernel<<<BH * (K / Layout<T, K>::VB), kThreads, Layout<T, K>::kBytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(y), H, S, C,
+      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(y), H, S,
       g_min);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int K>
+int ctas_per_sm() {
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int, int, float);
+  cudaError_t err = prepare<T, K>(&kernel);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                        Layout<T, K>::kBytes);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 template <typename T>
 int launch_k(const void* r, const void* k, const void* v, const void* g, const void* u,
-             void* y, int BH, int H, int S, int K, int C, float g_min,
-             cudaStream_t stream) {
+             void* y, int BH, int H, int S, int K, float g_min, cudaStream_t stream) {
   switch (K) {
-    case 16: return launch<T, 16>(r, k, v, g, u, y, BH, H, S, C, g_min, stream);
-    case 32: return launch<T, 32>(r, k, v, g, u, y, BH, H, S, C, g_min, stream);
-    case 64: return launch<T, 64>(r, k, v, g, u, y, BH, H, S, C, g_min, stream);
+    case 16: return launch<T, 16>(r, k, v, g, u, y, BH, H, S, g_min, stream);
+    case 32: return launch<T, 32>(r, k, v, g, u, y, BH, H, S, g_min, stream);
+    case 64: return launch<T, 64>(r, k, v, g, u, y, BH, H, S, g_min, stream);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int occupancy_k(int K) {
+  switch (K) {
+    case 16: return ctas_per_sm<T, 16>();
+    case 32: return ctas_per_sm<T, 32>();
+    case 64: return ctas_per_sm<T, 64>();
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  BH, S >= 1, K in {16, 32, 64},
-// 1 <= C <= 128 with S % C == 0 (the wrapper checks), bf16 = 1 for bf16
+// 16-byte aligned contiguous tensors (the wrapper checks), bf16 = 1 for bf16
 // inputs and output, 0 for fp32, g_min the decay's clip floor.  Returns
 // cudaGetLastError() after the launch; 0 means it was accepted.
 extern "C" int wkv_chunk_launch(const void* r, const void* k, const void* v,
                                 const void* g, const void* u, void* y, int BH, int H,
-                                int S, int K, int C, int bf16, float g_min,
-                                void* stream) {
+                                int S, int K, int bf16, float g_min, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_k<__nv_bfloat16>(r, k, v, g, u, y, BH, H, S, K, C, g_min, s);
-  return launch_k<float>(r, k, v, g, u, y, BH, H, S, K, C, g_min, s);
+  if (bf16) return launch_k<__nv_bfloat16>(r, k, v, g, u, y, BH, H, S, K, g_min, s);
+  return launch_k<float>(r, k, v, g, u, y, BH, H, S, K, g_min, s);
+}
+
+// CTAs of the kernel for key width K that fit on one SM (the occupancy
+// calculator's answer), or minus a CUDA error code.
+extern "C" int wkv_chunk_ctas_per_sm(int K, int bf16) {
+  return bf16 ? occupancy_k<__nv_bfloat16>(K) : occupancy_k<float>(K);
+}
+
+// the bytes of shared memory a CTA takes
+extern "C" int wkv_chunk_smem_bytes(int K, int bf16) {
+  switch (K * 2 + (bf16 ? 1 : 0)) {
+    case 32: return Layout<float, 16>::kBytes;
+    case 33: return Layout<__nv_bfloat16, 16>::kBytes;
+    case 64: return Layout<float, 32>::kBytes;
+    case 65: return Layout<__nv_bfloat16, 32>::kBytes;
+    case 128: return Layout<float, 64>::kBytes;
+    case 129: return Layout<__nv_bfloat16, 64>::kBytes;
+    default: return -1;
+  }
 }
 
 extern "C" const char* wkv_chunk_error_string(int err) {

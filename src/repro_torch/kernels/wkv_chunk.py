@@ -6,14 +6,30 @@
     y_t = r_t . (state + u (x) (k_t (x) v_t)),  state <- e^{g_t} state + k_t (x) v_t
 
 r, k, v, g [B,H,S,K] and u [H,K], fp32 or bf16 (all alike, computed in
-fp32), K in {16, 32, 64}; y [B,H,S,K] in r's dtype.  g is clipped to
-[-1.2, 0] (-1.2 rounded to the inputs' dtype) inside the kernel, as
-`wkv_chunk_pallas` clips it before its call.  The kernel walks each (b, h) in chunks of ``chunk`` steps; the result
-does not depend on the chunk beyond rounding.  Forward only, as the Pallas
+fp32), K in {16, 32, 64}; y [B,H,S,K] in r's dtype, rounded once.  g is
+clipped to [-1.2, 0] (-1.2 rounded to the inputs' dtype) inside the kernel,
+as `wkv_chunk_pallas` clips it before its call.  Forward only, as the Pallas
 kernel: it has no gradient rule.
+
+``chunk`` is checked as the reference asserts it (S a multiple of
+``min(chunk, S)``), and any chunk that passes is taken, but it no longer
+changes the kernel's arithmetic: the kernel walks S in tiles of its own 32
+steps (a ragged last tile masked), where the factored intra-tile weights
+r 2^{Lp} . (k 2^{-L})^T keep every exponent at or under 55.4 bits at the
+clip floor, against fp32's 127.  A CTA takes one (b, h) and 32 value
+columns (320 CTAs at rwkv6-3b's B 4, H 40, K 64), three an SM, 71,176
+bytes of shared memory each at K = 64 in fp32; the tile's r, k, g, v come
+as four TMA bulk copies, the next tile's in flight while this one is
+computed, and the four products a tile run on the tensor cores as
+mma.sync in 3xTF32 (each fp32 operand split into two tf32 parts, three
+products summed in fp32: no one-pass TF32).  The kernel is bound by bytes
+on the H100: r, k, v, g read and y written once, 0.250 ms at B 4, H 40,
+S 4096, K 64 in fp32.  Sums run in a fixed order, so two launches are
+bitwise equal, and the output is the same at every chunk.
 
 A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on the clipped
 g); a CUDA tensor launches the kernel on the current stream or raises.
+`wkv.launches` counts one a call that launches.
 """
 from __future__ import annotations
 
@@ -25,7 +41,6 @@ import torch
 from repro_torch.kernels import build, ref
 
 KEY_DIMS = (16, 32, 64)  # the widths the kernel is instantiated for
-MAX_CHUNK = 128  # its tiles take 217,600 bytes of shared memory at K = 64
 G_MIN = -1.2  # the decay clip floor shared with the reference's ssm.py
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -34,17 +49,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _library() -> ctypes.CDLL:
     lib = build.load("wkv_chunk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv_chunk_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+    lib.wkv_chunk_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                      ctypes.c_float, p]
     lib.wkv_chunk_launch.restype = ctypes.c_int
     lib.wkv_chunk_error_string.argtypes = [ctypes.c_int]
     lib.wkv_chunk_error_string.restype = ctypes.c_char_p
+    for name in ("wkv_chunk_ctas_per_sm", "wkv_chunk_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _check(r, k, v, g, u, chunk: int) -> int:
-    """The checks both paths make; returns the chunk the walk uses
-    (``min(chunk, S)``, as the reference takes it)."""
+def kernel_resources(K: int, dtype: torch.dtype) -> dict:
+    """The kernel's CTAs an SM (the occupancy calculator's answer on the
+    current card) and shared-memory bytes a CTA, for key width K."""
+    lib, bf16 = _library(), int(dtype == torch.bfloat16)
+    return dict(ctas_per_sm=lib.wkv_chunk_ctas_per_sm(K, bf16),
+                smem_bytes=lib.wkv_chunk_smem_bytes(K, bf16))
+
+
+def _check(r, k, v, g, u, chunk: int) -> None:
+    """The checks both paths make; ``chunk`` as the reference asserts it
+    (S a multiple of ``min(chunk, S)``)."""
     seq = (r, k, v, g)
     if r.dim() != 4 or any(t.shape != r.shape for t in seq):
         raise ValueError(f"wkv wants r, k, v, g [B,H,S,K] alike; got "
@@ -63,25 +89,24 @@ def _check(r, k, v, g, u, chunk: int) -> int:
     chunk = min(int(chunk), S)
     if chunk < 1 or S % chunk:
         raise ValueError(f"wkv walks S={S} in whole chunks; got chunk={chunk}")
-    return chunk
 
 
-def _check_kernel(r, k, v, g, u, chunk: int) -> None:
-    """What the CUDA kernel takes beyond `_check`: K in `KEY_DIMS`, chunk up
-    to `MAX_CHUNK`, no gradient, contiguous tensors, 32-bit offsets."""
+def _check_kernel(r, k, v, g, u) -> None:
+    """What the CUDA kernel takes beyond `_check`: K in `KEY_DIMS`, no
+    gradient, contiguous tensors, r, k, v, g on 16-byte boundaries (its
+    bulk copies), a grid in range.  Any chunk `_check` passes is taken."""
     B, H, S, K = r.shape
     if K not in KEY_DIMS:
         raise ValueError(f"wkv's kernel is built for key dims {KEY_DIMS}; "
                          f"got K={K}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"wkv's kernel holds a chunk of at most {MAX_CHUNK} "
-                         f"steps in shared memory; got chunk={chunk}")
     if any(t.requires_grad for t in (r, k, v, g, u)):
         raise NotImplementedError(
             "wkv's CUDA kernel is forward only (the Pallas kernel it replaces "
             "has no gradient rule); detach the inputs")
     if not all(t.is_contiguous() for t in (r, k, v, g, u)):
         raise ValueError("wkv's kernel wants contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (r, k, v, g)):
+        raise ValueError("wkv's kernel wants r, k, v, g on 16-byte boundaries")
     if B * H * S * K >= 2 ** 31:
         raise ValueError(f"wkv: shape {tuple(r.shape)} out of the kernel's range")
 
@@ -90,10 +115,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
         u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
     """The RWKV6 WKV of (r, k, v, clip(g, -1.2, 0), u) -> y [B,H,S,K] in r's
     dtype (see the module docstring)."""
-    chunk = _check(r, k, v, g, u, chunk)
+    _check(r, k, v, g, u, chunk)
     if r.device.type == "cpu":
         return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
-    _check_kernel(r, k, v, g, u, chunk)
+    _check_kernel(r, k, v, g, u)
     B, H, S, K = r.shape
     y = torch.empty_like(r)
     if B * H * S == 0:
@@ -105,7 +130,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     with torch.cuda.device(r.device):
         err = lib.wkv_chunk_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    g.data_ptr(), u.data_ptr(), y.data_ptr(),
-                                   B * H, H, S, K, chunk,
+                                   B * H, H, S, K,
                                    int(r.dtype == torch.bfloat16),
                                    g_min, stream)
     if err != 0:

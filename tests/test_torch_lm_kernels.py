@@ -218,13 +218,13 @@ def _bad_inputs():
         "wkv dtypes mixed": (lambda: wkv(r, kk, vv, g.bfloat16(), u), TypeError),
         "wkv S % chunk": (lambda: wkv(r, kk, vv, g, u, chunk=24), ValueError),
         "wkv kernel K=24": (lambda: twkv._check_kernel(
-            *(torch.zeros(1, 2, 64, 24) for _ in range(4)), torch.zeros(2, 24),
-            64), ValueError),
-        "wkv kernel chunk 256": (lambda: twkv._check_kernel(
-            *(torch.zeros(1, 1, 256, 16) for _ in range(4)), torch.zeros(1, 16),
-            256), ValueError),
+            *(torch.zeros(1, 2, 64, 24) for _ in range(4)), torch.zeros(2, 24)),
+            ValueError),
         "wkv kernel needs a gradient": (lambda: twkv._check_kernel(
-            r, kk, vv, g, u.clone().requires_grad_(), 16), NotImplementedError),
+            r, kk, vv, g, u.clone().requires_grad_()), NotImplementedError),
+        "wkv kernel off a 16-byte boundary": (lambda: twkv._check_kernel(
+            *(torch.zeros(4 * 64 * 16 + 1)[1:].view(1, 4, 64, 16)
+              for _ in range(4)), torch.zeros(4, 16)), ValueError),
     }
 
 
@@ -233,6 +233,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     call, exc = _bad_inputs()[case]
     with pytest.raises(exc):
         call()
+
+
+@pytest.mark.parametrize("chunk", [256, 4096])
+def test_wkv_kernel_takes_any_chunk(chunk):
+    """The kernel walks S in tiles of its own, so every chunk the reference
+    takes (S a multiple of min(chunk, S)) passes both paths' checks."""
+    r, k, v, g = (torch.zeros(1, 2, 4096, 64) for _ in range(4))
+    u = torch.zeros(2, 64)
+    twkv._check(r, k, v, g, u, chunk)
+    twkv._check_kernel(r, k, v, g, u)
 
 
 @pytest.mark.parametrize("source", ["flash_attention", "wkv_chunk"])
@@ -311,6 +321,15 @@ CUDA_WKV_CASES = [  # B, H, S, K, chunk, dtype, g_scale
     (1, 2, 100, 64, 50, "float32", 1.0),
     (2, 2, 128, 64, 64, "bfloat16", 1.0),
     (1, 2, 128, 64, 64, "float32", 8.0),
+    # the kernel's own 32-step tile, whatever the chunk: chunk 1, chunk
+    # 256, a ragged last tile (1000 = 31 x 32 + 8), and K = 16, 32 over 128
+    # tiles, where the last tile decides
+    (1, 2, 256, 64, 1, "float32", 1.0),
+    (1, 2, 512, 64, 256, "float32", 1.0),
+    (1, 2, 1000, 64, 1000, "float32", 1.0),
+    (1, 2, 1000, 32, 1000, "bfloat16", 1.0),
+    (1, 2, 4096, 16, 64, "float32", 1.0),
+    (1, 2, 4096, 32, 64, "float32", 1.0),
 ]
 
 
@@ -333,24 +352,29 @@ def test_cuda_wkv_kernel_matches_plain_on_card(cuda_device, B, H, S, K, chunk,
                                want.float().cpu().numpy(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("chunk", [64, 128, 4096])
 def test_cuda_wkv_is_finite_at_the_clip_floor(cuda_device, chunk):
-    """g = -1.2 everywhere: the reference's factorised form overflows fp32
-    from chunk 74 on; the kernel's pairwise decays stay finite."""
+    """g = -1.2 everywhere over 4096 steps: the reference's factorised form
+    overflows fp32 from chunk 74 on; the kernel factorises within its own
+    32-step tile (at most 55.4 bits of decay), so it stays finite at every
+    chunk, and two launches are bitwise equal."""
     r, k, v, _, u = (torch.from_numpy(a).to(cuda_device)
-                     for a in _wkv_inputs(1, 2, 256, 64))
+                     for a in _wkv_inputs(1, 2, 4096, 64))
     g = torch.full_like(r, -1.2)
     got = ops.wkv(r, k, v, g, u, chunk=chunk)
+    again = ops.wkv(r, k, v, g, u, chunk=chunk)
     want = tref.wkv_chunk_ref(r, k, v, g, u)
     assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=WKV_ATOL, rtol=WKV_RTOL)
 
 
 def test_cuda_wkv_chunk_invariance(cuda_device):
-    """The same result for chunks 16, 32 and 64 (the chunking is exact)."""
+    """The same result for chunks 16, 32 and 64, bit for bit: the kernel's
+    tile does not depend on the chunk."""
     r, k, v, g, u = (torch.from_numpy(a).to(cuda_device)
                      for a in _wkv_inputs(1, 2, 192, 64, seed=7))
     outs = [ops.wkv(r, k, v, g, u, chunk=c).cpu().numpy() for c in (16, 32, 64)]
     for other in outs[1:]:
-        np.testing.assert_allclose(other, outs[0], atol=WKV_ATOL, rtol=WKV_RTOL)
+        np.testing.assert_array_equal(other, outs[0])
