@@ -79,7 +79,21 @@ engine's sweep of the same params).  Each mini-batch phase runs twice
 from the same state (bitwise equal), each step of the second run beside
 the reference step from the same state (loss and target logits within
 1e-4), with the ELL forward's launches (p2p's K = 1 send gather, a chunk and an
-installment a step; none in the reference) counted exactly.  Each
+installment a step; none in the reference) counted exactly.  Streaming
+ingest and trainable features: right after the graph, `stream_ingest`
+(host only) builds the edge-cut layout for 4 hash parts from the graph
+as 16 chunks of 2**20 edges and holds it array for array to the
+in-memory layout; after the protocol phases, `trainable_train` (gcn, p2p
+at chunks 2, 5 steps, layer-0 rows learnable, row-sparse AdamW at
+embed_eps TRAINABLE_EMBED_EPS) and `trainable_vc_train` (the cartesian2d
+vertex cut, 3 steps) hold each step to the reference step from the same
+state (loss, logits, the embed, emb_m and emb_v tables, emb_t exact), a
+rerun bitwise, the store unchanged, with the row AdamW's own ms, one
+traced step, the trained sweep against the reference sweep and (edge
+cut) the `publish_embeddings` handoff to a frozen engine bit for bit;
+before `mb_serve`, `mb_trainable` (node-wise gcn, p2p, the static_degree
+cache, 2 batches) the same with the fetch's K = 1 forward and transpose
+launches counted per gather and the untouched rows frozen.  Each
 phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
@@ -90,6 +104,7 @@ card and the repository's `src/` beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -153,6 +168,22 @@ MB_SAMPLERS = {
     "layer_wise": ["--batch-size", "512", "--layer-sizes", "4096,4096,4096"],
     "subgraph": ["--batch-size", "1024", "--walk-length", "4"],
 }
+# streaming ingest: the edge stream's chunk and the parts it is shuffled to
+STREAM_CHUNK, STREAM_PARTS = 1 << 20, 4
+# the trainable-feature phases: steps of the edge-cut and vertex-cut
+# full-graph phases, batches of the mini-batch one and its cache capacity
+TRAINABLE_STEPS, TRAINABLE_VC_STEPS = 5, 3
+# the full-graph trainable phases' AdamW eps.  Their reference step sums
+# in another order, so a pre-activation within rounding of 0 can take the
+# other side of a ReLU there and move a layer-0 gradient entry by a finite
+# amount (~7e-7 at 4096 vertices on the CPU, where the step is within
+# 1e-10 of a float64 reference); AdamW maps a gradient entry g to about
+# lr * g / (|g| + eps), which at the default eps 1e-8 turns such a gap into
+# up to 2 * lr on the table.  At 1e-3 a gradient gap of d moves the table
+# by at most lr * d / eps, so the table is held to the reference within
+# TOL like the moments are
+TRAINABLE_EMBED_EPS = 1e-3
+MB_TRAINABLE_STEPS, MB_TRAINABLE_CACHE = 2, 32
 # the historical-embedding protocols, each run with gcn at the p2p phases'
 # settings
 ASYNC_PROTOCOLS = ("epoch_fixed", "epoch_adaptive", "variation")
@@ -1603,7 +1634,7 @@ def train_phase(eng, setup_s, g, baseline=None, against="no_group",
     gaps = [abs(a - b) for a, b in zip(losses, again["ref_losses"])]
     check(max(gaps) <= TOL, f"step vs reference step: {gaps} > {TOL}")
     median_s = float(np.median(walls))
-    result = dict(losses=losses, median_ms=median_s * 1e3, params=[
+    result = dict(losses=losses, median_ms=median_s * 1e3, peak=peak, params=[
         {key: p[key].cpu() for key in keys} for p in params["layers"]])
     extra = p2p_fields(eng)
     if protocol != "sync":
@@ -1759,6 +1790,376 @@ def profile_phase(phase, fn, kernels, **fields):
                   for n, (c, us) in top],
          other_kernels_ms=sum(us for _, (_, us) in by_name.items()) / 1e3
          - sum(us for _, (_, us) in top) / 1e3)
+
+
+# ---------------------------------------------------------------------------
+# streaming ingest and the trainable-feature phases
+# ---------------------------------------------------------------------------
+
+
+def proc_rss_gb() -> float:
+    """The process's resident set now, GB (/proc/self/statm)."""
+    return proc_memory_gb()["rss_gb"]
+
+
+def stream_ingest_phase(g) -> None:
+    """Host only: `build_streaming_layout` over the graph as a stream of
+    STREAM_CHUNK-edge chunks, owner-shuffled to STREAM_PARTS hash parts,
+    held array for array to the port's in-memory `EdgeCutLayout` built
+    whole for the same parts (broadcast: no exchange plan past the global
+    ids); its seconds, its self-reported peak transient bytes against the
+    layout's bytes, and the host's resident set around each build."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.partition.edge_cut import hash_partition
+    from repro_torch.core.partition.layout_api import EdgeCutLayout
+    from repro_torch.core.partition.streaming import (
+        GraphEdgeChunks,
+        build_streaming_layout,
+    )
+
+    k = STREAM_PARTS
+    part = hash_partition(g, k)
+    rss0 = proc_rss_gb()
+    t0 = time.perf_counter()
+    lay = build_streaming_layout(
+        GraphEdgeChunks(g, STREAM_CHUNK), part.assignment, k, g.num_vertices,
+        features=g.features, labels=g.labels, train_mask=g.train_mask,
+        test_mask=g.test_mask)
+    stream_s = time.perf_counter() - t0
+    rss1 = proc_rss_gb()
+    t0 = time.perf_counter()
+    mem = EdgeCutLayout(g, k, EngineConfig(execution="broadcast",
+                                           partitioner="hash"),
+                        partition=part)
+    memory_s = time.perf_counter() - t0
+    rss2 = proc_rss_gb()
+    pairs = dict(new_of_old=(lay.new_of_old, mem.new_of_old),
+                 ids=(lay.ids, mem.ids_global), mask=(lay.mask, mem.mask),
+                 deg=(lay.deg, mem.deg),
+                 X=(lay.X.reshape(lay.Vp, -1), mem.store.flat()),
+                 y=(lay.y, mem.y), train_w=(lay.train_w, mem.train_w),
+                 test_w=(lay.test_w, mem.test_w),
+                 emb_touched=(lay.emb_touched, mem.emb_touched),
+                 bmask=(lay.bmask, mem.bmask))
+    check((lay.nb, lay.Vp, lay.K) == (mem.nb, mem.Vp, mem.K),
+          f"stream_ingest: (nb, Vp, K) {(lay.nb, lay.Vp, lay.K)} vs "
+          f"{(mem.nb, mem.Vp, mem.K)}")
+    for name, (a, b) in pairs.items():
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"stream_ingest: {name} differs from the in-memory layout")
+    chunks = -(-g.num_edges // STREAM_CHUNK)
+    emit("stream_ingest", vertices=g.num_vertices, edges=g.num_edges,
+         parts=k, chunk_edges=STREAM_CHUNK, chunks=chunks, nb=lay.nb,
+         K=lay.K, seconds=stream_s, edges_per_s=g.num_edges / stream_s,
+         in_memory_layout_s=memory_s,
+         peak_transient_bytes=lay.peak_transient_bytes,
+         layout_bytes=lay.layout_bytes,
+         peak_over_layout=lay.peak_transient_bytes / lay.layout_bytes,
+         edge_list_bytes=g.num_edges * 16,
+         equal_arrays=sorted(pairs), host_rss_gb_before=rss0,
+         host_rss_gb_after_stream=rss1, host_rss_gb_after_in_memory=rss2,
+         host_max_rss_gb=host_rss_gb(),
+         note="host numpy only: no device work")
+
+
+def trainable_engine(g, device, family="edge_cut", **extra):
+    """A trainable-features engine at full width at the training
+    launcher's settings (gcn, p2p at NCCL_CHUNKS, the hash partition, lr
+    TRAIN_LR; the launchers have no trainable option, as the reference's
+    have none, so the config is built here) and embed_eps
+    TRAINABLE_EMBED_EPS, after the earlier engines are released.  Returns
+    (engine, setup seconds)."""
+    from repro_torch.core.engine import DistGNNEngine, EngineConfig
+
+    release()
+    t0 = time.perf_counter()
+    cfg = EngineConfig(execution="p2p", partitioner="hash", model="gcn",
+                       exchange_chunks=NCCL_CHUNKS, hidden=256, num_layers=3,
+                       lr=TRAIN_LR["gcn"], partition_family=family,
+                       trainable_features=True,
+                       embed_eps=TRAINABLE_EMBED_EPS, **extra)
+    eng = DistGNNEngine(g, cfg, device=device)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def timed_steps(step, state, inputs):
+    """``step`` from ``state`` once per entry of ``inputs`` (its extra
+    arguments: ``()`` for a full-graph step, ``(batch,)`` for a mini-batch
+    one), each timed on the host clock ending in a synchronize.  Returns
+    (final state, losses, walls)."""
+    st, losses, walls = state, [], []
+    for args in inputs:
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        st, metrics, _ = step(st, *args)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - s0)
+    return st, losses, walls
+
+
+def held_to_reference(name, step, ref_step, state, inputs):
+    """`timed_steps` with, beside each step, the reference step from the
+    same state: the loss, the logits and the embed, emb_m and emb_v tables
+    within TOL, emb_t equal.  Returns (final state, losses, walls, the
+    gaps per step, the worst gap of each)."""
+    st, losses, walls = state, [], []
+    gaps = {key: [] for key in ("loss", "logits", "embed", "emb_m", "emb_v")}
+    for args in inputs:
+        ref, ref_metrics, ref_logits = ref_step(st, *args)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        st, metrics, logits = step(st, *args)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - s0)
+        gaps["loss"].append(abs(losses[-1] - float(ref_metrics["loss"])))
+        gaps["logits"].append(float((logits - ref_logits).abs().max()))
+        for key in ("embed", "emb_m", "emb_v"):
+            gaps[key].append(float((st[key] - ref[key]).abs().max()))
+        check(torch.equal(st["emb_t"], ref["emb_t"]),
+              f"{name}: emb_t differs from the reference step's")
+        del ref, ref_logits, logits
+    worst = {key: max(v) for key, v in gaps.items()}
+    check(max(worst.values()) <= TOL,
+          f"{name}: step vs reference step from the same state: {worst}")
+    return st, losses, walls, gaps, worst
+
+
+def trainable_launches(eng, T: int) -> dict:
+    """Launches of T trainable full-graph steps (gcn): the frozen step's
+    (`step_launches`, `replica_launches`) and the transposes of layer 0's
+    gathers, which now feed the embedding gradient; under a replica family
+    also the two combines of the update (the gradient's and the masters'
+    delta), forward only."""
+    c, L = eng.cfg, len(eng.dims) - 1
+    check(c.model == "gcn", f"trainable phases run gcn, not {c.model}")
+    if c.partition_family != "edge_cut":
+        want = replica_launches(eng, T, backward=True)
+        per = want["ell_spmm"] // (L * T)  # a layer: 1 + the combine's
+        want["ell_spmm_transpose"] += per * T
+        want["ell_spmm"] += 2 * (per - 1) * T
+        return want
+    B = len(eng.playout.p2p_widths) if c.execution == "p2p" else 0
+    C = 1 if c.execution == "ring" else c.exchange_chunks
+    want = step_launches(c.model, L, C, T, sends=B)
+    want["ell_spmm_transpose"] += C * (1 + B) * T
+    return want
+
+
+def trainable_phase(eng, setup_s, g, steps, p2p_train=None) -> dict:
+    """The trainable full-graph step at full width (`trainable_train`
+    under the edge cut, `trainable_vc_train` under the vertex cut):
+    ``steps`` timed steps from `init_state()`, launches counted exactly
+    (`trainable_launches`); a second run from the same state with, beside
+    each step, the reference step from the same state: loss, logits and
+    the embed, emb_m and emb_v tables within TOL, emb_t equal, and the run
+    bitwise equal to the first; the table moved, the pad rows and the rows
+    whose gradient was 0 at every step frozen bit for bit with zero
+    moments, the store unchanged.  Then the row AdamW alone
+    (`_embed_update_full`) timed on the final state, one traced step, the
+    sweep over the trained state against the reference sweep, and under
+    the edge cut the `publish_embeddings` handoff: a frozen engine on the
+    published table sweeps the same bits.  ``p2p_train``: that phase's
+    result, whose median step ms is reported beside this one's."""
+    from repro_torch.core.engine import EMBED_KEYS, DistGNNEngine
+    from repro_torch.core.models.gnn import PARAM_KEYS
+
+    c = eng.cfg
+    name = ("trainable_train" if c.partition_family == "edge_cut"
+            else "trainable_vc_train")
+    keys = PARAM_KEYS[c.model]
+    t0 = time.perf_counter()
+    step, ref_step = eng.make_step(), eng.make_reference_step()
+    state = eng.init_state()
+    embed0 = state["embed"].clone()
+    store_host0 = eng.store.flat().copy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    final, losses, walls = timed_steps(step, state, [()] * steps)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = trainable_launches(eng, steps)
+    check_counts(launches, want, f"{name}, {steps} steps")
+    check(bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
+    zero_counts()
+    st, again, walls2, gaps, worst = held_to_reference(
+        name, step, ref_step, state, [()] * steps)
+    check_counts(read_counts(), want, f"{name} with its reference")
+    bitwise = again == losses and all(
+        torch.equal(final[key], st[key]) for key in EMBED_KEYS) and all(
+        torch.equal(a[key], b[key]) for a, b in
+        zip(final["params"]["layers"], st["params"]["layers"])
+        for key in keys)
+    check(bitwise, f"{name}: two runs from the same state differ")
+    del st
+    touched = eng._consts["emb_touched"] > 0
+    moved = int((final["embed"] != embed0).any(1).sum())
+    check(moved > 0, f"{name}: the embedding table did not move")
+    pads = ~touched
+    check(torch.equal(final["embed"][pads], embed0[pads]) and not (
+        final["emb_m"][pads].any() or final["emb_v"][pads].any()
+        or final["emb_t"][pads].any()), f"{name}: a pad row changed")
+    zero_grad = (final["emb_m"] == 0).all(1) & touched
+    check(torch.equal(final["embed"][zero_grad], embed0[zero_grad]),
+          f"{name}: a row with no gradient moved")
+    check(torch.equal(eng.store.device_table(), embed0)
+          and np.array_equal(eng.store.flat(), store_host0),
+          f"{name}: training wrote the store")
+    # the row AdamW alone, on the final state (the update of the step)
+    grad = torch.randn(final["embed"].shape, device=eng.device,
+                       generator=torch.Generator(eng.device).manual_seed(0))
+    with torch.no_grad():
+        adamw_ms = cuda_ms(lambda: eng._embed_update_full(final, grad), 3)
+    del grad
+    kernels = {TRACE_NAMES.get(n, f"{n}_kernel"): k
+               for n, k in trainable_launches(eng, 1).items() if k}
+    profile_phase(f"{name}_profile", lambda: step(state), kernels,
+                  model=c.model, family=c.partition_family,
+                  execution=c.execution, exchange_chunks=c.exchange_chunks)
+    zero_counts()
+    H = eng.infer_full_graph(final)
+    sweep_launches = read_counts()
+    H_ref = eng.infer_full_graph(final, reference=True)
+    sweep_gap = float((H - H_ref).abs().max())
+    check(sweep_gap <= TOL, f"{name}: sweep over the trained table vs the "
+          f"reference sweep: {sweep_gap} > {TOL}")
+    del H_ref
+    extra = {}
+    if c.partition_family == "edge_cut":
+        eng.publish_embeddings(final)
+        check(torch.equal(eng.store.device_table(), final["embed"]),
+              f"{name}: publish_embeddings did not write the trained rows")
+        s0 = time.perf_counter()
+        frozen = DistGNNEngine(g, dataclasses.replace(
+            c, trainable_features=False), device=eng.device)
+        frozen.store.update_rows(np.arange(frozen.store.num_rows),
+                                 eng.store.flat())
+        H_serve = frozen.infer_full_graph(params=final["params"])
+        check(torch.equal(H_serve, H), f"{name}: the frozen engine's sweep "
+              "of the published table differs from the trained sweep")
+        extra.update(publish_handoff_bitwise=True,
+                     frozen_engine_s=time.perf_counter() - s0)
+        del frozen, H_serve
+    if p2p_train is not None:
+        extra.update(p2p_train_median_ms=p2p_train["median_ms"],
+                     p2p_train_max_memory_allocated=p2p_train["peak"])
+    median_s = float(np.median(walls))
+    table_bytes = final["embed"].numel() * 4
+    emit(name, model=c.model, family=c.partition_family,
+         execution=c.execution, exchange_chunks=c.exchange_chunks,
+         vertices=g.num_vertices, dims=eng.dims, lr=c.lr, embed_lr=c.embed_lr,
+         steps=steps, losses=losses, gaps=gaps, worst_gaps=worst,
+         oracle_tol=TOL, walls_ms=[w * 1e3 for w in walls],
+         walls_second_run_ms=[w * 1e3 for w in walls2],
+         median_step_ms=median_s * 1e3, row_adamw_ms=adamw_ms,
+         row_adamw_share=adamw_ms / (median_s * 1e3), launches=launches,
+         bitwise_equal_runs=bitwise, rows_moved=moved,
+         pad_rows=int(pads.sum()), zero_gradient_rows=int(zero_grad.sum()),
+         embed_grad_bytes_per_step=eng._emb_bytes_per_step,
+         table_bytes=table_bytes, state_table_bytes=3 * table_bytes,
+         max_memory_allocated=peak, sweep_launches=sweep_launches,
+         sweep_gap=sweep_gap, setup_s=setup_s,
+         seconds=time.perf_counter() - t0, **extra)
+    return launches
+
+
+def mb_trainable_phase(g, device) -> dict:
+    """The trainable mini-batch step at full width (`mb_trainable`): gcn
+    node-wise under p2p with the static_degree cache (at one rank the
+    cache holds no row: every row is the rank's own), the sampler settings
+    of MB_SAMPLERS, MB_TRAINABLE_STEPS batches.  Timed steps with the
+    launches counted exactly (per step and feature chunk the fetch's K = 1
+    ELL forwards, the send gathers and the table gather, and their
+    transposes); a second run with the reference step from the same state
+    beside each step (loss, logits, embed, emb_m, emb_v within TOL, emb_t
+    equal), bitwise equal to the first; one traced step; the rows no
+    batch touched frozen bit for bit with zero moments; the store
+    unchanged."""
+    from repro_torch.core.engine import EMBED_KEYS, DistGNNEngine, EngineConfig
+    from repro_torch.launch import train_gnn
+    from repro_torch.launch.common import per_layer
+
+    release()
+    t0 = time.perf_counter()
+    # the launcher's options as `build_mb_engine` passes them, then the
+    # config with trainable features (the launchers have no such option)
+    args = train_gnn.parse_args([
+        "--device", str(device), "--exec", "p2p", "--partitioner", "hash",
+        "--hidden", "256", "--layers", "3", "--lr", str(MB_LR),
+        "--batching", "node_wise", *MB_SAMPLERS["node_wise"], "--cache",
+        "static_degree", "--cache-capacity", str(MB_TRAINABLE_CACHE)])
+    eng = DistGNNEngine(g, EngineConfig(
+        execution=args.exec, partitioner=args.partitioner, model=args.model,
+        exchange_chunks=args.exchange_chunks, hidden=args.hidden,
+        num_layers=args.layers, lr=args.lr, batching=args.batching,
+        batch_size=args.batch_size,
+        fanouts=per_layer(args.fanouts, 4, args.layers),
+        cache_policy=args.cache, cache_capacity=args.cache_capacity,
+        trainable_features=True), device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    s0 = time.perf_counter()
+    batches = [eng.sample_minibatch(i) for i in range(MB_TRAINABLE_STEPS)]
+    sample_s = time.perf_counter() - s0
+    step, ref_step = (eng.make_minibatch_step(),
+                      eng.make_reference_minibatch_step())
+    state = eng.init_minibatch_state()
+    embed0 = state["embed"].clone()
+    touched = torch.zeros(eng.nb, dtype=torch.bool, device=eng.device)
+    for b in batches:
+        ids = b["emb_ids"]
+        touched[ids[ids < eng.nb]] = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    inputs = [(b,) for b in batches]
+    final, losses, walls = timed_steps(step, state, inputs)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    C, B = eng.cfg.exchange_chunks, len(eng.fcap_widths)
+    per = C * (B + 1) * len(batches)
+    want = dict(ell_spmm=per, ell_spmm_transpose=per)
+    check_counts(launches, want, "mb_trainable")
+    profile_phase("mb_trainable_profile", lambda: step(state, batches[0]),
+                  {"ell_spmm_kernel": C * (B + 1),
+                   "ell_spmm_transpose_kernel": C * (B + 1)},
+                  model="gcn", batching="node_wise", execution="p2p",
+                  exchange_chunks=C)
+    zero_counts()
+    st, again, walls2, gaps, worst = held_to_reference(
+        "mb_trainable", step, ref_step, state, inputs)
+    check_counts(read_counts(), want, "mb_trainable with its reference")
+    bitwise = again == losses and all(torch.equal(final[key], st[key])
+                                      for key in EMBED_KEYS)
+    check(bitwise, "mb_trainable: two runs from the same state differ")
+    check(torch.equal(final["emb_t"] > 0, touched),
+          "mb_trainable: the updated rows are not the batches' touched rows")
+    frozen = ~touched
+    check(torch.equal(final["embed"][frozen], embed0[frozen]) and not (
+        final["emb_m"][frozen].any() or final["emb_v"][frozen].any()),
+        "mb_trainable: an untouched row changed")
+    moved = int((final["embed"] != embed0).any(1).sum())
+    check(moved > 0, "mb_trainable: the table did not move")
+    check(torch.equal(eng.store.device_table(), embed0),
+          "mb_trainable: training wrote the store")
+    emit("mb_trainable", model="gcn", execution="p2p", batching="node_wise",
+         cache=eng.cfg.cache_policy, cache_capacity=eng.cfg.cache_capacity,
+         overlay_rows=int(eng._has_overlay), vertices=g.num_vertices,
+         dims=eng.dims, lr=eng.cfg.lr, embed_lr=eng.cfg.embed_lr,
+         caps=list(eng.caps), fcap_widths=eng.fcap_widths, tcap=eng.tcap,
+         steps=len(batches), losses=losses, gaps=gaps, worst_gaps=worst,
+         oracle_tol=TOL, walls_ms=[w * 1e3 for w in walls],
+         walls_second_run_ms=[w * 1e3 for w in walls2],
+         median_step_ms=float(np.median(walls)) * 1e3, launches=launches,
+         launches_per_step_and_gather=1, bitwise_equal_runs=bitwise,
+         touched_rows=int(touched.sum()), rows_moved=moved,
+         embed_grad_bytes=eng.comm_stats.embed_grad_bytes,
+         max_memory_allocated=peak, sample_extract_s=sample_s,
+         setup_s=setup_s, seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2268,7 +2669,7 @@ def minibatch_phases(g, device) -> dict:
     (`mb_node_pipelined`) and the sampling-process pool (`mb_node_process`),
     each bitwise equal to `mb_node_p2p`; gcn node-wise under broadcast and
     the ring (two steps each, bitwise equal to `mb_node_p2p`'s first two
-    at one rank), layer-wise and subgraph under p2p, and `mb_serve`."""
+    at one rank), layer-wise and subgraph under p2p, `mb_trainable` and `mb_serve`."""
     from repro_torch.launch import train_gnn
     from repro_torch.launch.common import join_group, leave_group
 
@@ -2320,6 +2721,7 @@ def minibatch_phases(g, device) -> dict:
         res, n = minibatch_phase(eng, setup_s, resample=True)
         add_counts(total, n)
         del eng, res
+    add_counts(total, mb_trainable_phase(g, device))
     add_counts(total, mb_serve_phase(g, device))
     release()
     return total
@@ -2369,6 +2771,8 @@ def main(argv=None) -> int:
                  num_classes=CONFIG.num_classes, seed=0)
     emit("graph", generator="er_graph", vertices=g.num_vertices,
          edges=g.num_edges, seconds=time.perf_counter() - t0)
+    # the edge-cut layout built from a chunked edge stream (host only)
+    stream_ingest_phase(g)
 
     def configuration(chunks, model, execution="broadcast", group=(),
                       baseline=(None, None), against="no_group",
@@ -2458,6 +2862,18 @@ def main(argv=None) -> int:
                            against="sync")
         add_counts(launches, n)
         del eng
+    # trainable features (layer-0 rows learnable, the row-sparse AdamW):
+    # gcn at the p2p phases' settings under the edge cut, then under the
+    # cartesian2d vertex cut (the gradient's and the delta's combines),
+    # each step held to the reference step from the same state
+    eng, setup_s = trainable_engine(g, device)
+    add_counts(launches, trainable_phase(eng, setup_s, g, TRAINABLE_STEPS,
+                                         baselines["p2p", "gcn"][1]))
+    del eng
+    eng, setup_s = trainable_engine(g, device, family="vertex_cut")
+    add_counts(launches, trainable_phase(eng, setup_s, g,
+                                         TRAINABLE_VC_STEPS))
+    del eng
     # the replica families at one rank: gcn and gat under the cartesian2d
     # vertex cut (p2p at chunks 2, broadcast at 1, the ring) and the hybrid
     # cut (p2p at chunks 2), each held to the same model's edge-cut phase

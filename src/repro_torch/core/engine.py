@@ -70,11 +70,25 @@ layer_wise and subgraph (edge cut; the replica families refuse mini-batch
 with a ValueError, as the reference does), the static feature cache
 policies, the conventional, factored, operator_parallel and pipelined
 schedules (prefetch thread or sampling-process pool), protocols sync,
-epoch_fixed, epoch_adaptive and variation (full graph), on any number of
-ranks.  The ranks are the process group's (`execution/collectives.py`);
-without one the engine runs on one rank.  Trainable features raise
-NotImplementedError naming the slice they wait for (item 10).
-Telemetry arrives with its own slice.
+epoch_fixed, epoch_adaptive and variation (full graph), trainable
+features (sync), on any number of ranks.  The ranks are the process
+group's (`execution/collectives.py`); without one the engine runs on one
+rank.  Telemetry arrives with its own slice.
+
+Trainable features (``trainable_features``): the layer-0 rows are learnable
+embeddings.  The state holds a copy of this rank's store rows (``embed``)
+and their row-sparse AdamW moments and per-row counts; the store itself
+changes only at `publish_embeddings`.  The full-graph step differentiates
+the numerator with respect to ``embed`` too, so layer 0's gathers and
+exchanges now run their backward (the transpose kernel over each plan,
+the reduce-scatter, the reverse all_to_all or rotation); the gradient
+arrives summed over the ranks that read each row and `_embed_update_full`
+updates the touched rows (every real row; the masters under the replica
+families, whose gradient and delta pass through the backend's
+`combine_rows`).  The mini-batch step moves the fetch inside the gradient
+(`_fetch_live`): the live overlay refresh and every fetch gather a K = 1
+ELL over plans built when the batch is taken in, then `sparse_adamw_ids`
+over the batch's touched rows.  No gradient scatter uses float atomics.
 """
 from __future__ import annotations
 
@@ -85,7 +99,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.execution import collectives
-from repro_torch.core.execution.bucketing import bucketed_cap_widths
+from repro_torch.core.execution.bucketing import (
+    bucketed_cap_widths,
+    bucketed_send_mask,
+)
 from repro_torch.core.execution.exchange_api import make_backend
 from repro_torch.core.execution.minibatch_pipeline import (
     SCHEDULES,
@@ -96,12 +113,15 @@ from repro_torch.core.execution.pipeline_exchange import (
     bucketed_all_to_all,
     chunked_overlap,
     ring_blocks,
+    send_installments,
+    single_slot,
     zero_pad_row,
 )
 from repro_torch.core.execution.replica_sync import (
     reference_combine,
     reference_combine_max,
 )
+from repro_torch.core.feature_store import overlay_refresh_plan
 from repro_torch.core.graph import Graph
 from repro_torch.core.models.gnn import (
     PARAM_KEYS,
@@ -125,8 +145,10 @@ from repro_torch.core.sampling.samplers import frontier_caps
 from repro_torch.kernels.ops import (
     ell_attend,
     ell_spmm,
+    ell_transpose_plan,
     sddmm_ell,
 )
+from repro_torch.optim.sparse_optim import row_adamw_update, sparse_adamw_ids
 
 EXECUTION_MODELS = ("broadcast", "ring", "p2p")
 GNN_MODELS = ("gcn", "sage", "gat", "gin")
@@ -138,7 +160,9 @@ ENGINE_CACHE_POLICIES = ("none",) + tuple(CACHE_POLICIES)
 
 # layout attributes the engine mirrors, so callers keep reading eng.<attr>
 ENGINE_MIRROR_ATTRS = ("nb", "Vp", "K", "ids_global", "store", "y",
-                       "train_w", "test_w")
+                       "train_w", "test_w", "emb_touched")
+# the trainable embedding table and its row-sparse AdamW state in a state
+EMBED_KEYS = ("embed", "emb_m", "emb_v", "emb_t")
 
 
 @dataclasses.dataclass
@@ -172,8 +196,18 @@ class EngineConfig:
     #   of sampling processes feeding a shared-memory batch ring
     #   (sampling/proc_prefetch.py), bitwise equal all the same
     num_sample_workers: int = 2  # process-pool size for prefetch_mode=process
-    trainable_features: bool = False  # layer-0 rows as learnable
-    #   embeddings: not ported (item 10)
+    trainable_features: bool = False  # layer-0 rows are LEARNABLE
+    #   embeddings: the rank's store rows move into the state and a
+    #   row-sparse AdamW (optim/sparse_optim.py) updates only the rows the
+    #   step touched: every real owned row under full_graph (the master
+    #   slots under the replica families, whose deltas are re-broadcast
+    #   through the replica sync so copies never drift), the frontier's
+    #   rows under mini-batch.  Requires protocol='sync'
+    embed_lr: float = 0.1  # the row-sparse AdamW of the embedding rows
+    embed_b1: float = 0.9
+    embed_b2: float = 0.999
+    embed_eps: float = 1e-8
+    embed_weight_decay: float = 0.0
     hidden: int = 32
     num_layers: int = 2
     lr: float = 0.5  # SGD step of the training step
@@ -299,12 +333,6 @@ class DistGNNEngine:
             raise ValueError("num_sample_workers must be >= 1")
         builder = get_layout_builder(cfg.partition_family)
         builder.validate(cfg, partition=partition)
-        if cfg.trainable_features:
-            raise NotImplementedError(
-                "trainable_features=True: layer-0 rows as learnable "
-                "embeddings (the row-sparse AdamW, the fetch inside the "
-                "gradient) arrive with their own slice (ROADMAP queue 1 "
-                "item 10)")
         self.k = collectives.world_size()
         if partition is not None and partition.num_parts != self.k:
             raise ValueError(
@@ -348,6 +376,10 @@ class DistGNNEngine:
         if cfg.protocol != "sync":
             # this rank's boundary rows: the rows another rank reads
             self._consts["bmask"] = upload(lay.bmask)
+        if cfg.trainable_features and cfg.batching == "full_graph":
+            # the full-graph touched set: this rank's real rows (its master
+            # slots under the replica families)
+            self._consts["emb_touched"] = upload(lay.emb_touched)
         # the loss's denominator, max(sum of every rank's weights, 1)
         w_sum = self._consts["train_w"].sum()
         if collectives.group_active():
@@ -358,6 +390,11 @@ class DistGNNEngine:
         self.dims = ([g.features.shape[1]]
                      + [cfg.hidden] * (cfg.num_layers - 1) + [num_classes])
         self._wire_fields = lay.wire_fields_per_step(cfg.model, self.dims)
+        if cfg.trainable_features and cfg.batching == "full_graph":
+            # the layer-0 gradients' way home, a step (the reverse of one
+            # exchange pass at width dims[0]):
+            # cost_models.embedding_grad_bytes_per_step
+            self._emb_bytes_per_step = lay.embed_grad_bytes(self.dims)
         self._infer_step = None
         self._step = None
         self._ref_step = None
@@ -490,7 +527,7 @@ class DistGNNEngine:
         the store's own table; on more, the store's host copy uploaded."""
         if self.k == 1:
             return self.store.device_table()
-        return torch.from_numpy(self.store.host_table()).to(self.device)
+        return torch.from_numpy(self.store.flat()).to(self.device)
 
     def _make_reference_layer(self):
         """Single-device reference layer over the whole padded [Vp] space,
@@ -576,12 +613,17 @@ class DistGNNEngine:
         there is no history (at the gcn-paper width it would be 2.4 GB of
         zeros that nothing reads).  Without ``params``, draws them with
         `init_gnn_params` from a generator seeded with ``cfg.seed``; with
-        them, starts from those weights (a carry-over)."""
+        them, starts from those weights (a carry-over).  With trainable
+        features the state also holds the embedding table and its row-sparse
+        AdamW moments (`_embed_state`): this rank's rows, every row with
+        ``reference``."""
         if params is None:
             params = init_gnn_params(
                 self.cfg.model, self.dims,
                 torch.Generator().manual_seed(self.cfg.seed), self.device)
         state = dict(params=params, step=0)
+        if self.cfg.trainable_features:
+            state.update(self._embed_state(reference))
         if self.cfg.protocol != "sync":
             rows = self.Vp if reference else self.nb
             L = len(self.dims) - 1
@@ -591,6 +633,47 @@ class DistGNNEngine:
             state["age"] = torch.zeros((L, self.k) if reference else (L,),
                                        dtype=torch.int32, device=self.device)
         return state
+
+    def _embed_state(self, reference: bool = False) -> Dict:
+        """The trainable embedding table and its row-sparse AdamW state: a
+        COPY of this rank's store rows (every row with ``reference``; never
+        an alias, so training leaves the store as it is until
+        `publish_embeddings`), zero moments ``emb_m``, ``emb_v`` and zero
+        int32 per-row update counts ``emb_t``."""
+        X = (self._global_features() if reference
+             else self.store.device_table())
+        embed = X.clone()
+        return dict(embed=embed, emb_m=torch.zeros_like(embed),
+                    emb_v=torch.zeros_like(embed),
+                    emb_t=torch.zeros(embed.shape[0], dtype=torch.int32,
+                                      device=embed.device))
+
+    def _embed_hparams(self) -> Dict:
+        c = self.cfg
+        return dict(lr=c.embed_lr, b1=c.embed_b1, b2=c.embed_b2,
+                    eps=c.embed_eps, weight_decay=c.embed_weight_decay)
+
+    def _embed_update_full(self, state, g_emb) -> Dict:
+        """The full-graph row-sparse AdamW update of this rank's rows:
+        masked-dense over the static touched set (every real row; the
+        master slots under the replica families), which leaves the pad rows
+        and the non-masters bitwise unchanged.  Under a replica family
+        ``g_emb`` holds each replica's PARTIAL gradient: the backend's
+        `combine_rows` sums it into the vertex's gradient, the update
+        applies at the masters (whose moments are the vertex's), and the
+        masters' deltas go back to every replica through the same combine,
+        a sum with one nonzero term, so every replica adds the same delta
+        bit for bit and the copies never drift."""
+        cl, backend = self._consts, self.backend
+        emb, touched = state["embed"], cl["emb_touched"]
+        g_emb = backend.combine_rows(g_emb, cl)
+        emb2, m2, v2, t2 = row_adamw_update(
+            emb, g_emb, state["emb_m"], state["emb_v"], state["emb_t"],
+            touched, **self._embed_hparams())
+        if backend.has_replicas:
+            delta = (emb2 - emb) * touched[:, None]
+            emb2 = emb + backend.combine_rows(delta, cl)
+        return dict(embed=emb2, emb_m=m2, emb_v=v2, emb_t=t2)
 
     def make_step(self):
         """The training step: state -> (state, {"loss", "rows_pushed"},
@@ -603,25 +686,38 @@ class DistGNNEngine:
         and divided by den = max(sum of every rank's w, 1) outside the
         gradient, as in the reference.  Without a process group the sums
         are the local values.  SGD writes new tensors, so a state can be
-        stepped twice."""
+        stepped twice.
+
+        With trainable features the layer-0 rows are the state's ``embed``
+        and the numerator is differentiated with respect to them too: their
+        gradient arrives already summed over every rank that read a row
+        (the exchange's reverse: the reduce-scatter, the reverse all_to_all
+        or rotation, and the transpose kernel over each gather's plan), so
+        it takes no all_reduce; divided by den it feeds
+        `_embed_update_full`."""
         if self._step is not None:
             return self._step
         cl = self._consts
         lr = self.cfg.lr
         den = self._den
         keys = PARAM_KEYS[self.cfg.model]
+        trainable = self.cfg.trainable_features
 
         def step(state):
             leaves = [p.detach().requires_grad_() for p in
                       _leaves(state["params"], keys)]
+            X = (state["embed"].detach().requires_grad_() if trainable
+                 else self.store.device_table())
             with torch.enable_grad():
                 logits, hist, age, pushed = self._forward(
-                    _from_leaves(leaves, keys), self.store.device_table(),
+                    _from_leaves(leaves, keys), X,
                     state.get("hist"), state.get("age"), state["step"])
                 lse = torch.logsumexp(logits, dim=-1)
                 ll = torch.gather(logits, -1, cl["y"][:, None])[:, 0]
                 num = ((lse - ll) * cl["train_w"]).sum()
-                grads = torch.autograd.grad(num, leaves)
+                grads = list(torch.autograd.grad(
+                    num, leaves + [X] if trainable else leaves))
+            g_X = grads.pop() if trainable else None
             with torch.no_grad():
                 if collectives.group_active():
                     num, pushed, *grads = collectives.all_reduce_flat(
@@ -629,7 +725,9 @@ class DistGNNEngine:
                 loss = num / den
                 params2 = _from_leaves([p - lr * (g / den)
                                         for p, g in zip(leaves, grads)], keys)
-            state2 = dict(params=params2, step=state["step"] + 1)
+                state2 = dict(params=params2, step=state["step"] + 1)
+                if trainable:
+                    state2.update(self._embed_update_full(state, g_X / den))
             if hist is not None:
                 state2.update(hist=hist, age=age)
             return (state2, dict(loss=loss, rows_pushed=pushed),
@@ -648,7 +746,11 @@ class DistGNNEngine:
         reference's vmap over the k blocks): its state is
         ``init_state(reference=True)``'s, hist [Vp, d] a layer and age
         [L, k] (`train(reference=True)` starts from one).  Returns the
-        logits of every vertex, [Vp, C]."""
+        logits of every vertex, [Vp, C].  With trainable features the
+        layer-0 rows are the state's whole [Vp, D] ``embed``, differentiated
+        with the params; under a replica family their gradient and the
+        masters' delta pass through `reference_combine`
+        (`_ref_combine_rows`) before and after the row AdamW."""
         if self._ref_step is not None:
             return self._ref_step
         cl = self._global_consts()
@@ -658,6 +760,22 @@ class DistGNNEngine:
         keys = PARAM_KEYS[self.cfg.model]
         k, nb = self.k, self.nb
         hist_kept = self.cfg.protocol != "sync"
+        trainable = self.cfg.trainable_features
+        if trainable:
+            touched = torch.from_numpy(self.emb_touched).to(self.device)
+            combine = (self._ref_combine_rows() if self.backend.has_replicas
+                       else None)
+
+        def embed_update(state, g_X):
+            emb = state["embed"]
+            if combine is not None:
+                g_X = combine(g_X)
+            emb2, m2, v2, t2 = row_adamw_update(
+                emb, g_X, state["emb_m"], state["emb_v"], state["emb_t"],
+                touched, **self._embed_hparams())
+            if combine is not None:
+                emb2 = emb + combine((emb2 - emb) * touched[:, None])
+            return dict(embed=emb2, emb_m=m2, emb_v=v2, emb_t=t2)
 
         def refresh(H, hist_l, age_l, step_i):
             """block_refresh over each of the k blocks of H [Vp, d]."""
@@ -676,7 +794,8 @@ class DistGNNEngine:
             new_hist, new_age = [], []
             pushed = torch.zeros((), dtype=torch.float32, device=self.device)
             with torch.enable_grad():
-                H = self._global_features()
+                H = X = (state["embed"].detach().requires_grad_() if trainable
+                         else self._global_features())
                 for l, p_l in enumerate(_from_leaves(leaves, keys)["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
                     if hist_kept:
@@ -687,11 +806,15 @@ class DistGNNEngine:
                         new_age.append(a2)
                         pushed = pushed + rows
                 loss = softmax_xent(H, cl["y"], cl["train_w"])
-                grads = torch.autograd.grad(loss, leaves)
+                grads = list(torch.autograd.grad(
+                    loss, leaves + [X] if trainable else leaves))
+            g_X = grads.pop() if trainable else None
             with torch.no_grad():
                 params2 = _from_leaves([p - lr * g
                                         for p, g in zip(leaves, grads)], keys)
-            state2 = dict(params=params2, step=state["step"] + 1)
+                state2 = dict(params=params2, step=state["step"] + 1)
+                if trainable:
+                    state2.update(embed_update(state, g_X))
             if hist_kept:
                 state2.update(hist=tuple(new_hist), age=torch.stack(new_age))
             return (state2, dict(loss=loss.detach(), rows_pushed=pushed),
@@ -699,6 +822,19 @@ class DistGNNEngine:
 
         self._ref_step = ref_step
         return ref_step
+
+    def _ref_combine_rows(self):
+        """The oracle's replica combine of per-slot rows [Vp, D] in the
+        flattened replica space (`reference_combine`): the counterpart of
+        `ReplicaSyncBackend.combine_rows` in `_embed_update_full`."""
+        k, nb, Vp = self.k, self.nb, self.Vp
+        vids = torch.from_numpy(self.playout.ref_vert_ids).to(self.device)
+        V = self.g.num_vertices
+
+        def combine(rows):
+            return reference_combine(rows.reshape(k, nb, -1), vids,
+                                     V).reshape(Vp, -1)
+        return combine
 
     # ------------------------------------------------------------------
     # serving: layer-wise full-graph inference (the throughput tier)
@@ -719,29 +855,76 @@ class DistGNNEngine:
         self._infer_step = istep
         return istep
 
-    def infer_full_graph(self, *, params: Dict, reference: bool = False
-                         ) -> torch.Tensor:
+    def _layer0_table(self, state=None, whole: bool = False
+                      ) -> torch.Tensor:
+        """The layer-0 rows inference reads: with trainable features the
+        ``embed`` table of the train ``state``, else a live read of the
+        FeatureStore (rows written by `store.update_rows` or
+        `publish_embeddings` show in the next sweep).  This rank's rows, or
+        with ``whole`` every row (the reference sweep; a distributed state's
+        rows are then gathered from every rank)."""
+        if not self.cfg.trainable_features:
+            return (self._global_features() if whole
+                    else self.store.device_table())
+        if state is None or "embed" not in state:
+            raise ValueError(
+                "trainable_features: inference reads the layer-0 rows from "
+                "the train state's embed table: pass state=")
+        emb = state["embed"]
+        if whole and emb.shape[0] != self.Vp:
+            return self.gather_rows(emb)
+        if not whole and emb.shape[0] != self.nb:
+            return emb[self.rank * self.nb:(self.rank + 1) * self.nb]
+        return emb
+
+    def infer_full_graph(self, state=None, *, params: Optional[Dict] = None,
+                         reference: bool = False) -> torch.Tensor:
         """Owner-partitioned final-layer embeddings for EVERY vertex, [Vp, C]
         on the engine's device, on every rank (`global_embeddings` maps them
         back to the original vertex ids).  One call = one O(L) layer-wise
         sweep over this rank's rows, then one all_gather of the last layer's
         rows (`gather_rows`, not counted as sweep traffic, as in the
         reference); the sweep's wire bytes accrue into
-        CommStats.inference_bytes.
+        CommStats.inference_bytes.  ``params`` default to the ``state``'s;
+        with trainable features the layer-0 rows are the state's ``embed``
+        (`_layer0_table`), so a state is needed.
 
         `reference=True` runs the independent single-device oracle instead
         (no bytes accrue)."""
+        if params is None:
+            if state is None or "params" not in state:
+                raise ValueError("infer_full_graph needs params= or a train "
+                                 "state with a 'params' entry")
+            params = state["params"]
+        X = self._layer0_table(state, whole=reference)
         if reference:
             layer_ref = self._make_reference_layer()
             L = len(self.dims) - 1
             with torch.no_grad():
-                H = self._global_features()
+                H = X
                 for l, p_l in enumerate(params["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
             return H
-        out = self.make_infer_step()(params, self.store.device_table())
+        out = self.make_infer_step()(params, X)
         self.comm_stats.inference_bytes += self.inference_bytes_per_sweep()
         return self.gather_rows(out)
+
+    def publish_embeddings(self, state) -> None:
+        """The serving handoff of trainable features: write the trained
+        layer-0 rows (every rank's, gathered) into the FeatureStore and
+        refresh an attached overlay snapshot, so an engine or a serving tier
+        on this store, a frozen one too, reads the TRAINED table.  Host
+        side, outside the step: training itself never writes the store."""
+        emb = self._layer0_table(state, whole=True).detach().cpu().numpy()
+        if emb.shape != (self.store.num_rows, self.store.dim):
+            raise ValueError(f"embed table {emb.shape} != store "
+                             f"{(self.store.num_rows, self.store.dim)}")
+        self.store.update_rows(np.arange(self.store.num_rows), emb)
+        if self.store._overlay_ids is not None:
+            self.store.refresh_overlay()
+            cache = torch.from_numpy(self.store.overlay_table()[self.rank])
+            self._cache_table = torch.cat(
+                [cache, zero_pad_row(cache)], 0).to(self.device)
 
     def gather_rows(self, H: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of a per-vertex table, [Vp, D] on every rank,
@@ -761,7 +944,11 @@ class DistGNNEngine:
         (every batch's shapes), the p2p frontier halo cap and its
         installments, and the per-rank resident feature cache (remote hot
         rows a cache policy picks; exact, never stale, while the input
-        features are frozen), then the host batch builder."""
+        features are frozen), then the host batch builder.  With trainable
+        features a snapshot would go stale: the step re-gathers the overlay
+        rows from the live owner shards through the static plan of
+        `overlay_refresh_plan` (`_overlay_rows_live`), and the builder
+        lists each batch's touched rows, at most ``tcap`` an owner."""
         c, g, k = self.cfg, self.g, self.k
         L = c.num_layers
         part, new_of_old = self.playout.part, self.playout.new_of_old
@@ -779,7 +966,7 @@ class DistGNNEngine:
             hops = c.walk_length if c.batching == "subgraph" else c.num_layers
             self.fcap = p2p_frontier_halo_cap(g, part, hops, self.caps[0])
             self.fcap_widths = bucketed_cap_widths(self.fcap, c.p2p_buckets)
-        Ccap = max(int(c.cache_capacity), 1)
+        self.Ccap = Ccap = max(int(c.cache_capacity), 1)
         cache_ids = [device_cache_ids(g, part.assignment, d, c.cache_policy,
                                       c.cache_capacity) for d in range(k)]
         cache_slots = [{int(v): j for j, v in enumerate(ids_d)}
@@ -788,11 +975,20 @@ class DistGNNEngine:
         # the cache is a hot-row overlay on the feature store: a snapshot
         # of each rank's pinned remote rows; this rank keeps its own
         # [Ccap, D] table and a zero row (the misses' and pads' slot)
-        self.store.attach_overlay(
-            [new_of_old[ids_d].astype(np.int64) for ids_d in cache_ids], Ccap)
+        overlay_sids = [new_of_old[ids_d].astype(np.int64)
+                        for ids_d in cache_ids]
+        self.store.attach_overlay(overlay_sids, Ccap)
         cache = torch.from_numpy(self.store.overlay_table()[self.rank])
         self._cache_table = torch.cat(
             [cache, zero_pad_row(cache)], 0).to(self.device)
+        self._has_overlay = any(len(a) for a in overlay_sids)
+        self.tcap = 0
+        if c.trainable_features:
+            if self._has_overlay:
+                self._build_overlay_refresh(overlay_sids)
+            # the touched rows of an owner: at most all of them, and at
+            # most one per frontier slot of every rank
+            self.tcap = min(self.nb, k * self.caps[0])
         self.host_builder = HostBatchBuilder(
             batching=c.batching, execution=c.execution, seed=c.seed,
             batch_size=c.batch_size, fanouts=tuple(c.fanouts),
@@ -806,7 +1002,27 @@ class DistGNNEngine:
             labels=np.asarray(g.labels),
             train_mask=(None if g.train_mask is None
                         else np.asarray(g.train_mask)),
-            cache_slots=cache_slots, cache_sets=cache_sets, graph=g)
+            cache_slots=cache_slots, cache_sets=cache_sets, graph=g,
+            trainable_features=c.trainable_features, tcap=int(self.tcap),
+            overlay_rows=tuple(len(a) for a in cache_ids))
+
+    def _build_overlay_refresh(self, overlay_sids) -> None:
+        """The live overlay's device constants (trainable features): this
+        rank's send installments of `overlay_refresh_plan` as K = 1 ELLs
+        over its nb rows (pad entries masked: they ship zeros), and its
+        overlay slots' ids into [own rows | received rows] as a K = 1 ELL
+        (`single_slot`: the pads read 0), each with its transpose plan."""
+        k, nb, r = self.k, self.nb, self.rank
+        send, tab, widths = overlay_refresh_plan(
+            overlay_sids, k, nb, self.Ccap, buckets=self.cfg.p2p_buckets)
+        counts = np.zeros((k, k), np.int64)  # [owner, rank reading it]
+        for d, a in enumerate(overlay_sids):
+            counts[:, d] = np.bincount(a // nb, minlength=k)
+        mask = bucketed_send_mask(counts, widths)
+        self._ov_send = send_installments(self._upload(send[r]),
+                                          self._upload(mask[r]), nb)
+        rows = nb + len(widths) * k * widths[0]
+        self._ov_tab = single_slot(self._upload(tab[r]), rows, rows)
 
     def _sample_host(self, step_idx: int):
         """Host sampling stage (`HostBatchBuilder.sample`): every rank's
@@ -864,8 +1080,34 @@ class DistGNNEngine:
                                              device=self.device), None))
             batch["send"] = send
             batch["tab_ids"] = self._upload(arrays["tab_ids"][r]).long()
+        if self.cfg.trainable_features:
+            self._live_fetch_plans(batch, arrays)
         batch["arrays"] = arrays
         return batch
+
+    def _live_fetch_plans(self, batch, arrays) -> None:
+        """A trainable batch's fetch gathers as K = 1 ELLs, each with the
+        transpose plan its backward reads, built here once per batch (by the
+        pipelined producer lane when it uploads) and never inside the step:
+        the cache slots over the live overlay rows (``cache``), broadcast's
+        ids over the gathered table (``bc``), the ring's over each owner's
+        block (``ring``), p2p's over [own rows | halo rows] (``tab``) and
+        its send installments; pads are masked (`single_slot`).  Adds this
+        rank's touched rows ``emb_ids``."""
+        k, nb, ex = self.k, self.nb, self.cfg.execution
+        if self._has_overlay:
+            batch["cache"] = single_slot(batch["cache_ids"], self.Ccap,
+                                         self.Ccap)
+        if ex == "broadcast":
+            batch["bc"] = single_slot(batch["bc_ids"], self.Vp, self.Vp)
+        elif ex == "ring":
+            batch["ring"] = single_slot(batch["ring_ids"], nb, nb)
+        else:
+            rows = nb + len(self.fcap_widths) * k * self.fcap_widths[0]
+            batch["tab"] = single_slot(batch["tab_ids"], rows, rows)
+            batch["send"] = [(ids, mask, ell_transpose_plan(ids, mask, nb))
+                             for ids, mask, _ in batch["send"]]
+        batch["emb_ids"] = self._upload(arrays["emb_ids"][self.rank]).long()
 
     def sample_minibatch(self, step_idx: int) -> Dict:
         """sample + extract: one static-shape batch for `step_idx`, this
@@ -889,15 +1131,73 @@ class DistGNNEngine:
                 f"protocol='sync', or use batching='full_graph' to train "
                 f"with {c.protocol!r}.")
 
-    def init_minibatch_state(self, params: Optional[Dict] = None) -> Dict:
+    def init_minibatch_state(self, params: Optional[Dict] = None, *,
+                             reference: bool = False) -> Dict:
         """The mini-batch training state ``{params, step}``: ``params``
         drawn with `init_gnn_params` from a generator seeded with
-        ``cfg.seed`` unless given (a carry-over)."""
+        ``cfg.seed`` unless given (a carry-over).  With trainable features
+        also the embedding table and its row-sparse AdamW state
+        (`_embed_state`): this rank's rows, every row with ``reference``
+        (the state `make_reference_minibatch_step` reads)."""
         if params is None:
             params = init_gnn_params(
                 self.cfg.model, self.dims,
                 torch.Generator().manual_seed(self.cfg.seed), self.device)
-        return dict(params=params, step=0)
+        state = dict(params=params, step=0)
+        if self.cfg.trainable_features:
+            state.update(self._embed_state(reference))
+        return state
+
+    def _overlay_rows_live(self, X_l: torch.Tensor) -> torch.Tensor:
+        """This rank's overlay rows [Ccap, D] re-gathered from the LIVE
+        owner shards (trainable features): one more set of all_to_all
+        installments a step, whose reverse routes the cache hits' gradients
+        back to the owners' rows."""
+        ids, mask, plan = self._ov_tab
+        X_l = X_l.contiguous()
+        recv = bucketed_all_to_all(X_l, self._ov_send)()
+        return self._ell(ids, mask, torch.cat([X_l, recv], 0), plan)
+
+    def _fetch_live(self, X_l: torch.Tensor, cache_rows, bl: Dict
+                    ) -> torch.Tensor:
+        """The frontier fetch of trainable features, inside the gradient:
+        `_fetch_frontier`'s dataflow with every gather a K = 1 ELL over the
+        batch's plans (`_live_fetch_plans`), so the backward of each is the
+        transpose kernel, and the collectives' reverses (the
+        reduce-scatter, the reverse all_to_all or rotation) carry each
+        frontier row's gradient back to its owner's rows.  ``cache_rows``
+        is the live overlay or None without one (the cache slots then read
+        nothing)."""
+        c = self.cfg
+        if cache_rows is None:
+            F = X_l.new_zeros((bl["cache_ids"].shape[0], X_l.shape[1]))
+        else:
+            ids, mask, plan = bl["cache"]
+            F = self._ell(ids, mask, cache_rows, plan)
+        if c.execution == "ring":
+            ids, mask, plans = bl["ring"]
+            for owner, blk in ring_blocks(X_l.contiguous(), self.k,
+                                          self.rank):
+                F = F + self._ell(ids[owner], mask[owner], blk, plans[owner])
+            return F
+        if c.execution == "broadcast":
+            ids, mask, plan = bl["bc"]
+            if collectives.group_active():
+                def exchange(hc):
+                    return collectives.all_gather_rows(hc.contiguous())
+            else:
+                def exchange(hc):
+                    return lambda: hc
+        else:
+            (ids, mask, plan), send = bl["tab"], bl["send"]
+
+            def exchange(hc):
+                hc = hc.contiguous()
+                recv = bucketed_all_to_all(hc, send)
+                return lambda: torch.cat([hc, recv()], 0)
+        return F + chunked_overlap(
+            X_l, c.exchange_chunks, exchange,
+            lambda tab: self._ell(ids, mask, tab, plan))
 
     def _fetch_frontier(self, X_local: torch.Tensor, bl: Dict) -> torch.Tensor:
         """The input features of this rank's frontier, [cap0, D], outside
@@ -957,7 +1257,13 @@ class DistGNNEngine:
         the loss weights and every gradient (`PARAM_KEYS` order) are then
         summed over the ranks in one flat all_reduce and divided by
         den = max(sum of the weights, 1), as in the reference, before SGD.
-        Without a process group the sums are the local values."""
+        Without a process group the sums are the local values.
+
+        With trainable features the fetch moves INSIDE the gradient
+        (`_fetch_live`, after the live overlay refresh): the rows' gradient
+        arrives summed over every rank that read them, takes no
+        all_reduce, and `sparse_adamw_ids` updates this rank's touched rows
+        ``emb_ids`` (sentinel nb) with it, divided by den."""
         if self._mb_step is not None:
             return self._mb_step
         if self.cfg.batching == "full_graph":
@@ -965,15 +1271,25 @@ class DistGNNEngine:
                              "use make_step()")
         lr = self.cfg.lr
         keys = PARAM_KEYS[self.cfg.model]
+        trainable, nb = self.cfg.trainable_features, self.nb
 
         def step(state, batch):
-            F = self._fetch_frontier(self.store.device_table(), batch)
+            if trainable:
+                X = state["embed"].detach().requires_grad_()
+            else:
+                F = self._fetch_frontier(self.store.device_table(), batch)
             leaves = [p.detach().requires_grad_() for p in
                       _leaves(state["params"], keys)]
             with torch.enable_grad():
+                if trainable:
+                    F = self._fetch_live(
+                        X, self._overlay_rows_live(X) if self._has_overlay
+                        else None, batch)
                 num, logits = self._numerator(_from_leaves(leaves, keys),
                                               batch, F)
-                grads = torch.autograd.grad(num, leaves)
+                grads = list(torch.autograd.grad(
+                    num, leaves + [X] if trainable else leaves))
+            g_X = grads.pop() if trainable else None
             with torch.no_grad():
                 w_sum = batch["w"].sum()
                 num = num.detach()
@@ -984,8 +1300,17 @@ class DistGNNEngine:
                 loss = num / den
                 params2 = _from_leaves([p - lr * (g / den)
                                         for p, g in zip(leaves, grads)], keys)
-            return (dict(params=params2, step=state["step"] + 1),
-                    dict(loss=loss), logits.detach()[None])
+                state2 = dict(params=params2, step=state["step"] + 1)
+                if trainable:
+                    ids = batch["emb_ids"]
+                    valid = ids < nb
+                    g_rows = g_X.index_select(
+                        0, torch.where(valid, ids, 0)) / den
+                    state2.update(zip(EMBED_KEYS, sparse_adamw_ids(
+                        state["embed"], state["emb_m"], state["emb_v"],
+                        state["emb_t"], ids, g_rows, valid=valid,
+                        **self._embed_hparams())))
+            return state2, dict(loss=loss), logits.detach()[None]
 
         self._mb_step = step
         return step
@@ -996,13 +1321,23 @@ class DistGNNEngine:
         this rank's is already on the device), features read straight from
         the global table by frontier id (pads read its zero row), the loss
         over all k blocks, SGD; no collective.  Returns the target logits
-        of every block, [k, cap_L, C]."""
+        of every block, [k, cap_L, C].  With trainable features the table
+        is the state's whole [Vp, D] ``embed``
+        (``init_minibatch_state(reference=True)``), read inside the
+        gradient by the plain slot gather, and `sparse_adamw_ids` updates
+        the batch's touched rows of every owner (row (s, j) of ``emb_ids``
+        is the flat row s*nb + j)."""
         if self._mb_ref_step is not None:
             return self._mb_ref_step
         lr = self.cfg.lr
         keys = PARAM_KEYS[self.cfg.model]
-        X = self._global_features()
-        table0 = torch.cat([X, zero_pad_row(X)], 0)
+        trainable, k, nb, Vp = (self.cfg.trainable_features, self.k,
+                                self.nb, self.Vp)
+        if trainable:
+            offsets = (torch.arange(k, device=self.device) * nb)[:, None]
+        else:
+            X = self._global_features()
+            table0 = torch.cat([X, zero_pad_row(X)], 0)
 
         def ref_step(state, batch):
             blocks = [batch if b == self.rank
@@ -1012,17 +1347,38 @@ class DistGNNEngine:
                       _leaves(state["params"], keys)]
             with torch.enable_grad():
                 params = _from_leaves(leaves, keys)
-                nums, logits = zip(*[
-                    self._numerator(params, bl, torch.index_select(
-                        table0, 0, bl["frontier"])) for bl in blocks])
+                if trainable:
+                    emb = state["embed"].detach().requires_grad_()
+                    table = torch.cat([emb, zero_pad_row(emb)], 0)
+                    fetched = [_SlotGather.apply(
+                        bl["frontier"][:, None],
+                        (bl["frontier"] < Vp).to(torch.float32)[:, None],
+                        table) for bl in blocks]
+                else:
+                    fetched = [torch.index_select(table0, 0, bl["frontier"])
+                               for bl in blocks]
+                nums, logits = zip(*[self._numerator(params, bl, F)
+                                     for bl, F in zip(blocks, fetched)])
                 w_sum = sum(bl["w"].sum() for bl in blocks)
                 loss = sum(nums) / torch.clamp(w_sum, min=1.0)
-                grads = torch.autograd.grad(loss, leaves)
+                grads = list(torch.autograd.grad(
+                    loss, leaves + [emb] if trainable else leaves))
+            g_E = grads.pop() if trainable else None
             with torch.no_grad():
                 params2 = _from_leaves([p - lr * g
                                         for p, g in zip(leaves, grads)], keys)
-            return (dict(params=params2, step=state["step"] + 1),
-                    dict(loss=loss.detach()),
+                state2 = dict(params=params2, step=state["step"] + 1)
+                if trainable:
+                    emb_ids = torch.from_numpy(batch["arrays"]["emb_ids"]).to(
+                        self.device).long()
+                    valid = (emb_ids < nb).reshape(-1)
+                    ids = (offsets + emb_ids).reshape(-1)
+                    g_rows = g_E.index_select(0, torch.where(valid, ids, 0))
+                    state2.update(zip(EMBED_KEYS, sparse_adamw_ids(
+                        state["embed"], state["emb_m"], state["emb_v"],
+                        state["emb_t"], ids, g_rows, valid=valid,
+                        **self._embed_hparams())))
+            return (state2, dict(loss=loss.detach()),
                     torch.stack([t.detach() for t in logits]))
 
         self._mb_ref_step = ref_step
@@ -1112,7 +1468,7 @@ class DistGNNEngine:
         if state is None:
             self.comm_stats.reset()
         holder = dict(state=state if state is not None
-                      else self.init_minibatch_state())
+                      else self.init_minibatch_state(reference=reference))
         losses: List = []
 
         def train_fn(mbs, batch):
@@ -1164,9 +1520,12 @@ class DistGNNEngine:
 
     def account_step(self) -> None:
         """Accrue one distributed training step's wire bytes into
-        CommStats, field by field, as the reference's `train` does."""
+        CommStats, field by field, as the reference's `train` does (with
+        trainable features the layer-0 gradients' bytes too)."""
         for name, b in self._wire_fields.items():
             setattr(self.comm_stats, name, getattr(self.comm_stats, name) + b)
+        if self.cfg.trainable_features:
+            self.comm_stats.embed_grad_bytes += self._emb_bytes_per_step
 
     def train(self, epochs: int, reference: bool = False
               ) -> Tuple[List[float], torch.Tensor]:
@@ -1181,7 +1540,7 @@ class DistGNNEngine:
             self._check_minibatch_runnable()
             step = (self.make_reference_minibatch_step() if reference
                     else self.make_minibatch_step())
-            state = self.init_minibatch_state()
+            state = self.init_minibatch_state(reference=reference)
             self.comm_stats.reset()
             losses, logits = [], None
             for i in range(epochs):

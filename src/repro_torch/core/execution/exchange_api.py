@@ -22,6 +22,10 @@ backward of every gather reads a transpose plan built in `device_consts`.
                       ``sync_active`` (replicas exist) and ``halo_active``
                       (hybrid: the owned-edge ELL reads remote low-degree
                       rows through a halo table after the local block).
+
+`combine_rows` sums per-slot rows across the replicas of each vertex (the
+identity without replicas): the trainable embeddings' gradient and the
+masters' delta take it.
 """
 from __future__ import annotations
 
@@ -49,6 +53,8 @@ from repro_torch.kernels.ops import ell_slot_gather, ell_transpose_plan
 
 
 class ExchangeBackend:
+    has_replicas = False  # a vertex's rows live on several ranks
+
     def __init__(self, eng):
         self.eng = eng
 
@@ -66,6 +72,12 @@ class ExchangeBackend:
         """One GAT layer: per-edge logits, masked segment-softmax and the
         attention-weighted gather-sum; H [nb, d_in] -> [nb, d_out]."""
         raise NotImplementedError
+
+    def combine_rows(self, rows, cl):
+        """Sum per-slot rows [nb, D] across the replicas of each vertex: the
+        trainable embeddings' gradient and delta path.  The identity for a
+        family without replicas."""
+        return rows
 
 
 class EdgeCutBackend(ExchangeBackend):
@@ -241,6 +253,7 @@ class ReplicaSyncBackend(ExchangeBackend):
         lay = eng.playout
         self.sync_active = lay.sync_active
         self.halo_active = lay.halo_active
+        self.has_replicas = self.sync_active
 
     def device_consts(self, cl) -> dict:
         """``plan``: the owned-edge ELL's transpose plan over its table
@@ -319,6 +332,13 @@ class ReplicaSyncBackend(ExchangeBackend):
         return replica_combine(c.execution, part, cl["sync"], k=eng.k,
                                rank=eng.rank, ell_fn=eng._ell,
                                num_chunks=c.exchange_chunks)
+
+    def combine_rows(self, rows, cl):
+        """The replica combine (`replica_combine`, chunked like a layer's)
+        of per-slot rows, or the identity without replicas."""
+        if not self.sync_active:
+            return rows
+        return self._combine(rows, cl)
 
     def aggregate(self, h_local, cl):
         """The owned-edge partial ELL over the gather table (chunked with

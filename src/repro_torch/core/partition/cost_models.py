@@ -2,7 +2,8 @@
 hybrid byte models of `repro/core/partition/cost_models.py`): the heuristic
 affinity scores the streaming partitioners read (survey Eq. 3-5), and the
 standalone byte models the engine's CommStats accounting is cross-checked
-against.  The per-device byte models the autotuner reads are not copied."""
+against (the trainable embeddings' `embedding_grad_bytes_per_step` too).
+The per-device byte models the autotuner reads are not copied."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -132,6 +133,39 @@ def inference_bytes_per_sweep(execution: str, dims: Sequence[int], *,
     else:
         raise ValueError(f"unknown execution {execution!r}")
     return rows * int(sum(widths)) * feat_bytes
+
+
+def embedding_grad_bytes_per_step(g: Graph, execution: str,
+                                  dims: Sequence[int], *, k: int,
+                                  family: str = "edge_cut", part=None,
+                                  nb: int = None, replica_rows: int = None,
+                                  feat_bytes: int = FEAT_BYTES) -> int:
+    """Wire bytes per FULL-GRAPH train step for routing the layer-0
+    embedding gradients back to their owner shards (trainable features):
+    the reverse of one exchange pass at width dims[0].
+
+      edge_cut broadcast/ring  the all_gather's (or the rotations') reverse
+                               carries the same table: k*(k-1)*nb rows.
+      edge_cut p2p             each halo row's cotangent returns to its
+                               owner once: `part.communication_volume(g)`
+                               rows, the bucketed all_to_all's need sets.
+      vertex_cut               two replica-sync passes at width dims[0]: the
+                               replicas' partial gradients combine into the
+                               vertex's, and the master's delta goes back to
+                               the replicas -> 2 * replica_rows rows (the
+                               plan's rows_per_layer).
+
+    The engine's CommStats.embed_grad_bytes equal it."""
+    D = int(dims[0])
+    if family == "vertex_cut":
+        return 2 * int(replica_rows) * D * feat_bytes
+    if execution in ("broadcast", "ring"):
+        rows = k * (k - 1) * int(nb)
+    elif execution == "p2p":
+        rows = part.communication_volume(g)
+    else:
+        raise ValueError(f"unknown execution {execution!r}")
+    return rows * D * feat_bytes
 
 
 # ---------------------------------------------------------------------------

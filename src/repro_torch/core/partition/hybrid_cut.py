@@ -248,5 +248,14 @@ class HybridLayout(ReplicaLayoutBase):
                                          * int(sum(sync_w)) * FEAT_BYTES)
         return out
 
+    def embed_grad_bytes(self, dims) -> int:
+        # the halo gradient's return (one width-dims[0] pass) and the
+        # vertex cut's gradient combine and master-delta pair over the
+        # replica rows
+        rows = self.halo_rows_exec
+        if self.sync_active:
+            rows += 2 * self._vc_rows_per_layer
+        return rows * int(dims[0]) * FEAT_BYTES
+
 
 LAYOUT_BUILDERS["hybrid"] = HybridLayout

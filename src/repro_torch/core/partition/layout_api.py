@@ -17,9 +17,10 @@ onto its device: the rows [r*nb, (r+1)*nb) of every per-row table, and
 entry r of every table in ``squeeze_keys`` (whose leading axis is the
 rank, as the reference's).  Every rank builds the whole layout,
 identically, as the reference builds it globally.  Ported: the parts of the
-layout that the inference sweep and the full-graph training step read (the
-per-device byte models, the trainable-embedding accounting and the
-telemetry gauges arrive with their own slices).
+layout that the inference sweep and the training steps read, with the
+trainable-embedding touched mask (`emb_touched`) and its gradient bytes
+(`embed_grad_bytes`); the per-device byte models and the telemetry gauges
+are not copied.
 """
 from __future__ import annotations
 
@@ -77,6 +78,12 @@ class PartitionLayout:
     def wire_fields_per_step(self, model: str, dims) -> dict:
         """CommStats field name -> wire bytes ONE full-graph step accrues on
         that field (their sum is one inference sweep's bytes)."""
+        raise NotImplementedError
+
+    def embed_grad_bytes(self, dims) -> int:
+        """Wire bytes a full-graph step pays to route the layer-0 embedding
+        gradients home (trainable features): the reverse of one exchange
+        pass at width dims[0]."""
         raise NotImplementedError
 
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
@@ -146,7 +153,11 @@ class EdgeCutLayout(PartitionLayout):
         # id == the relabeled vertex id (owner * nb + slot)
         self.store = FeatureStore(X.reshape(k, nb, D), self.device,
                                   owner=self.rank)
-        self.X = torch.from_numpy(self.store.host_table())
+        self.X = torch.from_numpy(self.store.flat())
+        # the full-graph touched set of trainable embeddings: every REAL
+        # owned row is in the batch (pad rows stay untouched forever)
+        self.emb_touched = np.zeros((Vp,), np.float32)
+        self.emb_touched[new_of_old] = 1.0
 
     @functools.cached_property
     def bmask(self) -> np.ndarray:
@@ -269,6 +280,9 @@ class EdgeCutLayout(PartitionLayout):
         return {"halo_bytes":
                 self._halo_rows_per_pass() * int(sum(widths)) * FEAT_BYTES}
 
+    def embed_grad_bytes(self, dims) -> int:
+        return self._halo_rows_per_pass() * int(dims[0]) * FEAT_BYTES
+
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
         return H[self.new_of_old]
 
@@ -297,7 +311,11 @@ class ReplicaLayoutBase(PartitionLayout):
         self.Vp = Vp = k * nv
         self.K = lay.Kc
         self.store = FeatureStore(lay.X, self.device, owner=self.rank)
-        self.X = torch.from_numpy(self.store.host_table())
+        self.X = torch.from_numpy(self.store.flat())
+        # trainable embeddings update at MASTER slots only (the replicas
+        # receive the master's delta through the replica sync, so they
+        # never drift and never update twice)
+        self.emb_touched = np.asarray(lay.master_mask.reshape(Vp), np.float32)
         self.y = lay.y.reshape(Vp)
         self.train_w = lay.train_w.reshape(Vp)
         self.test_w = lay.test_w.reshape(Vp)
@@ -390,6 +408,11 @@ class VertexCutFamilyLayout(ReplicaLayoutBase):
         widths = model_exchange_widths(model, dims, "vertex_cut")
         return {"replica_sync_bytes":
                 self._vc_rows_per_layer * int(sum(widths)) * FEAT_BYTES}
+
+    def embed_grad_bytes(self, dims) -> int:
+        # the gradient's combine and the masters' delta re-broadcast: two
+        # sync passes at width dims[0]
+        return 2 * self._vc_rows_per_layer * int(dims[0]) * FEAT_BYTES
 
 
 LAYOUT_BUILDERS = {

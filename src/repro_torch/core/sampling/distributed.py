@@ -1,8 +1,9 @@
 """Distributed sampling and communication accounting (the port's copy of
 `repro/core/sampling/distributed.py`): `CommStats`, pull-based vs CSP
 push-based sampling with their byte counts, skewed weighted sampling, and
-`feature_fetch_bytes`, the cost model the mini-batch engine's CommStats
-equal exactly.  Host numpy, as in the reference.
+`feature_fetch_bytes` and `embedding_update_bytes`, the cost models the
+mini-batch engine's CommStats equal exactly.  Host numpy, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -128,3 +129,30 @@ def feature_fetch_bytes(part: Partition, worker: int, vertices: np.ndarray,
         stats.pull_bytes += miss
         stats.cache_hit_bytes += hit
     return miss
+
+
+def embedding_update_bytes(part: Partition, worker: int, vertices: np.ndarray,
+                           feature_dim: int, cached_ids=frozenset(),
+                           overlay_rows: int = 0,
+                           stats: CommStats = None) -> int:
+    """Wire bytes one rank adds per mini-batch step when layer-0 rows are
+    TRAINABLE embeddings: the cotangent of every remote frontier MISS goes
+    back to its owner (the reverse of the feature fetch: same rows, same
+    width), and the hot-row overlay costs 2 * overlay_rows rows a step (the
+    live refresh down from the owners and the hits' gradients back), since
+    a frozen snapshot can no longer serve the cached rows.
+
+    Like `feature_fetch_bytes` this counts requested rows (the p2p volume)
+    whichever collective ships them, the convention the engine's CommStats
+    follow.  Returns the bytes; adds them to ``stats.embed_grad_bytes`` when
+    given."""
+    cached = (cached_ids if isinstance(cached_ids, (set, frozenset))
+              else set(int(v) for v in np.asarray(cached_ids).ravel()))
+    rows = 0
+    for v in np.asarray(vertices).ravel():
+        if part.assignment[v] != worker and int(v) not in cached:
+            rows += 1
+    b = (rows + 2 * int(overlay_rows)) * feature_dim * FEAT_BYTES
+    if stats is not None:
+        stats.embed_grad_bytes += b
+    return b

@@ -32,7 +32,10 @@ work:
   epoch is bitwise-identical to a blocking one whichever worker produced
   which batch.
 
-The trainable-embedding ids arrive with trainable features.
+With trainable features the batch also carries ``emb_ids``, per owner the
+sorted distinct local rows any rank's frontier reads (the row-sparse
+optimizer's ids), and each rank's CommStats delta adds the gradient rows
+the step sends back (`embedding_update_bytes`).
 """
 from __future__ import annotations
 
@@ -44,8 +47,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.execution.bucketing import bucketed_send_table, halo_slot
+from repro_torch.core.feature_store import touched_rows_from_frontier
 from repro_torch.core.partition.edge_cut import Partition
-from repro_torch.core.sampling.distributed import CommStats, feature_fetch_bytes
+from repro_torch.core.sampling.distributed import (
+    CommStats,
+    embedding_update_bytes,
+    feature_fetch_bytes,
+)
 from repro_torch.core.sampling.partition_batch import partition_targets
 from repro_torch.core.sampling.samplers import (
     layer_wise_sample,
@@ -106,6 +114,11 @@ class HostBatchBuilder:
     cache_sets: List[frozenset]
     # Graph, or anything with .materialize() -> Graph (attached lazily)
     graph: object
+    # trainable features: the touched-row cap of ``emb_ids`` and each
+    # rank's overlay row count (the refresh's rows in the byte model)
+    trainable_features: bool = False
+    tcap: int = 0
+    overlay_rows: Tuple[int, ...] = ()
 
     # -- lazy derived state (rebuilt after unpickling) ---------------------
 
@@ -248,6 +261,11 @@ class HostBatchBuilder:
             delta = CommStats()
             feature_fetch_bytes(part, d, mb.layer_vertices[0], D,
                                 cached_ids=self.cache_sets[d], stats=delta)
+            if self.trainable_features:
+                embedding_update_bytes(
+                    part, d, mb.layer_vertices[0], D,
+                    cached_ids=self.cache_sets[d],
+                    overlay_rows=self.overlay_rows[d], stats=delta)
             per_device.append(dict(
                 stats={f.name: getattr(delta, f.name)
                        for f in dataclasses.fields(CommStats)
@@ -267,6 +285,12 @@ class HostBatchBuilder:
             # the full-graph plan
             arrays["send_rows"] = bucketed_send_table(need_lists, k, widths)
             arrays["tab_ids"] = tab_ids
+        if self.trainable_features:
+            # per OWNER the touched local rows, sorted: every row any
+            # rank's frontier reads, hit or miss (a hit reads the refreshed
+            # overlay, whose gradient still lands on the owner's shard)
+            arrays["emb_ids"] = touched_rows_from_frontier(
+                frontier, k, nb, self.tcap)
         return arrays, dict(per_device=per_device)
 
     # -- worker-process entry point ----------------------------------------
@@ -314,4 +338,6 @@ class HostBatchBuilder:
             B, wdt = len(self.fcap_widths), self.fcap_widths[0]
             lay["send_rows"] = ((k, B, k, wdt), np.dtype(np.int32))
             lay["tab_ids"] = ((k, caps[0]), np.dtype(np.int32))
+        if self.trainable_features:
+            lay["emb_ids"] = ((k, self.tcap), np.dtype(np.int32))
         return lay

@@ -222,9 +222,10 @@ def test_minibatch_rejects_bad_config():
     """The reference's guards (`test_minibatch_rejects_bad_config`): an
     unknown batching, a mini-batch mode under an async protocol, an
     unknown cache policy, fanouts short of num_layers, a replica family
-    under mini-batch, each a ValueError; trainable features (item 10) are
-    not ported; the pipelined schedule refuses an unknown prefetch mode and
-    a depth of 0."""
+    under mini-batch, each a ValueError; trainable features, ported, build
+    their state (the embedding table, zero moments and counts); the
+    pipelined schedule refuses an unknown prefetch mode and a depth of
+    0."""
     g = sbm_graph(**SBM)
     for cfg in (EngineConfig(batching="nope"),
                 EngineConfig(batching="node_wise", protocol="variation"),
@@ -237,10 +238,15 @@ def test_minibatch_rejects_bad_config():
         with pytest.raises(ValueError):
             DistGNNEngine(g, cfg, device=CPU)
     for batching in ("full_graph", "node_wise"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            DistGNNEngine(g, EngineConfig(batching=batching,
-                                          trainable_features=True),
-                          device=CPU)
+        eng = DistGNNEngine(g, EngineConfig(batching=batching,
+                                            trainable_features=True),
+                            device=CPU)
+        state = (eng.init_state() if batching == "full_graph"
+                 else eng.init_minibatch_state())
+        assert tuple(state["embed"].shape) == (eng.nb, 32)
+        assert tuple(state["emb_t"].shape) == (eng.nb,)
+        assert not (state["emb_m"].any() or state["emb_v"].any()
+                    or state["emb_t"].any())
     eng = DistGNNEngine(g, EngineConfig(batching="node_wise"), device=CPU)
     # the pipelined schedule runs (the blocking epoch's losses) and refuses
     # an unknown prefetch mode

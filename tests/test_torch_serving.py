@@ -4,6 +4,7 @@ interpret mode, one device on an Auto-axis mesh) and its single-device
 reference, with the reference's own weights carried over; the serving
 driver; the engine's device and config guards; and the import-purity guard
 (the port imports nothing of JAX or of `repro`)."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -131,33 +132,52 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("case", ["model", "execution", "batching", "family",
                                   "ranks"])
 def test_engine_rejects_what_is_not_ported(case):
-    """Each unported axis raises naming its slice; a partition whose part
-    count is not the process group's rank count (one rank here: no group)
-    is a caller's error.  Every model, execution model, protocol, batching
-    mode and partition family is ported, so each case holds trainable
-    features (item 10) of the edge-cut family: ``model`` under layer_wise,
-    ``execution`` under subgraph and the ring, ``batching`` under
-    node_wise, ``family`` under subgraph and broadcast (the replica
-    families refuse mini-batch with a ValueError, as the reference:
-    `test_torch_replica.py`)."""
+    """Every model, execution model, protocol, batching mode and partition
+    family is ported, trainable features too: each case that held the
+    trainable refusal now builds the trainable engine on its axis and
+    holds its state's keys and shapes (``model``: gat under layer_wise;
+    ``execution``: the ring under subgraph; ``batching``: node_wise;
+    ``family``: the vertex cut's full-graph step, whose touched rows are
+    its master slots, and the reference's guard: trainable features
+    refused under a historical-embedding protocol).  A partition whose
+    part count is not the process group's rank count (one rank here: no
+    group) is a caller's error."""
     g = er_graph(**GRAPH)
-    cfg, partition = EngineConfig(trainable_features=True), None
-    error, match = NotImplementedError, "item 10"
+    if case == "ranks":
+        with pytest.raises(ValueError,
+                           match="4 parts and the process group 1 rank"):
+            DistGNNEngine(g, EngineConfig(), hash_partition(g, 4),
+                          device=CPU)
+        return
+    cfg = EngineConfig(trainable_features=True, hidden=8)
     if case == "model":
-        cfg.batching = "layer_wise"
+        cfg.model, cfg.batching = "gat", "layer_wise"
     elif case == "execution":
         cfg.execution, cfg.batching = "ring", "subgraph"
     elif case == "batching":
         cfg.batching = "node_wise"
-    elif case == "family":
-        cfg.partition_family = "edge_cut"
-        cfg.execution, cfg.batching = "broadcast", "subgraph"
     else:
-        cfg.trainable_features = False
-        partition = hash_partition(g, 4)
-        error, match = ValueError, "4 parts and the process group 1 rank"
-    with pytest.raises(error, match=match):
-        DistGNNEngine(g, cfg, partition, device=CPU)
+        cfg.partition_family, cfg.execution = "vertex_cut", "broadcast"
+        with pytest.raises(ValueError, match="protocol='sync'"):
+            DistGNNEngine(g, dataclasses.replace(cfg, protocol="epoch_fixed"),
+                          device=CPU)
+    eng = DistGNNEngine(g, cfg, device=CPU)
+    full = cfg.batching == "full_graph"
+    state = eng.init_state() if full else eng.init_minibatch_state()
+    assert set(state) == {"params", "step", "embed", "emb_m", "emb_v",
+                          "emb_t"}
+    D = g.features.shape[1]
+    for key in ("embed", "emb_m", "emb_v"):
+        assert tuple(state[key].shape) == (eng.nb, D)
+        assert state[key].dtype == torch.float32
+    assert not state["emb_m"].any() and not state["emb_v"].any()
+    assert state["emb_t"].dtype == torch.int32 and not state["emb_t"].any()
+    assert tuple(state["emb_t"].shape) == (eng.nb,)
+    assert torch.equal(state["embed"], eng.store.device_table())
+    if full:
+        assert eng.emb_touched.sum() == g.num_vertices  # one master each
+    else:
+        assert eng.tcap == min(eng.nb, eng.k * eng.caps[0])
 
 
 _PURITY_CODE = """
