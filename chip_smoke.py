@@ -57,8 +57,8 @@ the same model's edge-cut phase of this run (the family anchor: losses and
 sweep within 1e-4; gcn's bit for bit, gat's not, its stabilizer is floored
 at 0).  Last, the sampled mini-batch step at the same width (MB_SAMPLERS:
 node-wise batch 64 with fanouts 15, 10, 5, layer-wise 4096 a layer,
-subgraph 1024 roots and walks of 4; lr MB_LR): gcn node-wise under p2p
-through `run_epoch_minibatch` (phase `mb_node_p2p`, with the epoch's
+subgraph 1024 roots and walks of 4; lr MB_LR; MB_STEPS batches): gcn
+node-wise under p2p through `run_epoch_minibatch` (phase `mb_node_p2p`, with the epoch's
 sample, extract and train seconds, and a second `sample_minibatch(0)`
 equal array for array) and one traced step of it (`mb_train_profile`);
 sage, gin and gat over the same batches (`mb_node_sage`, `mb_node_gin`,
@@ -71,8 +71,8 @@ pool, its LRU serving every batch, then a steady epoch, the LRU emptied,
 and the pool closed with no segment left), each bitwise equal to
 `mb_node_p2p` (losses, params, CommStats), with its StageTimes beside
 `pipelined_wall_model`; gcn under broadcast and the ring
-(`mb_node_broadcast`, `mb_node_ring`: two steps each, bitwise equal to
-`mb_node_p2p`'s first two at one rank), layer-wise and subgraph under p2p
+(`mb_node_broadcast`, `mb_node_ring`: MB_BASELINE_STEPS each, bitwise
+equal to `mb_node_p2p`'s first at one rank), layer-wise and subgraph under p2p
 (`mb_layer_p2p`, `mb_subgraph_p2p`); and `serve_gnn`'s path (`mb_serve`:
 a node-wise engine trains, then sweeps, bitwise equal to a full-graph
 engine's sweep of the same params).  Each mini-batch phase runs twice
@@ -92,9 +92,30 @@ rerun bitwise, the store unchanged, with the row AdamW's own ms, one
 traced step, the trained sweep against the reference sweep and (edge
 cut) the `publish_embeddings` handoff to a frozen engine bit for bit;
 before `mb_serve`, `mb_trainable` (node-wise gcn, p2p, the static_degree
-cache, 2 batches) the same with the fetch's K = 1 forward and transpose
-launches counted per gather and the untouched rows frozen.  Each
-phase prints one JSON line; the next-to-last lines
+cache, MB_TRAINABLE_STEPS batches) the same with the fetch's K = 1
+forward and transpose launches counted per gather and the untouched rows
+frozen.  Then the
+query-serving latency tier on serve_gnn's node-wise engine at the same
+width (QUERY_SAMPLER: batch 16, fanouts 15, 10, 5; the static_degree
+cache at 1024 rows; seeded params): `query_stream` runs
+`serve_gnn.run_query_stream` (a warm-up and QUERY_STREAM queries of
+QUERY_TARGETS targets) and one flush of QUERY_FLUSH_REQUESTS overlapping
+requests through `GNNQueryEngine`, with qps, p50 and p99 ms, each round's
+host build and synchronized serve ms and the ELL forward's launches
+counted exactly (no other kernel); a second `GNNQueryEngine` over the
+same engine replays it bit for bit, its first QUERY_REF_ROUNDS rounds
+each within 1e-4 of `reference_round`, one round shape throughout.
+`traced` enables the run-wide telemetry on that engine: TRACED_STEPS
+pipelined (thread) steps and a coalesced flush held to the reference's
+trace contract (exchange-span bytes equal to `CommStats.total()`, the
+``comm.*`` counters to their fields, every step's spans, two lanes, the
+run summary JSON, the Chrome trace read back), then the full-graph p2p
+step timed with the telemetry off, on, on, off: the traced median within
+TRACED_OVERHEAD of the untraced one.  Last, `autotune_validate`: the
+autotuner enumerates, chooses and validates a plan on an SBM graph of
+AUTOTUNE_GRAPH's size at k = 1, its dryrun on the card (every
+prediction 0 bytes, every balance 1.0; the four-rank proof is the CPU
+tier).  Each phase prints one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
 ``--jsonl PATH`` every phase line is also appended to PATH.  Any failed check
@@ -136,7 +157,10 @@ TRACE_ATTEMPTS = 3  # traces of one profile phase, until one holds every launch
 # and the general form past 288 units
 LANE_GROUP_WIDTHS = (1, 2, 3, 6, 11, 21, 41, 81, 300, 4, 8, 12, 16, 24, 32, 44,
                      64, 84, 128, 164, 256, 324, 1200)
-TRAIN_STEPS = 5
+# the full-graph training phases' steps: 5 until PR 30, cut to 3 to make
+# room for the latency tier's phases (each step is held to its reference
+# step, about 0.5 s a step at this width)
+TRAIN_STEPS = 3
 # the loss falls at every step at this width: gcn overshoots from lr 0.3;
 # gat fell at every step from 0.05 to 10 on the CPU at this width (2**14
 # vertices) and diverged at 20; on the CPU at 2**14 vertices sage fell at
@@ -148,14 +172,16 @@ MODELS = ("gcn", "sage", "gin", "gat")
 # the models and exchange_chunks the world-size-1 NCCL group runs; the ring
 # runs the same models and ignores exchange_chunks
 NCCL_MODELS, NCCL_CHUNKS = ("gcn", "gat"), 2
-# the sampled mini-batch phases: 5 steps (2 for the broadcast and ring
-# phases, held to the p2p phase's first two; 2 training steps before
-# mb_serve's sweep).  Node-wise: DGL's GraphSAGE fan_out 5,10,15 written
+# the sampled mini-batch phases: 3 steps (5 until the latency tier's
+# phases needed the room: each node-wise batch costs 5-6 s of host work in
+# every phase that samples it; 1 for the broadcast and ring phases, held to
+# the p2p phase's first; 1 training step before mb_serve's sweep; 2, 2
+# and 2 before PR 30).  Node-wise: DGL's GraphSAGE fan_out 5,10,15 written
 # target layer first, as `fanouts` are, its batch of 1000 cut to 64 (dense
 # padded blocks: caps [67584, 11264, 1024, 64], a first block of
 # 11264 x 67584 fp32, 3.04 GB; at 1000 targets about 740 GB).  Layer-wise:
 # 4096 vertices a layer, batch 512; subgraph: 1024 roots, walks of 4.
-MB_STEPS, MB_BASELINE_STEPS, MB_SERVE_STEPS = 5, 2, 2
+MB_STEPS, MB_BASELINE_STEPS, MB_SERVE_STEPS = 3, 1, 1
 # the pipelined phases: the reference driver's defaults (two batches
 # ahead; two sampling processes, a 3.09 GB ring slot each at node-wise)
 MB_PREFETCH_DEPTH, MB_SAMPLE_WORKERS = 2, 2
@@ -183,7 +209,32 @@ TRAINABLE_STEPS, TRAINABLE_VC_STEPS = 5, 3
 # by at most lr * d / eps, so the table is held to the reference within
 # TOL like the moments are
 TRAINABLE_EMBED_EPS = 1e-3
-MB_TRAINABLE_STEPS, MB_TRAINABLE_CACHE = 2, 32
+MB_TRAINABLE_STEPS, MB_TRAINABLE_CACHE = 1, 32  # 2 batches until PR 30
+# the latency tier (`query_stream`, `traced`): serve_gnn's node-wise gcn
+# engine, p2p at chunks 1, the mini-batch cells' fan-outs at batch 16 (a
+# first block of 2816 x 16896 fp32, 190 MB: at the cells' batch 64 it is
+# 3.04 GB and 5.4 s of host work a round, which a latency stream cannot
+# pay), the static_degree cache at 1024 rows, the seeded initial params.
+# The stream: a warm-up, QUERY_STREAM single-request queries of
+# QUERY_TARGETS targets, then one flush of QUERY_FLUSH_REQUESTS requests of
+# QUERY_TARGETS targets drawn from QUERY_FLUSH_POOL vertices (so they
+# overlap); the first QUERY_REF_ROUNDS rounds are held to the reference
+# round
+QUERY_SAMPLER = ["--batch-size", "16", "--fanouts", "15,10,5"]
+QUERY_CACHE = 1024
+QUERY_STREAM, QUERY_TARGETS = 64, 8
+QUERY_FLUSH_REQUESTS, QUERY_FLUSH_POOL = 16, 64
+QUERY_REF_ROUNDS = 4
+# `traced`: pipelined (thread) steps and the full-graph steps timed with
+# the telemetry on and off; the traced median may exceed the untraced one
+# by TRACED_OVERHEAD at most (the reference's `bench_gnn --telemetry`
+# contract)
+TRACED_STEPS, TRACED_TRAIN_STEPS, TRACED_OVERHEAD = 3, 5, 0.05
+# `autotune_validate`: the autotuner on a graph a planner would score in
+# seconds, at k = 1
+AUTOTUNE_GRAPH = dict(num_vertices=4096, num_blocks=8, p_in=0.02,
+                      p_out=0.001, seed=0)
+AUTOTUNE_HIDDEN = 64
 # the historical-embedding protocols, each run with gcn at the p2p phases'
 # settings
 ASYNC_PROTOCOLS = ("epoch_fixed", "epoch_adaptive", "variation")
@@ -2276,8 +2327,8 @@ def minibatch_phase(eng, setup_s, batches=None, baseline=None,
         made = []
         make = eng._make_batch
 
-        def capture(mbs):
-            made.append(make(mbs))
+        def capture(mbs, step=None):
+            made.append(make(mbs, step=step))
             return made[-1]
         eng._make_batch = capture
         try:
@@ -2449,9 +2500,9 @@ def record_arrivals(eng, into: list):
     seconds it waited for a ring slot, its sample and extract seconds."""
     take = eng._finish_batch
 
-    def finish(arrays, meta):
+    def finish(arrays, meta, step=None):
         s0 = time.perf_counter()
-        batch = take(arrays, meta)
+        batch = take(arrays, meta, step=step)
         pm = meta.get("_pool", {})
         into.append(dict(t=s0, upload_s=time.perf_counter() - s0,
                          worker=pm.get("worker"),
@@ -2668,7 +2719,7 @@ def minibatch_phases(g, device) -> dict:
     pipelined epoch over `mb_node_p2p`'s traffic with the prefetch thread
     (`mb_node_pipelined`) and the sampling-process pool (`mb_node_process`),
     each bitwise equal to `mb_node_p2p`; gcn node-wise under broadcast and
-    the ring (two steps each, bitwise equal to `mb_node_p2p`'s first two
+    the ring (MB_BASELINE_STEPS each, bitwise equal to `mb_node_p2p`'s first
     at one rank), layer-wise and subgraph under p2p, `mb_trainable` and `mb_serve`."""
     from repro_torch.launch import train_gnn
     from repro_torch.launch.common import join_group, leave_group
@@ -2725,6 +2776,335 @@ def minibatch_phases(g, device) -> dict:
     add_counts(total, mb_serve_phase(g, device))
     release()
     return total
+
+
+# ---------------------------------------------------------------------------
+# the query-serving latency tier, the run-wide telemetry and the autotuner
+# ---------------------------------------------------------------------------
+
+
+def query_engine(g, device):
+    """serve_gnn's node-wise engine for the latency tier at full width
+    (`serve_gnn.build_engine`: p2p, the hash partition, QUERY_SAMPLER, the
+    static_degree cache at QUERY_CACHE rows) and its seeded initial params
+    (`train_params` at 0 steps).  Returns (engine, params, the launcher's
+    args, setup seconds)."""
+    from repro_torch.launch import serve_gnn
+
+    release()
+    t0 = time.perf_counter()
+    args = serve_gnn.parse_args([
+        "--device", str(device), "--exec", "p2p", "--partitioner", "hash",
+        "--hidden", "256", "--layers", "3", *QUERY_SAMPLER, "--cache",
+        "static_degree", "--cache-capacity", str(QUERY_CACHE),
+        "--train-steps", "0", "--queries", str(QUERY_STREAM),
+        "--targets-per-query", str(QUERY_TARGETS)])
+    eng = serve_gnn.build_engine(args, g)
+    params = serve_gnn.train_params(eng, 0)["params"]
+    torch.cuda.synchronize()
+    return eng, params, args, time.perf_counter() - t0
+
+
+def serve_stream(qe, args, ref_gaps=None) -> dict:
+    """The latency stream on ``qe``: `serve_gnn.run_query_stream` (a
+    warm-up, then args.queries single-request queries), then one flush of
+    QUERY_FLUSH_REQUESTS overlapping requests.  Every answer is kept in
+    order; each round's host build seconds and its serve seconds (the
+    round, then a synchronize) are recorded.  With ``ref_gaps`` the first
+    QUERY_REF_ROUNDS rounds are each held to `reference_round` on the same
+    batch (their gaps appended; the replay's, whose latency is not
+    reported)."""
+    from repro_torch.launch import serve_gnn
+
+    answers, builds, serves = [], [], []
+    query, build, serve = qe.query, qe.build_round, qe.serve_round
+
+    def timed_query(targets):
+        answers.append(query(targets))
+        return answers[-1]
+
+    def timed_build(round_targets):
+        s0 = time.perf_counter()
+        batch = build(round_targets)
+        builds.append(time.perf_counter() - s0)
+        return batch
+
+    def timed_serve(batch):
+        s0 = time.perf_counter()
+        out = serve(batch)
+        torch.cuda.synchronize()
+        serves.append(time.perf_counter() - s0)
+        if ref_gaps is not None and len(ref_gaps) < QUERY_REF_ROUNDS:
+            ref = qe.reference_round(batch)
+            check(ref.shape == out.shape and bool(torch.isfinite(out).all()),
+                  f"serve round {tuple(out.shape)}, reference "
+                  f"{tuple(ref.shape)}")
+            ref_gaps.append(float((out - ref).abs().max()))
+        return out
+
+    qe.query, qe.build_round, qe.serve_round = (timed_query, timed_build,
+                                                timed_serve)
+    try:
+        stats = serve_gnn.run_query_stream(
+            qe, num_queries=args.queries,
+            targets_per_query=args.targets_per_query)
+        stream = dict(qps=stats.qps(), p50_ms=stats.percentile_ms(50),
+                      p99_ms=stats.percentile_ms(99), rounds=stats.rounds,
+                      latencies_ms=[t * 1e3 for t in stats.latencies_s])
+        rng = np.random.default_rng(1)
+        pool = rng.choice(qe.engine.g.num_vertices, QUERY_FLUSH_POOL,
+                          replace=False)
+        requests = [rng.choice(pool, args.targets_per_query, replace=False)
+                    for _ in range(QUERY_FLUSH_REQUESTS)]
+        rids = [qe.submit(r) for r in requests]
+        rounds0 = qe.stats.rounds
+        s0 = time.perf_counter()
+        flushed = qe.flush()
+        flush_s = time.perf_counter() - s0
+        answers.extend(flushed[r] for r in rids)
+    finally:
+        for name in ("query", "build_round", "serve_round"):
+            qe.__dict__.pop(name, None)
+    stream.update(
+        flush_requests=len(requests),
+        flush_targets_requested=sum(len(r) for r in requests),
+        flush_targets_unique=len({int(v) for r in requests for v in r}),
+        flush_rounds=qe.stats.rounds - rounds0, flush_ms=flush_s * 1e3)
+    return dict(answers=answers, builds=builds, serves=serves, stream=stream)
+
+
+def query_stream_phase(eng, params, args, setup_s) -> dict:
+    """The latency tier at full width: `GNNQueryEngine` over the node-wise
+    engine (`query_engine`), the stream and the flush (`serve_stream`),
+    the ELL forward's launches counted exactly (p2p's K = 1 send gather, a
+    chunk and an installment a round, `mb_launches`) and no other kernel.
+    Then a second `GNNQueryEngine` over the same engine replays the same
+    stream and flush: its answers must equal the first's bit for bit, and
+    its first QUERY_REF_ROUNDS rounds are each held to `reference_round`
+    on the same batch within TOL.  Every round must have one shape
+    signature (`round_shapes`).  Returns the first run's launches."""
+    from repro_torch.core.serving import GNNQueryEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    qe = GNNQueryEngine(eng, params)
+    run = serve_stream(qe, args)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rounds = qe.stats.rounds
+    check_counts(launches, mb_launches(eng, rounds), "query_stream")
+    check(qe.round_shapes() == 1,
+          f"query_stream: {qe.round_shapes()} round shapes")
+    check(all(a.shape == (args.targets_per_query, eng.dims[-1])
+              and np.isfinite(a).all() for a in run["answers"]),
+          "query_stream: answers")
+    first_s = time.perf_counter() - t0
+    # the replay: the same stream on a second query engine, bit for bit,
+    # its first rounds held to the reference round
+    s0 = time.perf_counter()
+    zero_counts()
+    gaps = []
+    qe2 = GNNQueryEngine(eng, params)
+    replay = serve_stream(qe2, args, ref_gaps=gaps)
+    check_counts(read_counts(), mb_launches(eng, qe2.stats.rounds),
+                 "query_stream replay with its reference rounds")
+    bitwise = len(replay["answers"]) == len(run["answers"]) and all(
+        np.array_equal(a, b) for a, b in zip(run["answers"],
+                                             replay["answers"]))
+    check(bitwise, "query_stream: a second GNNQueryEngine over the same "
+          "stream answers differently")
+    check(len(gaps) == QUERY_REF_ROUNDS and max(gaps) <= TOL,
+          f"query_stream: rounds vs reference_round {gaps} > {TOL}")
+    check(qe2.round_shapes() == 1, "query_stream replay: round shapes")
+    c = eng.cfg
+    emit("query_stream", model=c.model, execution=c.execution,
+         batching=c.batching, exchange_chunks=c.exchange_chunks,
+         vertices=eng.g.num_vertices, dims=eng.dims,
+         batch_size=c.batch_size, fanouts=list(c.fanouts),
+         caps=list(eng.caps), fcap_widths=eng.fcap_widths,
+         cache=c.cache_policy, cache_capacity=c.cache_capacity,
+         first_block_bytes=int(eng.caps[1]) * int(eng.caps[0]) * 4,
+         queries=args.queries, targets_per_query=args.targets_per_query,
+         **run["stream"], round_shapes=qe.round_shapes(),
+         build_ms_mean=float(np.mean(run["builds"])) * 1e3,
+         build_ms_median=float(np.median(run["builds"])) * 1e3,
+         serve_ms_mean=float(np.mean(run["serves"])) * 1e3,
+         serve_ms_median=float(np.median(run["serves"])) * 1e3,
+         launches=launches, ref_round_gaps=gaps, oracle_tol=TOL,
+         bitwise_equal_replay=bitwise, max_memory_allocated=peak,
+         setup_s=setup_s, stream_seconds=first_s,
+         replay_seconds=time.perf_counter() - s0,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def traced_phase(eng) -> dict:
+    """The run-wide telemetry on the latency tier's engine: enabled, then
+    TRACED_STEPS pipelined (thread) mini-batch steps and one coalesced
+    flush of two overlapping requests, held to the reference's trace
+    contract (`tests/test_telemetry.py`): the exchange spans' bytes equal
+    `CommStats.total()`, every CommStats field its ``comm.*`` counter,
+    every step has its sample, extract and train spans, two or more
+    lanes, the run summary is JSON, and the Chrome trace written to a
+    temporary directory reads back.  Then the full-graph p2p training
+    step (`train_gnn.run_training`, TRACED_TRAIN_STEPS steps) four times,
+    the telemetry off, on, on, off: the losses bit for bit the same, and
+    the traced median step within TRACED_OVERHEAD of the untraced one.
+    Launches counted exactly.  Returns them."""
+    from repro_torch.core.serving import GNNQueryEngine
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.launch import train_gnn
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tel = eng.enable_telemetry()
+    state, losses, times = eng.run_epoch_minibatch(
+        TRACED_STEPS, "pipelined", prefetch_mode="thread")
+    check(bool(np.isfinite(losses).all()), f"traced: losses {losses}")
+    qe = GNNQueryEngine(eng, state["params"])
+    requests = ([1, 2, 3], [3, 4])
+    rids = [qe.submit(r) for r in requests]
+    answers = qe.flush()
+    check(all(answers[r].shape == (len(q), eng.dims[-1])
+              for r, q in zip(rids, requests)), "traced: flush answers")
+    launches = read_counts()
+    check_counts(launches, mb_launches(eng, TRACED_STEPS + qe.stats.rounds),
+                 "traced mini-batch steps and flush")
+    spans = tel.trace.spans()
+    exch = sum(s.labels["bytes"] for s in spans if s.name == "exchange")
+    check(exch == eng.comm_stats.total(),
+          f"traced: exchange spans {exch} B, CommStats {eng.comm_stats.total()}")
+    for name, value in dataclasses.asdict(eng.comm_stats).items():
+        got = tel.metrics.counter_total("comm." + name)
+        check(got == value, f"traced: comm.{name} {got}, CommStats {value}")
+    for stage in ("sample", "extract", "train"):
+        steps = {s.labels.get("step") for s in spans if s.name == stage}
+        check(set(range(TRACED_STEPS)) <= steps, f"traced: {stage} {steps}")
+    chrome = tel.chrome_trace()
+    lanes = len({e["tid"] for e in chrome["traceEvents"] if e["ph"] == "X"})
+    check(lanes >= 2, f"traced: {lanes} lane(s)")
+    hist = tel.histogram("serve.flush_latency_s")
+    check(hist.count == 1 and tel.metrics.counter_total("serve.queries")
+          == len(requests), "traced: serving counters")
+    summary = json.loads(json.dumps(tel.run_summary()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        tel.write_chrome_trace(path)
+        tel.write_step_log(path + ".steps.jsonl")
+        with open(path) as f:
+            check(json.load(f) == chrome, "traced: the Chrome trace file")
+        with open(path + ".steps.jsonl") as f:
+            logged = len(f.read().splitlines())
+        trace_bytes = os.path.getsize(path)
+    # the full-graph step with the telemetry off and on, interleaved
+    off = Telemetry(enabled=False)
+    runs, walls = [], {False: [], True: []}
+    zero_counts()
+    for traced in (False, True, True, False):
+        eng.telemetry = tel if traced else off
+        res = train_gnn.run_training(eng, TRACED_TRAIN_STEPS)
+        runs.append(res["losses"])
+        walls[traced] += res["walls"]
+    eng.telemetry = tel
+    train_launches = read_counts()
+    B = len(eng.playout.p2p_widths)
+    check_counts(train_launches, step_launches(
+        "gcn", len(eng.dims) - 1, 1, 4 * TRACED_TRAIN_STEPS, sends=B),
+        "traced full-graph steps")
+    check(all(r == runs[0] for r in runs),
+          "traced: the traced and untraced steps' losses differ")
+    untraced_ms = float(np.median(walls[False])) * 1e3
+    traced_ms = float(np.median(walls[True])) * 1e3
+    check(traced_ms <= untraced_ms * (1.0 + TRACED_OVERHEAD),
+          f"traced: median step {traced_ms:.3f} ms traced vs "
+          f"{untraced_ms:.3f} ms untraced (> {TRACED_OVERHEAD:.0%})")
+    peak = torch.cuda.max_memory_allocated()
+    add_counts(launches, train_launches)
+    emit("traced", model=eng.cfg.model, execution=eng.cfg.execution,
+         batching=eng.cfg.batching, steps=TRACED_STEPS, losses=losses,
+         stage_s=dict(sample=times.sample, extract=times.extract,
+                      train=times.train, wall=times.wall),
+         spans=summary["spans"]["count"],
+         span_seconds=summary["spans"]["seconds_by_name"], lanes=lanes,
+         exchange_span_bytes=exch, comm_total=eng.comm_stats.total(),
+         flush_latency=dict(count=hist.count, p50_s=hist.percentile(50.0),
+                            p99_s=hist.percentile(99.0),
+                            buckets=list(hist.buckets),
+                            counts=list(hist.counts)),
+         imbalance=sorted(summary["imbalance"]["metrics"]),
+         steps_logged=logged, trace_bytes=trace_bytes,
+         train_steps=TRACED_TRAIN_STEPS,
+         untraced_walls_ms=[w * 1e3 for w in walls[False]],
+         traced_walls_ms=[w * 1e3 for w in walls[True]],
+         untraced_median_ms=untraced_ms, traced_median_ms=traced_ms,
+         traced_over_untraced=traced_ms / untraced_ms,
+         overhead_limit=TRACED_OVERHEAD, launches=launches,
+         max_memory_allocated=peak, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def serving_phases(g, device) -> dict:
+    """`query_stream` then `traced`, on one latency-tier engine; returns
+    their launches."""
+    eng, params, args, setup_s = query_engine(g, device)
+    total = {}
+    add_counts(total, query_stream_phase(eng, params, args, setup_s))
+    add_counts(total, traced_phase(eng))
+    del eng, params
+    release()
+    return total
+
+
+def autotune_validate_phase(device) -> dict:
+    """`autotune` (enumerate, choose, validate) on an SBM graph of
+    AUTOTUNE_GRAPH's size at k = 1, its dryrun on the card.  At one rank
+    every prediction is 0 bytes and every balance 1.0: the phase proves
+    that the path runs (the 4-rank proof is the CPU tier).  The dryrun's
+    launches are counted exactly against the chosen plan's steps.
+    Returns them."""
+    from repro_torch.core.engine import DistGNNEngine
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.core.partition.autotune import autotune
+
+    release()
+    t0 = time.perf_counter()
+    g = sbm_graph(**AUTOTUNE_GRAPH)
+    dims = [g.features.shape[1], AUTOTUNE_HIDDEN, int(g.labels.max()) + 1]
+    zero_counts()
+    plan, report = autotune(g, 1, dims, "gcn", device=device)
+    launches = read_counts()
+    tuned_s = time.perf_counter() - t0
+    val = report["validation"]
+    check(report["chosen"] == plan.label() and len(report["candidates"]) >= 12,
+          f"autotune_validate: chose {report['chosen']} of "
+          f"{len(report['candidates'])}")
+    check(val["ratio"] == 1.0 and val["measured_bytes"]
+          == val["predicted_bytes"] == 0, f"autotune_validate: {val}")
+    check(all(b["measured"] == b["claimed"] == 1.0
+              for b in val["balance"].values()),
+          f"autotune_validate: balance {val['balance']}")
+    eng = DistGNNEngine(g, cfg=plan.engine_config(), device=device)
+    c = eng.cfg
+    if c.partition_family == "edge_cut":
+        want = step_launches(
+            c.model, len(eng.dims) - 1,
+            1 if c.execution == "ring" else c.exchange_chunks, val["steps"],
+            sends=len(eng.playout.p2p_widths) if c.execution == "p2p" else 0)
+    else:
+        want = replica_launches(eng, val["steps"], backward=True)
+    check_counts(launches, want, "autotune_validate dryrun")
+    emit("autotune_validate", vertices=g.num_vertices, edges=g.num_edges,
+         dims=dims, graph=report["graph"], chosen=report["chosen"],
+         candidates=len(report["candidates"]), validation=val,
+         launches=launches, autotune_s=tuned_s,
+         seconds=time.perf_counter() - t0)
+    del eng
+    release()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2928,6 +3308,10 @@ def main(argv=None) -> int:
     # the sampled mini-batch step at the same width, after the full-graph
     # phases: its kept batches would count in their peaks
     add_counts(launches, minibatch_phases(g, device))
+    # the query-serving latency tier and the run-wide telemetry on one
+    # node-wise engine, then the autotuner's validated plan
+    add_counts(launches, serving_phases(g, device))
+    add_counts(launches, autotune_validate_phase(device))
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 

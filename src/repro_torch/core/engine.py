@@ -73,7 +73,19 @@ schedules (prefetch thread or sampling-process pool), protocols sync,
 epoch_fixed, epoch_adaptive and variation (full graph), trainable
 features (sync), on any number of ranks.  The ranks are the process
 group's (`execution/collectives.py`); without one the engine runs on one
-rank.  Telemetry arrives with its own slice.
+rank.
+
+Telemetry (`core/telemetry.py`, off until `enable_telemetry`): spans wrap
+the host-side stage boundaries (``sample`` with a ``sample_device`` span a
+rank, ``extract``, ``train``, ``infer_sweep``, the pipelined epoch's
+``finalize``) and never wait for the card; every CommStats change is
+mirrored into ``comm.<field>`` counters and an instant ``exchange`` span
+carrying the wire bytes (`_account_exchange`), labeled with the device
+whose batch paid them.  Every rank applies every rank's deltas, so each
+rank's registry equals the reference's single-host one.  The layout seeds
+its per-device gauges, the extract stage records each rank's
+``frontier_occupancy`` and the store's overlay hits and misses, and each
+step appends a `log_step` record.
 
 Trainable features (``trainable_features``): the layer-0 rows are learnable
 embeddings.  The state holds a copy of this rank's store rows (``embed``)
@@ -92,6 +104,7 @@ over the batch's touched rows.  No gradient scatter uses float atomics.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -142,6 +155,7 @@ from repro_torch.core.sampling.proc_prefetch import (
     share_graph,
 )
 from repro_torch.core.sampling.samplers import frontier_caps
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.kernels.ops import (
     ell_attend,
     ell_spmm,
@@ -403,6 +417,8 @@ class DistGNNEngine:
         self._proc_pool = None  # the sampling processes: _ensure_proc_pool
         self._proc_pool_key = None
         self.comm_stats = CommStats()
+        # off by default: no-op spans and metrics until enable_telemetry()
+        self.telemetry = Telemetry(enabled=False)
         if cfg.batching != "full_graph":
             self._build_minibatch_plan()
 
@@ -905,8 +921,11 @@ class DistGNNEngine:
                 for l, p_l in enumerate(params["layers"]):
                     H = layer_ref(p_l, H, last=(l == L - 1))
             return H
-        out = self.make_infer_step()(params, X)
-        self.comm_stats.inference_bytes += self.inference_bytes_per_sweep()
+        with self.telemetry.span("infer_sweep"):
+            out = self.make_infer_step()(params, X)
+            with self._account_exchange("inference", None, None):
+                self.comm_stats.inference_bytes += \
+                    self.inference_bytes_per_sweep()
         return self.gather_rows(out)
 
     def publish_embeddings(self, state) -> None:
@@ -1024,15 +1043,66 @@ class DistGNNEngine:
         rows = nb + len(widths) * k * widths[0]
         self._ov_tab = single_slot(self._upload(tab[r]), rows, rows)
 
+    # ------------------------------------------------------------------
+    # telemetry
+    # ------------------------------------------------------------------
+
+    def enable_telemetry(self, telemetry: Optional[Telemetry] = None
+                         ) -> Telemetry:
+        """Attach an ENABLED `core.telemetry.Telemetry` (or the one passed
+        in) and return it.  Spans wrap the host-side stage boundaries only,
+        nothing inside the step changes, and every CommStats change from
+        here on is mirrored into labeled ``comm.*`` counters plus instant
+        ``exchange`` spans carrying the wire-byte delta (their sum equals
+        ``CommStats.total()`` exactly for a fresh run).  Also seeds the
+        imbalance report with the layout's static per-device gauges and
+        hands the instance to the FeatureStore's overlay counters.  A
+        sampling-process pool built before keeps the telemetry it was
+        built with."""
+        tel = telemetry if telemetry is not None else Telemetry()
+        self.telemetry = tel
+        self.store.telemetry = tel
+        if tel.enabled:
+            self.playout.telemetry_gauges(tel)
+        return tel
+
+    @contextlib.contextmanager
+    def _account_exchange(self, stage: str, step, device):
+        """Mirror the CommStats deltas accrued inside this block into
+        labeled ``comm.<field>`` counters and one instant ``exchange`` span
+        whose ``bytes`` label is the WIRE delta (cache hits excluded): the
+        invariant the trace contract asserts, summed exchange-span bytes ==
+        ``CommStats.total()``."""
+        tel = self.telemetry
+        if not tel.enabled:
+            yield
+            return
+        s = self.comm_stats
+        before = dataclasses.asdict(s)
+        wire0 = s.total()
+        yield
+        labels = {} if device is None else {"device": device}
+        for name, v0 in before.items():
+            dv = getattr(s, name) - v0
+            if dv:
+                tel.counter("comm." + name, **labels).add(dv)
+        mark = dict(stage=stage, bytes=s.total() - wire0, **labels)
+        if step is not None:
+            mark["step"] = step
+        tel.instant("exchange", **mark)
+
     def _sample_host(self, step_idx: int):
         """Host sampling stage (`HostBatchBuilder.sample`): every rank's
-        MiniBatch, deterministic in (seed, step, rank)."""
-        return self.host_builder.sample(step_idx)
+        MiniBatch, deterministic in (seed, step, rank), each rank's under a
+        ``sample_device`` span."""
+        return self.host_builder.sample(step_idx,
+                                        span_factory=self.telemetry.span)
 
-    def _make_batch(self, mbs) -> Dict:
+    def _make_batch(self, mbs, step=None) -> Dict:
         """Extract stage: the builder pads, relabels and builds the fetch
-        plan in numpy; `_finish_batch` takes the result in."""
-        return self._finish_batch(*self.host_builder.extract(mbs))
+        plan in numpy; `_finish_batch` takes the result in (``step``
+        labels its exchange spans)."""
+        return self._finish_batch(*self.host_builder.extract(mbs), step=step)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -1051,20 +1121,29 @@ class DistGNNEngine:
                            for l in range(L)),
             cache_ids=self._upload(arrays["cache_ids"][b]).long())
 
-    def _finish_batch(self, arrays, meta) -> Dict:
+    def _finish_batch(self, arrays, meta, step=None) -> Dict:
         """Take one extracted batch in: every rank's CommStats byte deltas
-        are applied (so every rank's counters equal the reference's
-        single-host ones), and this rank's slice goes to the device, with
+        are applied inside `_account_exchange`, labeled with that rank, with
+        its frontier occupancy and overlay hits and misses (so every rank's
+        counters equal the reference's single-host ones), and this rank's
+        slice goes to the device, with
         its fetch plan (broadcast: the ids into the gathered table; ring:
         the ids into each owner's block; p2p: the send installments as
         K = 1 ELLs, whose pad entries ship row 0 as the reference's do,
         and the ids into [own rows | halo rows | zero row]).  The host
         arrays stay in the batch: the reference step reads every rank's
         block."""
-        for dd in meta["per_device"]:
-            for name, dv in dd["stats"].items():
-                setattr(self.comm_stats, name,
-                        getattr(self.comm_stats, name) + dv)
+        tel = self.telemetry
+        for d, dd in enumerate(meta["per_device"]):
+            with self._account_exchange("extract", step, d):
+                for name, dv in dd["stats"].items():
+                    setattr(self.comm_stats, name,
+                            getattr(self.comm_stats, name) + dv)
+            if tel.enabled:
+                tel.gauge("frontier_occupancy", device=d).set(dd["occupancy"])
+                self.store.count_overlay(
+                    d, hits=dd["cache_hits"],
+                    misses=dd["remote"] - dd["cache_hits"])
         r = self.rank
         batch = self._upload_block(arrays, r)
         ex = self.cfg.execution
@@ -1112,7 +1191,11 @@ class DistGNNEngine:
     def sample_minibatch(self, step_idx: int) -> Dict:
         """sample + extract: one static-shape batch for `step_idx`, this
         rank's slice on the device."""
-        return self._make_batch(self._sample_host(step_idx))
+        tel = self.telemetry
+        with tel.span("sample", step=step_idx):
+            mbs = self._sample_host(step_idx)
+        with tel.span("extract", step=step_idx):
+            return self._make_batch(mbs, step=step_idx)
 
     def _check_minibatch_runnable(self):
         """Validate the config once at epoch entry: a config mutated after
@@ -1405,7 +1488,8 @@ class DistGNNEngine:
             builder = dataclasses.replace(hb, graph=shared)
             self._proc_pool = ProcPrefetchPool(
                 builder.produce, hb.array_layout(), depth=key[0],
-                num_workers=key[1], shared_inputs=(arena,))
+                num_workers=key[1], telemetry=self.telemetry,
+                shared_inputs=(arena,))
         except BaseException:
             arena.close()
             raise
@@ -1449,7 +1533,11 @@ class DistGNNEngine:
         that read it); "process", the persistent `ProcPrefetchPool` of
         cfg.num_sample_workers processes (`_ensure_proc_pool`), whose
         batches this thread takes in (`_finish_batch`: CommStats, upload).
-        Call `close_prefetch_pool()` when done (GC also reclaims it)."""
+        Call `close_prefetch_pool()` when done (GC also reclaims it).
+
+        With telemetry enabled each schedule records its stage spans, and
+        each step a `log_step` record (its CommStats total read when the
+        trainer dispatched it)."""
         self._check_minibatch_runnable()
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {tuple(SCHEDULES)}; "
@@ -1470,30 +1558,40 @@ class DistGNNEngine:
         holder = dict(state=state if state is not None
                       else self.init_minibatch_state(reference=reference))
         losses: List = []
+        tel = self.telemetry
 
         def train_fn(mbs, batch):
             holder["state"], metrics, _ = step(holder["state"], batch)
             # pipelined lane: no float() here, which would wait for the card
             losses.append(metrics["loss"] if pipelined
                           else float(metrics["loss"]))
+            tel.log_step(step=len(losses) - 1, schedule=schedule,
+                         comm_total_bytes=self.comm_stats.total())
 
         batch_ids = list(range(num_batches))
+        # items carry their step, so the extract stage labels its exchange
+        # spans (train_fn never looks inside them)
+        def sample_fn(i):
+            return i, self._sample_host(i)
+
+        def extract_fn(item):
+            return self._make_batch(item[1], step=item[0])
+
         if not pipelined:
-            times = SCHEDULES[schedule](batch_ids, self._sample_host,
-                                        self._make_batch, train_fn)
+            times = SCHEDULES[schedule](batch_ids, sample_fn, extract_fn,
+                                        train_fn, telemetry=tel)
             return holder["state"], losses, times
         if mode == "process":
             def train_fn_proc(item, arrays, meta):
-                train_fn(None, self._finish_batch(arrays, meta))
+                train_fn(None, self._finish_batch(arrays, meta, step=item))
 
             times = run_pipelined_process(
                 batch_ids, self._ensure_proc_pool(depth), train_fn_proc,
-                finalize_fn=self._finalize)
+                finalize_fn=self._finalize, telemetry=tel)
         else:
-            times = run_pipelined(batch_ids, self._sample_host,
-                                  self._make_batch, train_fn,
+            times = run_pipelined(batch_ids, sample_fn, extract_fn, train_fn,
                                   prefetch_depth=depth,
-                                  finalize_fn=self._finalize)
+                                  finalize_fn=self._finalize, telemetry=tel)
         return holder["state"], [float(x) for x in losses], times
 
     def minibatch_accuracy(self, logits: torch.Tensor, batch) -> float:
@@ -1518,14 +1616,17 @@ class DistGNNEngine:
     # training loop
     # ------------------------------------------------------------------
 
-    def account_step(self) -> None:
+    def account_step(self, step=None) -> None:
         """Accrue one distributed training step's wire bytes into
         CommStats, field by field, as the reference's `train` does (with
-        trainable features the layer-0 gradients' bytes too)."""
-        for name, b in self._wire_fields.items():
-            setattr(self.comm_stats, name, getattr(self.comm_stats, name) + b)
-        if self.cfg.trainable_features:
-            self.comm_stats.embed_grad_bytes += self._emb_bytes_per_step
+        trainable features the layer-0 gradients' bytes too), mirrored into
+        the telemetry as a ``full_graph`` exchange of step ``step``."""
+        with self._account_exchange("full_graph", step, None):
+            for name, b in self._wire_fields.items():
+                setattr(self.comm_stats, name,
+                        getattr(self.comm_stats, name) + b)
+            if self.cfg.trainable_features:
+                self.comm_stats.embed_grad_bytes += self._emb_bytes_per_step
 
     def train(self, epochs: int, reference: bool = False
               ) -> Tuple[List[float], torch.Tensor]:
@@ -1535,7 +1636,10 @@ class DistGNNEngine:
         none.  Mini-batch modes: `epochs` steps from `init_minibatch_state()`
         over `sample_minibatch(i)`, CommStats reset and accruing the
         feature fetch bytes; the final logits are every rank's targets,
-        [k, cap_L, C] (one all_gather after the run)."""
+        [k, cap_L, C] (one all_gather after the run).  With telemetry
+        enabled each step runs in a ``train`` span (a mini-batch step's
+        sample and extract in theirs) and appends a `log_step` record."""
+        tel = self.telemetry
         if self.cfg.batching != "full_graph":
             self._check_minibatch_runnable()
             step = (self.make_reference_minibatch_step() if reference
@@ -1544,8 +1648,12 @@ class DistGNNEngine:
             self.comm_stats.reset()
             losses, logits = [], None
             for i in range(epochs):
-                state, metrics, logits = step(state, self.sample_minibatch(i))
-                losses.append(float(metrics["loss"]))
+                batch = self.sample_minibatch(i)
+                with tel.span("train", step=i):
+                    state, metrics, logits = step(state, batch)
+                    losses.append(float(metrics["loss"]))
+                tel.log_step(step=i, loss=losses[-1],
+                             comm_total_bytes=self.comm_stats.total())
             if not reference and logits is not None:
                 logits = self.gather_rows(logits[0]).view(
                     self.k, *logits.shape[1:])
@@ -1555,11 +1663,14 @@ class DistGNNEngine:
         if not reference:
             self.comm_stats.reset()
         losses, logits = [], None
-        for _ in range(epochs):
-            state, metrics, logits = step(state)
-            losses.append(float(metrics["loss"]))
+        for i in range(epochs):
+            with tel.span("train", step=i):
+                state, metrics, logits = step(state)
+                losses.append(float(metrics["loss"]))
             if not reference:
-                self.account_step()
+                self.account_step(i)
+                tel.log_step(step=i, loss=losses[-1],
+                             comm_total_bytes=self.comm_stats.total())
         return losses, (logits if reference else self.gather_rows(logits))
 
     def accuracy(self, logits: torch.Tensor, split: str = "test") -> float:

@@ -12,14 +12,22 @@ results, are the conventional schedule's); ``pipelined`` EXECUTES it: a
 `PrefetchWorker` thread (`run_pipelined`) or the sampling processes of a
 `ProcPrefetchPool` (`run_pipelined_process`) really build batch i+1 while
 the trainer lane runs step i, and ``wall`` is the measured wall clock up
-to and including the end-of-epoch device synchronize.  ``telemetry`` is
-accepted for the reference's signature; the port has no spans yet.
+to and including the end-of-epoch device synchronize.
+
+With an enabled ``telemetry`` (`core/telemetry.py`; default the disabled
+``NULL_TELEMETRY``) every schedule records its stages as ``sample``,
+``extract`` and ``train`` spans labeled with the step, and the pipelined
+ones the epoch's ``finalize`` span: the producer and trainer lanes are
+distinct threads, so their overlap shows as overlapping intervals on two
+rows of the trace.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
+
+from repro_torch.core.telemetry import NULL_TELEMETRY
 
 
 @dataclasses.dataclass
@@ -36,18 +44,22 @@ class StageTimes:
 def run_conventional(batch_ids: List, sample_fn, extract_fn, train_fn, *,
                      telemetry=None) -> StageTimes:
     """Sequential sample -> extract -> train per batch (DistDGL default)."""
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     t = StageTimes()
     t0 = time.perf_counter()
-    for ids in batch_ids:
-        s0 = time.perf_counter()
-        mb = sample_fn(ids)
-        t.sample += time.perf_counter() - s0
-        s0 = time.perf_counter()
-        feats = extract_fn(mb)
-        t.extract += time.perf_counter() - s0
-        s0 = time.perf_counter()
-        train_fn(mb, feats)
-        t.train += time.perf_counter() - s0
+    for i, ids in enumerate(batch_ids):
+        with tel.span("sample", step=i):
+            s0 = time.perf_counter()
+            mb = sample_fn(ids)
+            t.sample += time.perf_counter() - s0
+        with tel.span("extract", step=i):
+            s0 = time.perf_counter()
+            feats = extract_fn(mb)
+            t.extract += time.perf_counter() - s0
+        with tel.span("train", step=i):
+            s0 = time.perf_counter()
+            train_fn(mb, feats)
+            t.train += time.perf_counter() - s0
     t.wall = time.perf_counter() - t0
     return t
 
@@ -57,19 +69,23 @@ def run_factored(batch_ids: List, sample_fn, extract_fn, train_fn, *,
     """GNNLab factored model: a sampler lane and a trainer lane; the sampler
     works ahead (here: every batch first).  Wall = max(sampler lane,
     trainer lane) + the pipeline fill."""
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     t = StageTimes()
     prepared = []
-    for ids in batch_ids:  # sampler lane
-        s0 = time.perf_counter()
-        prepared.append(sample_fn(ids))
-        t.sample += time.perf_counter() - s0
-    for mb in prepared:  # trainer lane (extract + train)
-        s0 = time.perf_counter()
-        feats = extract_fn(mb)
-        t.extract += time.perf_counter() - s0
-        s0 = time.perf_counter()
-        train_fn(mb, feats)
-        t.train += time.perf_counter() - s0
+    for i, ids in enumerate(batch_ids):  # sampler lane
+        with tel.span("sample", step=i):
+            s0 = time.perf_counter()
+            prepared.append(sample_fn(ids))
+            t.sample += time.perf_counter() - s0
+    for i, mb in enumerate(prepared):  # trainer lane (extract + train)
+        with tel.span("extract", step=i):
+            s0 = time.perf_counter()
+            feats = extract_fn(mb)
+            t.extract += time.perf_counter() - s0
+        with tel.span("train", step=i):
+            s0 = time.perf_counter()
+            train_fn(mb, feats)
+            t.train += time.perf_counter() - s0
     # modeled overlap: the two lanes run concurrently on separate resources
     t.wall = (max(t.sample, t.extract + t.train)
               + min(t.sample, t.extract + t.train) / max(len(batch_ids), 1))
@@ -103,33 +119,44 @@ def run_pipelined(batch_ids: List, sample_fn, extract_fn, train_fn, *,
 
     Stage seconds are accumulated per lane (sample/extract on the worker
     thread, train on the trainer thread: disjoint writers, read after
-    join), so ``busy() > wall`` is the direct measurement of overlap."""
+    join), so ``busy() > wall`` is the direct measurement of overlap.  The
+    spans of the two lanes land on two rows of the trace; the worker's
+    queue depth and stalls ride `PrefetchWorker`'s own gauges."""
     from repro_torch.core.sampling.prefetch import PrefetchWorker
 
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     t = StageTimes()
+    prod_i = [0]  # the producer thread's step counter (items run in order)
 
     def produce(ids):
-        s0 = time.perf_counter()
-        mb = sample_fn(ids)
-        t.sample += time.perf_counter() - s0
-        s0 = time.perf_counter()
-        feats = extract_fn(mb)
-        t.extract += time.perf_counter() - s0
+        i = prod_i[0]
+        prod_i[0] += 1
+        with tel.span("sample", step=i):
+            s0 = time.perf_counter()
+            mb = sample_fn(ids)
+            t.sample += time.perf_counter() - s0
+        with tel.span("extract", step=i):
+            s0 = time.perf_counter()
+            feats = extract_fn(mb)
+            t.extract += time.perf_counter() - s0
         return mb, feats
 
     t0 = time.perf_counter()
     worker = PrefetchWorker(batch_ids, produce, depth=prefetch_depth,
-                            telemetry=telemetry)
+                            telemetry=tel)
     try:
-        for mb, feats in worker:
-            s0 = time.perf_counter()
-            train_fn(mb, feats)
-            t.train += time.perf_counter() - s0
+        for train_i, (mb, feats) in enumerate(worker):
+            with tel.span("train", step=train_i):
+                s0 = time.perf_counter()
+                train_fn(mb, feats)
+                t.train += time.perf_counter() - s0
         if finalize_fn is not None:
-            # the end-of-epoch device sync, counted on the trainer lane
-            s0 = time.perf_counter()
-            finalize_fn()
-            t.train += time.perf_counter() - s0
+            # the end-of-epoch device sync, counted on the trainer lane:
+            # the one span that waits for the card (finalize_fn is it)
+            with tel.span("finalize"):
+                s0 = time.perf_counter()
+                finalize_fn()
+                t.train += time.perf_counter() - s0
     finally:
         worker.close()
     t.wall = time.perf_counter() - t0
@@ -152,21 +179,25 @@ def run_pipelined_process(batch_ids: List, pool, train_fn, *,
     ``train_fn(item, arrays, meta)`` should dispatch without blocking;
     ``finalize_fn`` is the end-of-epoch sync, as in `run_pipelined`.  The
     pool outlives the call (workers and shm are reused across epochs):
-    closing it is the owner's job."""
+    closing it is the owner's job.  The workers' spans arrive with each
+    batch and the pool replays them onto per-worker lanes."""
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     t = StageTimes()
     t0 = time.perf_counter()
     it = pool.run(batch_ids)
     try:
-        for item, arrays, meta in it:
+        for train_i, (item, arrays, meta) in enumerate(it):
             t.sample += meta.get("sample_seconds", 0.0)
             t.extract += meta.get("extract_seconds", 0.0)
-            s0 = time.perf_counter()
-            train_fn(item, arrays, meta)
-            t.train += time.perf_counter() - s0
+            with tel.span("train", step=train_i):
+                s0 = time.perf_counter()
+                train_fn(item, arrays, meta)
+                t.train += time.perf_counter() - s0
         if finalize_fn is not None:
-            s0 = time.perf_counter()
-            finalize_fn()
-            t.train += time.perf_counter() - s0
+            with tel.span("finalize"):
+                s0 = time.perf_counter()
+                finalize_fn()
+                t.train += time.perf_counter() - s0
     finally:
         it.close()
     t.wall = time.perf_counter() - t0

@@ -55,6 +55,17 @@ class FeatureStore:
         self._overlay_ids: Optional[List[np.ndarray]] = None
         self._overlay_cap = 0
         self._overlay_tab: Optional[np.ndarray] = None
+        # set by DistGNNEngine.enable_telemetry: the overlay hit, miss and
+        # refresh counters land in the run's MetricRegistry (None: none)
+        self.telemetry = None
+
+    def count_overlay(self, device: int, hits: int, misses: int) -> None:
+        """Per-batch overlay accounting (the engine's extract stage knows
+        which remote frontier rows the hot-row overlay served)."""
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.counter("store.overlay_hit", device=device).add(int(hits))
+            tel.counter("store.overlay_miss", device=device).add(int(misses))
 
     # -- id addressing --------------------------------------------------
     def owner_of(self, ids) -> np.ndarray:
@@ -142,6 +153,9 @@ class FeatureStore:
         for d, a in enumerate(self._overlay_ids):
             tab[d, : len(a)] = self.lookup(a)
         self._overlay_tab = tab
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.counter("store.overlay_refresh").add(1)
 
 
 def overlay_refresh_plan(ids_per_device: Sequence[np.ndarray], k: int,

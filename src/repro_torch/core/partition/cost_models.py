@@ -2,8 +2,10 @@
 hybrid byte models of `repro/core/partition/cost_models.py`): the heuristic
 affinity scores the streaming partitioners read (survey Eq. 3-5), and the
 standalone byte models the engine's CommStats accounting is cross-checked
-against (the trainable embeddings' `embedding_grad_bytes_per_step` too).
-The per-device byte models the autotuner reads are not copied."""
+against (the trainable embeddings' `embedding_grad_bytes_per_step` too),
+and the per-device byte models (`edge_cut_halo_device_bytes`,
+`replica_sync_device_bytes`, `hybrid_device_bytes`) the layouts'
+`device_bytes_per_step` and the autotuner read."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -168,6 +170,49 @@ def embedding_grad_bytes_per_step(g: Graph, execution: str,
     return rows * D * feat_bytes
 
 
+def edge_cut_halo_device_bytes(g: Graph, part, dims: Sequence[int],
+                               feat_bytes: int = FEAT_BYTES,
+                               model: str = "gcn") -> np.ndarray:
+    """[k] per-device halo bytes per step, counting BOTH directions (a row's
+    owner sends it, its consumer receives it): the max of this array is the
+    critical-path (straggler) comm volume that sets the step time.  On
+    skewed graphs a hub's owner ships its row to up to k-1 consumers, the
+    bottleneck a vertex cut's bounded replication removes."""
+    from repro_torch.core.partition.vertex_cut import edge_endpoints
+
+    src, dst = edge_endpoints(g)
+    a = part.assignment.astype(np.int64)
+    k = part.num_parts
+    pairs = np.unique(src * k + a[dst])  # distinct (vertex, consumer) pairs
+    pv, pc = pairs // k, pairs % k
+    rem = a[pv] != pc
+    send = np.bincount(a[pv][rem], minlength=k)
+    recv = np.bincount(pc[rem], minlength=k)
+    widths = model_exchange_widths(model, dims, "edge_cut")
+    return (send + recv) * int(sum(widths)) * feat_bytes
+
+
+def replica_sync_device_bytes(layout, masters: np.ndarray,
+                              dims: Sequence[int],
+                              feat_bytes: int = FEAT_BYTES,
+                              model: str = "gcn") -> np.ndarray:
+    """[k] per-device replica-sync bytes per step (p2p accounting), both
+    directions as `edge_cut_halo_device_bytes`: a non-master replica slot
+    sends one partial and receives one aggregate a layer; a master does the
+    mirror image for every other replica of the vertices it masters.
+    Bounded per device by the replication factor: no hub-owner
+    straggler."""
+    V = layout.slot_of.shape[1]
+    nonmaster = ((layout.vert_ids < V)
+                 & (layout.master_mask < 0.5)).sum(1).astype(np.int64)
+    rm1 = np.maximum(layout.rep_count - 1, 0)
+    master_traffic = np.bincount(np.asarray(masters, np.int64), weights=rm1,
+                                 minlength=layout.k).astype(np.int64)
+    widths = model_exchange_widths(model, dims, "vertex_cut")
+    return (2 * (nonmaster + master_traffic)
+            * int(sum(widths)) * feat_bytes)
+
+
 # ---------------------------------------------------------------------------
 # Hybrid (PowerLyra-style degree-threshold) family: low-degree vertices live
 # edge-cut-local behind a halo exchange; hub vertices replicate with the
@@ -201,3 +246,41 @@ def hybrid_bytes_per_step(halo_rows: int, sync_rows: int,
     halo_w, sync_w = hybrid_exchange_widths(model, dims)
     return (int(halo_rows) * int(sum(halo_w))
             + int(sync_rows) * int(sum(sync_w))) * feat_bytes
+
+
+def hybrid_device_bytes(layout, masters: np.ndarray, need,
+                        execution: str, dims: Sequence[int], *,
+                        model: str = "gcn",
+                        feat_bytes: int = FEAT_BYTES,
+                        halo_active: bool = True,
+                        sync_active: bool = True) -> np.ndarray:
+    """[k] per-device hybrid bytes per step, both directions (the halo term
+    as `edge_cut_halo_device_bytes`, the sync term as
+    `replica_sync_device_bytes`); the max is the critical-path volume.
+    ``layout`` is the hybrid family's inner replica layout, ``need`` the
+    [k][k] halo need lists (need[d][s] = home slots owner d fetches from
+    master s).  Under p2p both terms are population-bounded; broadcast and
+    the ring pay the full (k-1)*nv block per active wire."""
+    k, nv = layout.k, layout.nv
+    halo_w, sync_w = hybrid_exchange_widths(model, dims)
+    hw, sw = int(sum(halo_w)), int(sum(sync_w))
+    out = np.zeros(k, np.int64)
+    if halo_active:
+        if execution == "p2p":
+            send = np.zeros(k, np.int64)
+            recv = np.zeros(k, np.int64)
+            for d in range(k):
+                for s in range(k):
+                    n = len(need[d][s])
+                    recv[d] += n
+                    send[s] += n
+            out += (send + recv) * hw * feat_bytes
+        else:
+            out += 2 * (k - 1) * nv * hw * feat_bytes
+    if sync_active:
+        if execution == "p2p":
+            out += replica_sync_device_bytes(layout, masters, dims,
+                                             feat_bytes, model)
+        else:
+            out += 2 * (k - 1) * nv * sw * feat_bytes
+    return out

@@ -49,6 +49,7 @@ from repro_torch.core.execution.bucketing import (
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition.cost_models import (
     FEAT_BYTES,
+    hybrid_device_bytes,
     hybrid_exchange_widths,
 )
 from repro_torch.core.partition.edge_cut import PARTITIONERS
@@ -256,6 +257,19 @@ class HybridLayout(ReplicaLayoutBase):
         if self.sync_active:
             rows += 2 * self._vc_rows_per_layer
         return rows * int(dims[0]) * FEAT_BYTES
+
+    def device_bytes_per_step(self, model, dims) -> np.ndarray:
+        return hybrid_device_bytes(
+            self.layout, self.cut.masters, self.halo_need,
+            self.cfg.execution, dims, model=model,
+            halo_active=self.halo_active, sync_active=self.sync_active)
+
+    def telemetry_gauges(self, tel) -> None:
+        super().telemetry_gauges(tel)
+        recv = [sum(len(self.halo_need[d][s]) for s in range(self.k))
+                for d in range(self.k)]
+        for d in range(self.k):
+            tel.gauge("layout.halo_rows", device=d).set(int(recv[d]))
 
 
 LAYOUT_BUILDERS["hybrid"] = HybridLayout

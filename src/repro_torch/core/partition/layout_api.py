@@ -16,11 +16,12 @@ here; the engine moves its rank's rows of what the sweep and the step read
 onto its device: the rows [r*nb, (r+1)*nb) of every per-row table, and
 entry r of every table in ``squeeze_keys`` (whose leading axis is the
 rank, as the reference's).  Every rank builds the whole layout,
-identically, as the reference builds it globally.  Ported: the parts of the
-layout that the inference sweep and the training steps read, with the
+identically, as the reference builds it globally: the parts of the layout
+that the inference sweep and the training steps read, the
 trainable-embedding touched mask (`emb_touched`) and its gradient bytes
-(`embed_grad_bytes`); the per-device byte models and the telemetry gauges
-are not copied.
+(`embed_grad_bytes`), the per-device byte model the autotuner scores plans
+by (`device_bytes_per_step`) and the per-device layout gauges of the
+run-wide telemetry (`telemetry_gauges`).
 """
 from __future__ import annotations
 
@@ -39,7 +40,9 @@ from repro_torch.core.execution.replica_sync import build_replica_sync_plan
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.partition.cost_models import (
     FEAT_BYTES,
+    edge_cut_halo_device_bytes,
     model_exchange_widths,
+    replica_sync_device_bytes,
 )
 from repro_torch.core.partition.edge_cut import PARTITIONERS
 from repro_torch.core.partition.vertex_cut import VERTEX_CUTS
@@ -84,6 +87,17 @@ class PartitionLayout:
         """Wire bytes a full-graph step pays to route the layer-0 embedding
         gradients home (trainable features): the reverse of one exchange
         pass at width dims[0]."""
+        raise NotImplementedError
+
+    def device_bytes_per_step(self, model: str, dims) -> np.ndarray:
+        """[k] per-device wire bytes of one step, both directions (sent +
+        received): the max is the step's critical-path volume, the
+        autotuner's bottleneck objective."""
+        raise NotImplementedError
+
+    def telemetry_gauges(self, tel) -> None:
+        """Seed ``tel`` with the static per-device layout gauges (owned
+        vertices / edges, replica rows, ...) the imbalance report reads."""
         raise NotImplementedError
 
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
@@ -283,6 +297,24 @@ class EdgeCutLayout(PartitionLayout):
     def embed_grad_bytes(self, dims) -> int:
         return self._halo_rows_per_pass() * int(dims[0]) * FEAT_BYTES
 
+    def device_bytes_per_step(self, model, dims) -> np.ndarray:
+        if self.cfg.execution == "p2p":
+            return edge_cut_halo_device_bytes(self.g, self.part, dims,
+                                              model=model)
+        widths = model_exchange_widths(model, dims, "edge_cut")
+        per = 2 * (self.k - 1) * self.nb * int(sum(widths)) * FEAT_BYTES
+        return np.full(self.k, per, np.int64)
+
+    def telemetry_gauges(self, tel) -> None:
+        k = self.k
+        owned_v = np.bincount(self.part.assignment, minlength=k)
+        owned_edges = self.mask.reshape(k, self.nb, -1).sum((1, 2))
+        for d in range(k):
+            tel.gauge("layout.owned_vertices", device=d).set(
+                int(owned_v[d]))
+            tel.gauge("layout.owned_edges", device=d).set(
+                float(owned_edges[d]))
+
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
         return H[self.new_of_old]
 
@@ -350,6 +382,20 @@ class ReplicaLayoutBase(PartitionLayout):
         gather_ids, gather_mask [Vp, Rm] and scatter_ids [Vp]."""
         return dict(ids=self.ids_exec, mask=self.mask, **self._vc_plan)
 
+    def telemetry_gauges(self, tel) -> None:
+        lay, k = self.layout, self.k
+        V = self.g.num_vertices
+        owned_edges = lay.mask_owned.reshape(k, -1).sum(1)
+        replica_rows = (lay.vert_ids < V).sum(1)
+        masters = lay.master_mask.reshape(k, -1).sum(1)
+        for d in range(k):
+            tel.gauge("layout.owned_edges", device=d).set(
+                float(owned_edges[d]))
+            tel.gauge("layout.replica_rows", device=d).set(
+                int(replica_rows[d]))
+            tel.gauge("layout.master_rows", device=d).set(
+                float(masters[d]))
+
     def global_embeddings(self, H: np.ndarray) -> np.ndarray:
         """Read each vertex's MASTER replica row.  With sorted_masters
         layouts the masters are a contiguous per-rank prefix, so this is k
@@ -413,6 +459,14 @@ class VertexCutFamilyLayout(ReplicaLayoutBase):
         # the gradient's combine and the masters' delta re-broadcast: two
         # sync passes at width dims[0]
         return 2 * self._vc_rows_per_layer * int(dims[0]) * FEAT_BYTES
+
+    def device_bytes_per_step(self, model, dims) -> np.ndarray:
+        if self.cfg.execution == "p2p":
+            return replica_sync_device_bytes(self.layout, self.vcut.masters,
+                                             dims, model=model)
+        widths = model_exchange_widths(model, dims, "vertex_cut")
+        per = 2 * (self.k - 1) * self.nv * int(sum(widths)) * FEAT_BYTES
+        return np.full(self.k, per, np.int64)
 
 
 LAYOUT_BUILDERS = {

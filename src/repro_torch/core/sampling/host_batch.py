@@ -147,25 +147,30 @@ class HostBatchBuilder:
 
     # -- the two stages ----------------------------------------------------
 
-    def sample(self, step_idx: int) -> List:
+    def sample(self, step_idx: int, span_factory=None) -> List:
         """Per rank, draw targets from its OWNED partition block and expand
         them with the configured sampler.  Deterministic in (seed, step,
         rank), so the reference step and any rerun, in any process, see the
-        same batches."""
+        same batches.  ``span_factory(name, **labels)`` is an optional span
+        context factory (the engine's telemetry, or a `_SpanRecorder` in a
+        worker): one ``sample_device`` span a rank."""
         g = self._g()
         part = self._part()
         mbs = []
         for d in range(self.k):
-            rng = np.random.default_rng([self.seed, 7919, step_idx, d])
-            targets = partition_targets(g, part, d, self.batch_size, rng)
-            if self.batching == "node_wise":
-                mb = node_wise_sample(g, targets, self.fanouts, rng)
-            elif self.batching == "layer_wise":
-                mb = layer_wise_sample(g, targets, self.layer_sizes, rng)
-            else:  # subgraph
-                mb = subgraph_sample(g, targets, self.walk_length, rng,
-                                     num_layers=self.num_layers)
-            mbs.append(mb)
+            ctx = (contextlib.nullcontext() if span_factory is None
+                   else span_factory("sample_device", step=step_idx, device=d))
+            with ctx:
+                rng = np.random.default_rng([self.seed, 7919, step_idx, d])
+                targets = partition_targets(g, part, d, self.batch_size, rng)
+                if self.batching == "node_wise":
+                    mb = node_wise_sample(g, targets, self.fanouts, rng)
+                elif self.batching == "layer_wise":
+                    mb = layer_wise_sample(g, targets, self.layer_sizes, rng)
+                else:  # subgraph
+                    mb = subgraph_sample(g, targets, self.walk_length, rng,
+                                         num_layers=self.num_layers)
+                mbs.append(mb)
         return mbs
 
     def extract(self, mbs) -> Tuple[Dict[str, np.ndarray], Dict]:
@@ -299,12 +304,14 @@ class HostBatchBuilder:
         """sample + extract for one step with stage timing: the
         `ProcPrefetchPool` producer.  The returned meta adds
         ``sample_seconds`` / ``extract_seconds`` (the producer lane's
-        seconds for StageTimes) and ``spans``, the two stages' spans."""
+        seconds for StageTimes) and ``spans``, the two stages' spans and
+        each rank's ``sample_device`` span, replayed onto the parent's
+        tracer as this worker's lane."""
         step = int(step)
         rec = _SpanRecorder()
         t0 = time.perf_counter()
         with rec.span("sample", step=step):
-            mbs = self.sample(step)
+            mbs = self.sample(step, span_factory=rec.span)
         t1 = time.perf_counter()
         with rec.span("extract", step=step):
             arrays, meta = self.extract(mbs)

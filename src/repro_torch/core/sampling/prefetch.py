@@ -18,9 +18,10 @@ Contracts:
 * ``close()`` always stops and joins the thread, including when the
   CONSUMER dies mid-epoch while the worker is blocked on a full queue.
 
-The port has no telemetry yet: ``telemetry`` is accepted for the
-reference's signature, and with None (or a disabled one) the queue-depth
-gauge and the stall counters are skipped.
+With an enabled `core.telemetry.Telemetry` the worker records the
+``prefetch.queue_depth`` gauge and one ``prefetch.producer_stall`` /
+``prefetch.consumer_stall`` count (and ``*_seconds``) per contiguous stall;
+with None, or a disabled one, they are skipped.
 """
 from __future__ import annotations
 

@@ -44,8 +44,10 @@ Contracts (mirroring the thread `PrefetchWorker`):
 Segment names start with ``SHM_PREFIX`` and carry the creating process's
 pid, so a process can find its own segments under ``/dev/shm``.  The module
 is numpy-only (its import chain too): a worker never imports torch.
-Telemetry is the reference's when one is attached; the port has none yet,
-and with None the counters, gauges and span replay are skipped.
+With an enabled `core.telemetry.Telemetry` attached the pool records its
+stall counters and ring gauges and replays each worker's sample and extract
+spans (timed on the shared CLOCK_MONOTONIC timeline) onto the parent's
+tracer as a ``("sampler-proc", rank)`` lane; with None they are skipped.
 """
 from __future__ import annotations
 

@@ -1,19 +1,29 @@
 """GNN serving driver (the port's counterpart of `repro/launch/serve_gnn.py`):
-the THROUGHPUT tier, ``DistGNNEngine.infer_full_graph``, one O(L)
-layer-wise sweep that produces final-layer embeddings for EVERY vertex.
+the two inference tiers over a trained engine.
+
+* THROUGHPUT: ``DistGNNEngine.infer_full_graph``, one O(L) layer-wise sweep
+  that produces final-layer embeddings for EVERY vertex (`run_sweep`).
+* LATENCY: ``GNNQueryEngine`` (`core/serving.py`), a persistent K-target
+  query server on the padded node-wise sampler path: static round shapes,
+  request coalescing, the resident feature cache as the hot set.
+  `run_query_stream` reports qps and p50/p99 per-query latency over a
+  seeded stream of ``--queries`` queries of ``--targets-per-query``
+  targets (the edge-cut family; the replica families have no mini-batch
+  path and skip it).
 
 As in the reference, the params come from ``--train-steps`` steps of
 training first: the edge-cut engine is a node_wise mini-batch engine
 (``--batch-size``, ``--fanouts``, the static feature cache ``--cache`` /
 ``--cache-capacity``) trained by `run_epoch_minibatch`; the replica
 families train full-graph steps.  ``--train-steps 0`` sweeps the seeded
-initial params (`init_gnn_params`, the same on every rank).  The latency
-tier (`GNNQueryEngine`) arrives with a later slice.  One process per rank
-(`launch/common.py`): without ``--init-method`` it runs alone.
+initial params (`init_gnn_params`, the same on every rank).  One process
+per rank (`launch/common.py`): without ``--init-method`` it runs alone;
+over k ranks every rank draws the same query stream and answers it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --train-steps 3 --cache none
+    PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --queries 64 --targets-per-query 8
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --model gat --device cpu --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu --partition-family vertex_cut --vertex-cut libra --oracle-check
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
@@ -34,6 +44,7 @@ from repro_torch.core.engine import (
     EngineConfig,
 )
 from repro_torch.core.graph import sbm_graph
+from repro_torch.core.serving import GNNQueryEngine
 from repro_torch.launch.common import (
     add_group_args,
     device_of,
@@ -127,6 +138,31 @@ def run_sweep(eng, params, *, oracle_check=False):
     return emb, wall
 
 
+def run_query_stream(qe, *, num_queries, targets_per_query, seed=0):
+    """Latency tier: a warm-up query, then a stream of ``num_queries``
+    single-request queries of ``targets_per_query`` distinct targets drawn
+    from a generator seeded with ``seed`` (the same stream on every rank),
+    through the query engine; coalescing is exercised by the query tier.
+    Every round must have had one shape signature.  Returns the stats."""
+    rng = np.random.default_rng(seed)
+    V = qe.engine.g.num_vertices
+    qe.query(rng.choice(V, size=targets_per_query, replace=False))  # warmup
+    qe.stats.latencies_s.clear()
+    qe.stats.queries = 0
+    for _ in range(num_queries):
+        qe.query(rng.choice(V, size=targets_per_query, replace=False))
+    s = qe.stats
+    log.info("query stream: %d queries x %d targets -> %.1f qps, "
+             "p50=%.2fms p99=%.2fms (%d serve rounds, %d round shapes)",
+             num_queries, targets_per_query, s.qps(),
+             s.percentile_ms(50), s.percentile_ms(99), s.rounds,
+             qe.round_shapes())
+    if qe.round_shapes() != 1:
+        raise RuntimeError(f"serve rounds took {qe.round_shapes()} shape "
+                           "signatures, not one")
+    return s
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -154,6 +190,10 @@ def parse_args(argv=None):
                     help="the mini-batch engine's resident feature cache")
     ap.add_argument("--cache-capacity", type=int, default=32,
                     help="remote feature rows cached per rank")
+    ap.add_argument("--queries", type=int, default=16,
+                    help="latency tier: queries in the stream (node_wise "
+                         "engines; 0 skips it)")
+    ap.add_argument("--targets-per-query", type=int, default=8)
     ap.add_argument("--oracle-check", action="store_true")
     return ap.parse_args(argv)
 
@@ -169,7 +209,15 @@ def main(argv=None):
                  "K=%d) on %s", args.model, args.exec, args.partition_family,
                  eng.rank, eng.k, eng.nb, eng.K, eng.device)
         params = train_params(eng, args.train_steps)["params"]
-        return run_sweep(eng, params, oracle_check=args.oracle_check)
+        swept = run_sweep(eng, params, oracle_check=args.oracle_check)
+        if eng.cfg.batching != "node_wise":
+            log.info("query tier skipped: the replica families have no "
+                     "mini-batch path (the latency tier is edge-cut)")
+        elif args.queries > 0:
+            run_query_stream(GNNQueryEngine(eng, params),
+                             num_queries=args.queries,
+                             targets_per_query=args.targets_per_query)
+        return swept
     finally:
         leave_group(args)
 

@@ -11,6 +11,13 @@ prefetch thread or, with ``--prefetch-mode process``, in a pool of
 layer-wise inference sweep as checks.  One process per rank
 (`launch/common.py`): without ``--init-method`` it runs alone.
 
+``--trace-out t.json`` enables the run-wide telemetry (`core/telemetry.py`)
+and, after the run, writes a Chrome trace-event file (open it in Perfetto
+or chrome://tracing: one row per device and lane) and the step log
+``t.json.steps.jsonl``, and logs the per-stage seconds and each per-device
+metric's max/mean imbalance.  Rank r > 0 of a group writes
+``t.rank<r>.json`` and its step log beside it.
+
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --model gat --device cpu --oracle-check
@@ -19,6 +26,7 @@ layer-wise inference sweep as checks.  One process per rank
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --partition-family hybrid --model gat --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --cache static_degree --cache-capacity 32 --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --schedule pipelined --prefetch-mode process --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --schedule pipelined --trace-out /tmp/t.json
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -27,7 +35,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -114,16 +125,20 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
     step = eng.make_step()
     state = eng.init_state()
     eng.comm_stats.reset()
+    tel = eng.telemetry
     losses, pushed, walls, logits = [], [], [], None
-    for _ in range(epochs):
+    for i in range(epochs):
         _sync(eng.device)
         t0 = time.perf_counter()
-        state, metrics, logits = step(state)
-        losses.append(float(metrics["loss"]))
+        with tel.span("train", step=i):
+            state, metrics, logits = step(state)
+            losses.append(float(metrics["loss"]))
         _sync(eng.device)
         walls.append(time.perf_counter() - t0)
         pushed.append(float(metrics["rows_pushed"]))
-        eng.account_step()
+        eng.account_step(i)
+        tel.log_step(step=i, loss=losses[-1], wall_s=walls[-1],
+                     comm_total_bytes=eng.comm_stats.total())
     logits = eng.gather_rows(logits)
     out = dict(losses=losses, rows_pushed=pushed, walls=walls, state=state,
                logits=logits)
@@ -184,6 +199,45 @@ def run_minibatch(eng, epochs: int, *, schedule: str = "conventional",
     return out
 
 
+def trace_paths(path: str, rank: int) -> Tuple[str, str]:
+    """The trace and step-log files of ``--trace-out path`` on ``rank``:
+    rank 0 writes ``path``, rank r > 0 ``<root>.rank<r><ext>``; each step
+    log is its trace's name + ``.steps.jsonl``."""
+    if rank > 0:
+        root, ext = os.path.splitext(path)
+        path = f"{root}.rank{rank}{ext}"
+    return path, path + ".steps.jsonl"
+
+
+def write_trace(eng, path: str) -> dict:
+    """Write the engine's telemetry after a run: the Chrome trace and the
+    step log (`trace_paths`), with the card's memory facts attached as the
+    step's executable facts (the port compiles no executable); logs the
+    per-stage seconds and the imbalance of every per-device metric.
+    Returns the paths and the run summary."""
+    tel = eng.telemetry
+    if eng.device.type == "cuda":
+        tel.attach_executable(
+            "train_step" if eng.cfg.batching == "full_graph"
+            else "minibatch_train_step",
+            dict(max_memory_allocated=torch.cuda.max_memory_allocated(
+                eng.device),
+                memory_reserved=torch.cuda.memory_reserved(eng.device)))
+    trace, steps = trace_paths(path, eng.rank)
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    tel.write_chrome_trace(trace)
+    tel.write_step_log(steps)
+    summary = tel.run_summary()
+    secs = summary["spans"]["seconds_by_name"]
+    log.info("telemetry: %s", " ".join(f"{n}={s:.3f}s"
+                                       for n, s in sorted(secs.items())))
+    for name, rec in sorted(summary["imbalance"]["metrics"].items()):
+        log.info("  imbalance %s: max/mean=%.2f", name, rec["max_over_mean"])
+    log.info("  trace -> %s (%d spans), step log -> %s", trace,
+             summary["spans"]["count"], steps)
+    return dict(trace=trace, steps=steps, summary=summary)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -241,6 +295,11 @@ def parse_args(argv=None):
     ap.add_argument("--infer", action="store_true",
                     help="run the layer-wise sweep at the final params and "
                          "check it against the reference sweep")
+    ap.add_argument("--trace-out", default=None, metavar="t.json",
+                    help="enable run-wide telemetry and write a Chrome "
+                         "trace-event file here (open in Perfetto / "
+                         "chrome://tracing) plus <t.json>.steps.jsonl; logs "
+                         "per-stage seconds and per-device imbalance ratios")
     return ap.parse_args(argv)
 
 
@@ -256,12 +315,19 @@ def main(argv=None):
                  "k=%d (nb=%d, K=%d) on %s", args.model, args.exec,
                  args.protocol, args.partition_family, eng.rank, eng.k,
                  eng.nb, eng.K, eng.device)
+        if args.trace_out:
+            eng.enable_telemetry()
         if args.batching != "full_graph":
-            return run_minibatch(eng, args.epochs, schedule=args.schedule,
-                                 oracle_check=args.oracle_check,
-                                 infer=args.infer)
-        return run_training(eng, args.epochs, oracle_check=args.oracle_check,
-                            infer=args.infer)
+            out = run_minibatch(eng, args.epochs, schedule=args.schedule,
+                                oracle_check=args.oracle_check,
+                                infer=args.infer)
+        else:
+            out = run_training(eng, args.epochs,
+                               oracle_check=args.oracle_check,
+                               infer=args.infer)
+        if args.trace_out:
+            out["trace"] = write_trace(eng, args.trace_out)
+        return out
     finally:
         if eng is not None:
             eng.close_prefetch_pool()

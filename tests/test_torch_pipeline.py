@@ -152,7 +152,10 @@ def test_one_rank_pipelined_is_the_blocking_epoch(batching, execution, mode):
             for key in arrays:
                 assert np.array_equal(arrays[key], jarrays[key]), key
             assert meta["per_device"] == jmeta["per_device"]
-            assert [s[0] for s in meta["spans"]] == ["sample", "extract"]
+            # each rank's sample_device span closes inside its sample span
+            assert [s[0] for s in meta["spans"]] == [
+                s[0] for s in jmeta["spans"]] == (
+                    ["sample_device"] * eng.k + ["sample", "extract"])
             assert meta["sample_seconds"] > 0 and meta["extract_seconds"] > 0
         eng.close_prefetch_pool()
         eng.close_prefetch_pool()  # idempotent
