@@ -115,7 +115,23 @@ TRACED_OVERHEAD of the untraced one.  Last, `autotune_validate`: the
 autotuner enumerates, chooses and validates a plan on an SBM graph of
 AUTOTUNE_GRAPH's size at k = 1, its dryrun on the card (every
 prediction 0 bytes, every balance 1.0; the four-rank proof is the CPU
-tier).  Each phase prints one JSON line; the next-to-last lines
+tier).  The dense execution models: at the end of the NCCL group's
+phases, `spmm_models` runs the seven functions of
+`core/execution/spmm_models.py` on an SBM graph of 2**14 vertices (D 256;
+the 1-D ones on a (1,) grid, the 2-D ones on a 1 x 1 grid of subgroups),
+each Y within 1e-4 of the float64 product, the collective calls counted
+exactly.  Last, the single-device trainers of `core/training.py` at the
+gcn-paper widths on that graph (TRAINER_CASES: `full_graph_train` for the
+four models under sync and gcn under epoch_fixed, epoch_adaptive,
+variation and PipeGCN, `minibatch_train` with sage and a static cache,
+`llcg_train` with and without the server's correction; phases
+`trainer_*`, after `trainer_graph` builds their adjacency on the card
+and on the host, bit for bit, and times both): each run twice, bit for
+bit, losses finite and falling under sync, step ms (LLCG's local and
+server steps apart), peak memory, bytes pushed and hit ratio; then at
+2**11 vertices on the card and on the CPU, the losses within 1e-4.  They
+compute densely and launch no kernel of the port.  Each phase prints one
+JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
 ``--jsonl PATH`` every phase line is also appended to PATH.  Any failed check
@@ -238,6 +254,42 @@ AUTOTUNE_HIDDEN = 64
 # the historical-embedding protocols, each run with gcn at the p2p phases'
 # settings
 ASYNC_PROTOCOLS = ("epoch_fixed", "epoch_adaptive", "variation")
+# the single-device trainers (`core/training.py`) at the gcn-paper widths
+# (256 features, hidden 256, 64 classes, the reference's two layers): an SBM
+# graph of 2**14 vertices in 64 communities of about 256 (the labels), about
+# 15.4 in-community and 0.65 cross-community in-neighbours a vertex; its
+# dense adjacency is 1 GiB fp32 on the card.  Each trainer runs with the
+# reference's defaults (lr, the staleness bounds of tests/test_gnn_training
+# .py, sage's fan-outs 5,5 at batch 32) for TRAINER_EPOCHS epochs (one
+# epoch of 153 batches for the mini-batch trainer, TRAINER_LLCG rounds for
+# LLCG), twice (bit for bit), then at TRAINER_SMALL vertices (everything
+# else equal) on the card and on the CPU, whose losses must agree within
+# TOL
+TRAINER_GRAPH = dict(num_vertices=1 << 14, num_blocks=64, p_in=0.06,
+                     p_out=0.00004, feature_dim=256, seed=0)
+TRAINER_SMALL = 1 << 11
+TRAINER_HIDDEN, TRAINER_EPOCHS = 256, 5
+TRAINER_LLCG = dict(rounds=2, local_steps=2)
+TRAINER_CACHE = 4096  # the mini-batch trainer's static-degree cache rows
+TRAINER_CASES = (
+    ("sync_gcn", "full_graph_train", dict(model="gcn")),
+    ("sync_sage", "full_graph_train", dict(model="sage")),
+    ("sync_gin", "full_graph_train", dict(model="gin")),
+    ("sync_gat", "full_graph_train", dict(model="gat")),
+    ("epoch_fixed", "full_graph_train",
+     dict(protocol="epoch_fixed", staleness=2)),
+    ("epoch_adaptive", "full_graph_train",
+     dict(protocol="epoch_adaptive", staleness=3)),
+    ("variation", "full_graph_train", dict(protocol="variation", eps_v=0.05)),
+    ("pipegcn", "full_graph_train", dict(protocol="pipegcn")),
+    ("minibatch", "minibatch_train",
+     dict(model="sage", epochs=1, cache_capacity=TRAINER_CACHE)),
+    ("llcg", "llcg_train", dict(TRAINER_LLCG, server_correct=True)),
+    ("psgd_pa", "llcg_train", dict(TRAINER_LLCG, server_correct=False)),
+)
+# the dense SpMM models (`core/execution/spmm_models.py`) on the trainers'
+# graph: features of this width, each Y held to the float64 product
+SPMM_D, SPMM_REPS = 256, 5
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3107,6 +3159,210 @@ def autotune_validate_phase(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the single-device trainers and the dense SpMM execution models
+# ---------------------------------------------------------------------------
+
+
+def trainer_run(trainer: str, kw: dict, g, device):
+    """One run of a `core/training.py` trainer at the gcn-paper hidden
+    width.  Returns (result, measures): the run's seconds, its peak device
+    memory, and the ms of a step from the trainer's loss evaluations.  To
+    see them the run's `softmax_xent` is replaced by one that stamps the
+    host clock after a device synchronize (the trainers have no spans of
+    their own yet), so each step ends in a synchronize.  `step_ms` is the
+    last stamp less the first over the steps between them: an epoch of
+    `full_graph_train`, a batch of `minibatch_train` (its host sampling
+    included).  `llcg_train` evaluates a loss for each worker of a local
+    step and one for the server's step of a round: its `step_ms` is a
+    local step (from one step's first worker to the next step's, within a
+    round), `round_ms` a round (from one round's first worker to the
+    next's) and `server_ms` the round less its local steps."""
+    import inspect
+
+    from repro_torch.core import training
+
+    kw = dict(kw, hidden=TRAINER_HIDDEN)
+    if trainer == "full_graph_train":
+        kw.setdefault("epochs", TRAINER_EPOCHS)
+    cuda = device.type == "cuda"
+    plain_xent, stamps = training.softmax_xent, []
+
+    def stamped(*args, **kwargs):
+        loss = plain_xent(*args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter() * 1e3)
+        return loss
+
+    if cuda:
+        release()
+        torch.cuda.reset_peak_memory_stats()
+    training.softmax_xent = stamped
+    t0 = time.perf_counter()
+    try:
+        result = getattr(training, trainer)(g, device=device, seed=0, **kw)
+    finally:
+        training.softmax_xent = plain_xent
+    measures = dict(run_s=time.perf_counter() - t0)
+    if trainer == "llcg_train":
+        defaults = {k: p.default for k, p in
+                    inspect.signature(training.llcg_train).parameters.items()}
+        kw = dict(defaults, **kw)
+        P, S, R = kw["num_parts"], kw["local_steps"], kw["rounds"]
+        per_round = S * P + int(kw["server_correct"])
+        check(len(stamps) == R * per_round,
+              f"llcg_train: {len(stamps)} loss evaluations, not "
+              f"{R * per_round}")
+        firsts = [[stamps[r * per_round + s * P] for s in range(S)]
+                  for r in range(R)]
+        measures["step_ms"] = statistics.mean(
+            b - a for f in firsts for a, b in zip(f, f[1:]))
+        measures["round_ms"] = (firsts[-1][0] - firsts[0][0]) / (R - 1)
+        measures["server_ms"] = (measures["round_ms"] - S * measures["step_ms"]
+                                 if kw["server_correct"] else None)
+    else:
+        measures["step_ms"] = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    if cuda:
+        measures["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return result, measures
+
+
+def trainer_phases(device) -> dict:
+    """Every trainer of `core/training.py` on the card at the gcn-paper
+    widths (TRAINER_CASES on TRAINER_GRAPH): each run twice, the two
+    results equal bit for bit, the losses finite and, under sync, falling
+    at every epoch; then the same trainer at TRAINER_SMALL vertices on the
+    card and on the CPU (its plain torch, which the CPU tier holds to
+    JAX), the losses within TOL.  First the trainers' adjacency: built on
+    the card (`dense_adj`) and on the host (`to_dense_adj`, then its
+    upload), the two equal bit for bit, each build's seconds.  The
+    trainers' products are dense torch products: no kernel of the port is
+    launched, and the counts must stay 0.  Returns them."""
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.core.training import dense_adj
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    g = sbm_graph(**TRAINER_GRAPH)
+    small = sbm_graph(**dict(TRAINER_GRAPH, num_vertices=TRAINER_SMALL))
+    graph_s = time.perf_counter() - t0
+    release()
+    t1 = time.perf_counter()
+    on_card = dense_adj(g, device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    on_host = torch.as_tensor(g.to_dense_adj(), device=device)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    check(torch.equal(on_card, on_host),
+          "dense_adj on the card differs from the host's to_dense_adj")
+    del on_card, on_host
+    release()
+    emit("trainer_graph", generator="sbm_graph", **TRAINER_GRAPH,
+         edges=g.num_edges, classes=int(g.labels.max()) + 1,
+         small_vertices=small.num_vertices, small_edges=small.num_edges,
+         graph_s=graph_s, dense_adj_card_s=card_s, dense_adj_host_s=host_s,
+         dense_adj_bitwise=True, seconds=time.perf_counter() - t0)
+    zero_counts()
+    for name, trainer, kw in TRAINER_CASES:
+        t0 = time.perf_counter()
+        result, measures = trainer_run(trainer, kw, g, device)
+        again, measures2 = trainer_run(trainer, kw, g, device)
+        out = dataclasses.asdict(result)
+        check(out == dataclasses.asdict(again),
+              f"trainer {name}: a second run differs")
+        losses = out.pop("losses")
+        check(bool(np.isfinite(losses).all()),
+              f"trainer {name}: losses {losses}")
+        if trainer == "full_graph_train" and "protocol" not in kw:
+            check(all(b < a for a, b in zip(losses, losses[1:])),
+                  f"trainer {name}: the sync loss did not fall {losses}")
+        on_card, _ = trainer_run(trainer, kw, small, device)
+        on_cpu, cpu_measures = trainer_run(trainer, kw, small, cpu)
+        gap = float(np.max(np.abs(np.asarray(on_card.losses)
+                                  - np.asarray(on_cpu.losses))))
+        check(len(on_card.losses) == len(on_cpu.losses) and gap <= TOL,
+              f"trainer {name}: {gap} from the CPU run at "
+              f"{TRAINER_SMALL} vertices > {TOL}")
+        emit(f"trainer_{name}", trainer=trainer, kwargs=kw,
+             hidden=TRAINER_HIDDEN, vertices=g.num_vertices,
+             losses=losses, **out, **measures,
+             rerun={k: v for k, v in measures2.items() if k.endswith("_ms")},
+             rerun_bitwise=True, small_losses=on_card.losses,
+             small_cpu_gap=gap, small_cpu_step_ms=cpu_measures["step_ms"],
+             tol=TOL, seconds=time.perf_counter() - t0)
+    launches = read_counts()
+    check_counts(launches, {}, "the trainers (dense products)")
+    release()
+    return launches
+
+
+def spmm_phase(device) -> None:
+    """The seven SpMM functions of `core/execution/spmm_models.py` on the
+    trainers' graph (V 2**14, its dense normalized adjacency, H [V,
+    SPMM_D] seeded) in the world-size-1 NCCL group the caller joined: the
+    1-D models on a (1,) grid, the 2-D ones on a 1 x 1 grid of subgroups.
+    Each Y within TOL of the float64 ``A @ H``; the collective calls of
+    one call counted exactly (one rank: the ring rotates nothing); each
+    model's ms beside the plain product's, its bound (2 V^2 D fp32
+    operations against 4 (V^2 + 2 V D) bytes) and the library's
+    ``torch.sparse.mm`` over the CSR adjacency."""
+    from repro_torch.core.execution import collectives
+    from repro_torch.core.execution import spmm_models as sm
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.core.training import dense_adj
+
+    release()
+    t0 = time.perf_counter()
+    g = sbm_graph(**TRAINER_GRAPH)
+    A = dense_adj(g, device)
+    V = A.shape[0]
+    H = torch.randn((V, SPMM_D), generator=torch.Generator().manual_seed(0)
+                    ).to(device)
+    want = (A.double() @ H.double()).float()
+    A_np = A.cpu().numpy()
+    grids = {1: sm.process_grid((1,)), 2: sm.process_grid((1, 1))}
+    plan = sm.p2p_plan(A_np, 1)
+    del A_np
+    setup_s = time.perf_counter() - t0
+    calls_of = {"spmm_replicated": {}, "spmm_1d_broadcast": {"all_gather": 1},
+                "spmm_1d_ring": {}, "spmm_1d_p2p": {"all_to_all": 1},
+                "spmm_2d_summa": {"all_gather": 1, "reduce_scatter": 1},
+                "spmm_15d": {"reduce_scatter": 1}}
+    plain_ms = cuda_ms(lambda: A @ H, SPMM_REPS)
+    sparse = A.to_sparse_csr()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(sparse, H), SPMM_REPS)
+    del sparse
+    lim = bound(4 * (V * V + 2 * V * SPMM_D), 2 * V * V * SPMM_D)
+    models = []
+    for name, want_calls in calls_of.items():
+        fn = getattr(sm, name)
+        grid = grids[2 if name in ("spmm_2d_summa", "spmm_15d") else 1]
+        A_blk, H_blk = sm.local_blocks(fn, grid, A, H)
+        extra = (plan,) if name == "spmm_1d_p2p" else ()
+        collectives.zero_calls()
+        Y = fn(grid, A_blk, H_blk, *extra)
+        check_calls(collectives.read_calls(), want_calls, f"spmm {name}")
+        rows, cols = sm.output_block(fn, grid, V, SPMM_D)
+        err = float((Y - want[rows, cols]).abs().max())
+        check(tuple(Y.shape) == (V, SPMM_D) and err <= TOL,
+              f"spmm {name}: {err} from the float64 product > {TOL}")
+        models.append(dict(name=name, max_abs_err=err, calls=want_calls,
+                           ms=cuda_ms(lambda: fn(grid, A_blk, H_blk, *extra),
+                                      SPMM_REPS)))
+        del Y
+    emit("spmm_models", vertices=V, D=SPMM_D, grid_1d=[1], grid_2d=[1, 1],
+         models=models, plain_ms=plain_ms, library_ms=library_ms,
+         library="torch.sparse.mm (CSR)", **lim, tol=TOL,
+         setup_s=setup_s, seconds=time.perf_counter() - t0,
+         timing_note="world-size-1 NCCL group: each collective is a copy "
+                     "on the card, no wire time")
+    del A, H, want
+    release()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jsonl", help="also append every phase line to this file")
@@ -3301,6 +3557,8 @@ def main(argv=None) -> int:
                                       baselines["vc", model],
                                       family="vertex_cut")
             del eng
+        # the dense SpMM execution models over the same group
+        spmm_phase(device)
     finally:
         release()
         leave_group(group_args)
@@ -3312,6 +3570,8 @@ def main(argv=None) -> int:
     # node-wise engine, then the autotuner's validated plan
     add_counts(launches, serving_phases(g, device))
     add_counts(launches, autotune_validate_phase(device))
+    # the single-device trainers at the gcn-paper widths (dense products)
+    add_counts(launches, trainer_phases(device))
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 

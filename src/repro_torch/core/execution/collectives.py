@@ -9,7 +9,10 @@ rendezvous or collective raises.
 
 Five collectives, each counting its calls in a plain integer
 (``all_gather_rows.calls`` and so on, like the kernel wrappers' launch
-counters):
+counters).  The first four take an optional ``group`` (a subgroup from
+`torch.distributed.new_group`, the 2-D SpMM models' grid rows and
+columns); without one they act on the world, and k and r below are the
+group's size and this rank's place in it:
 
 - `all_gather_rows`: [nb, D] on every rank -> [k*nb, D], rank r's rows at
   [r*nb, (r+1)*nb), issued asynchronously.  Its gradient (`_AllGatherRows`)
@@ -49,12 +52,12 @@ def group_active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def world_size() -> int:
-    return dist.get_world_size() if group_active() else 1
+def world_size(group=None) -> int:
+    return dist.get_world_size(group) if group_active() else 1
 
 
-def rank() -> int:
-    return dist.get_rank() if group_active() else 0
+def rank(group=None) -> int:
+    return dist.get_rank(group) if group_active() else 0
 
 
 def init_group(init_method: str, world_size: int, rank: int, device) -> None:
@@ -97,29 +100,32 @@ class _AllGatherRows(torch.autograd.Function):
     the gradient to it."""
 
     @staticmethod
-    def forward(ctx, h, pending):
+    def forward(ctx, h, pending, group):
         out, work = pending
+        ctx.group = group
         work.wait()
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        return reduce_scatter_rows(ct), None
+        return reduce_scatter_rows(ct, ctx.group), None, None
 
 
-def all_gather_rows(h: torch.Tensor) -> Callable[[], torch.Tensor]:
+def all_gather_rows(h: torch.Tensor,
+                    group=None) -> Callable[[], torch.Tensor]:
     """Issue the all_gather of this rank's rows h [nb, D] (contiguous) and
     return ``finish``: a call that waits on it and returns the [k*nb, D]
     table, differentiable in h.  Between the two, the caller may issue more
     work: on NCCL the wait orders the streams without blocking the host; on
     gloo it blocks the host until the rows have arrived."""
-    out = h.new_empty((world_size() * h.shape[0], h.shape[1]))
+    out = h.new_empty((world_size(group) * h.shape[0], h.shape[1]))
     # the collective sees no autograd history: `_AllGatherRows` carries it
-    work = dist.all_gather_into_tensor(out, h.detach(), async_op=True)
+    work = dist.all_gather_into_tensor(out, h.detach(), group=group,
+                                       async_op=True)
     all_gather_rows.calls += 1
 
     def finish() -> torch.Tensor:
-        return _AllGatherRows.apply(h, (out, work))
+        return _AllGatherRows.apply(h, (out, work), group)
     return finish
 
 
@@ -130,8 +136,9 @@ class _AllToAllRows(torch.autograd.Function):
     cotangent (an all_to_all of equal blocks is its own transpose)."""
 
     @staticmethod
-    def forward(ctx, send, pending):
+    def forward(ctx, send, pending, group):
         out, work = pending
+        ctx.group = group
         work.wait()
         return out
 
@@ -139,12 +146,13 @@ class _AllToAllRows(torch.autograd.Function):
     def backward(ctx, ct):
         ct = ct.contiguous()
         out = torch.empty_like(ct)
-        dist.all_to_all_single(out, ct)
+        dist.all_to_all_single(out, ct, group=ctx.group)
         all_to_all_rows.calls += 1
-        return out, None
+        return out, None, None
 
 
-def all_to_all_rows(send: torch.Tensor) -> Callable[[], torch.Tensor]:
+def all_to_all_rows(send: torch.Tensor,
+                    group=None) -> Callable[[], torch.Tensor]:
     """Issue the all_to_all of ``send`` [k*w, D] (contiguous; block d goes
     to rank d) and return ``finish``: a call that waits on it and returns
     the received [k*w, D] (block s from rank s), differentiable in send.
@@ -152,26 +160,27 @@ def all_to_all_rows(send: torch.Tensor) -> Callable[[], torch.Tensor]:
     `all_gather_rows`."""
     out = torch.empty_like(send)
     # the collective sees no autograd history: `_AllToAllRows` carries it
-    work = dist.all_to_all_single(out, send.detach(), async_op=True)
+    work = dist.all_to_all_single(out, send.detach(), group=group,
+                                  async_op=True)
     all_to_all_rows.calls += 1
 
     def finish() -> torch.Tensor:
-        return _AllToAllRows.apply(send, (out, work))
+        return _AllToAllRows.apply(send, (out, work), group)
     return finish
 
 
-def _rotate(h: torch.Tensor, reverse: bool, async_op: bool):
+def _rotate(h: torch.Tensor, reverse: bool, async_op: bool, group=None):
     """One rotation of h [nb, D] (contiguous) over the ring: to rank
     (r - 1) % k from rank (r + 1) % k, or the other way round when
     ``reverse``.  Returns (received rows, work handle or None)."""
-    k, me = world_size(), rank()
+    k, me = world_size(group), rank(group)
     step = 1 if reverse else -1
     send_splits, recv_splits = [0] * k, [0] * k
     send_splits[(me + step) % k] = h.shape[0]
     recv_splits[(me - step) % k] = h.shape[0]
     out = torch.empty_like(h)
     work = dist.all_to_all_single(out, h, recv_splits, send_splits,
-                                  async_op=async_op)
+                                  group=group, async_op=async_op)
     ring_rotate.calls += 1
     return out, work
 
@@ -182,34 +191,36 @@ class _RingRotate(torch.autograd.Function):
     the backward sends their cotangent back there, the reverse rotation."""
 
     @staticmethod
-    def forward(ctx, h, pending):
+    def forward(ctx, h, pending, group):
         out, work = pending
+        ctx.group = group
         work.wait()
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        return _rotate(ct.contiguous(), reverse=True, async_op=False)[0], None
+        return _rotate(ct.contiguous(), reverse=True, async_op=False,
+                       group=ctx.group)[0], None, None
 
 
-def ring_rotate(h: torch.Tensor) -> Callable[[], torch.Tensor]:
+def ring_rotate(h: torch.Tensor, group=None) -> Callable[[], torch.Tensor]:
     """Issue the rotation of this rank's rows h [nb, D] (contiguous) to rank
     (r - 1) % k and return ``finish``: a call that waits on it and returns
     the [nb, D] rows rank (r + 1) % k sent, differentiable in h.  Between
     the two the caller may issue more work, as with `all_gather_rows`."""
     # the collective sees no autograd history: `_RingRotate` carries it
-    pending = _rotate(h.detach(), reverse=False, async_op=True)
+    pending = _rotate(h.detach(), reverse=False, async_op=True, group=group)
 
     def finish() -> torch.Tensor:
-        return _RingRotate.apply(h, pending)
+        return _RingRotate.apply(h, pending, group)
     return finish
 
 
-def reduce_scatter_rows(ct: torch.Tensor) -> torch.Tensor:
+def reduce_scatter_rows(ct: torch.Tensor, group=None) -> torch.Tensor:
     """The sum over ranks of ct [k*nb, D], this rank's block [nb, D]."""
     ct = ct.contiguous()
-    out = ct.new_empty((ct.shape[0] // world_size(), ct.shape[1]))
-    dist.reduce_scatter_tensor(out, ct, op=dist.ReduceOp.SUM)
+    out = ct.new_empty((ct.shape[0] // world_size(group), ct.shape[1]))
+    dist.reduce_scatter_tensor(out, ct, op=dist.ReduceOp.SUM, group=group)
     reduce_scatter_rows.calls += 1
     return out
 

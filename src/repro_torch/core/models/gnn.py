@@ -11,10 +11,11 @@ gcn ``{"w": [d_in, d_out], "b": [d_out]}``, sage ``{"w_self", "w_nbr":
 ``jax.tree.map(np.asarray, params)``.  The loss and the accuracy are copies
 of the reference's `softmax_xent` and `accuracy`.
 
-`gnn_layer`, `minibatch_forward` and `padded_minibatch_forward` are the
-reference's models over dense normalized blocks, the sampled mini-batch
-step's forward: plain fp32 products (`A @ H`), as the reference computes
-them outside any Pallas kernel.
+`gnn_layer`, `full_graph_forward`, `minibatch_forward` and
+`padded_minibatch_forward` are the reference's models over dense normalized
+blocks, the single-device trainers' and the sampled mini-batch step's
+forward: plain fp32 products (`A @ H`), as the reference computes them
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -111,6 +112,20 @@ def gnn_layer(model: str, p: Dict, A: torch.Tensor, H_src: torch.Tensor,
     else:
         raise ValueError(model)
     return z if last else torch.relu(z)
+
+
+def full_graph_forward(model: str, params: Dict, A: torch.Tensor,
+                       X: torch.Tensor,
+                       aggregate: Optional[Callable] = None) -> torch.Tensor:
+    """The model over the whole graph's dense normalized adjacency A
+    [V, V] (the single-device trainers' forward); ``aggregate`` replaces
+    the ``A @ H`` product (`core/execution/chunk.py`)."""
+    H = X
+    L = len(params["layers"])
+    for l, p in enumerate(params["layers"]):
+        H = gnn_layer(model, p, A, H, self_idx=None, last=(l == L - 1),
+                      aggregate=aggregate)
+    return H
 
 
 def minibatch_forward(model: str, params: Dict, layer_adj: List[torch.Tensor],

@@ -245,7 +245,8 @@ def test_ring_layout_and_boundary_mask_equal(name, k, partitioner):
 def test_layout_for_an_unported_plan_raises():
     """Every partition family is ported; what the reference refuses the
     port refuses alike, at the builder: an unknown family, and a replica
-    family under a mini-batch mode (the mini-batch path is item 8)."""
+    family under a mini-batch mode (the reference's mini-batch path runs
+    on the edge cut only)."""
     with pytest.raises(ValueError, match="unknown partition family"):
         get_layout_builder("nope")
     for family in ("vertex_cut", "hybrid"):

@@ -187,6 +187,18 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.core.training", "repro_torch.core.execution.chunk",
+             "repro_torch.core.execution.spmm_models",
+             "repro_torch.core.protocols.sync",
+             "repro_torch.core.partition.feature_partition"):
+    assert name in names, name
+# the packages' lazy exports, every one resolved
+for pkg in ("repro_torch.core", "repro_torch.core.execution",
+            "repro_torch.core.protocols", "repro_torch.core.partition"):
+    mod = importlib.import_module(pkg)
+    for name in mod.__all__:
+        getattr(mod, name)
+from repro_torch.core.models.gnn import full_graph_forward
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
