@@ -10,6 +10,18 @@ paths.  First the kernel API's language-model kernels at model width:
 `ops.flash_attention` at llama3.2-1b's (32 heads of dim 64, train_4k's 4096
 tokens; bf16 causal and non-causal, fp32 causal) and `ops.wkv` at
 rwkv6-3b's (40 heads of key dim 64, chunk 64, four 4096-token sequences).
+Then the LLM serving path at full width with the port's own seeded weights
+(`llm_phases`): llama3.2-1b's prefill of prefill_32k's 32768 tokens (batch
+cut to 1) through `models.transformer.prefill`, one flash launch a layer,
+rerun bitwise, 32 tokens decoded from its KV cache, one trace by kernel
+group, the flash kernel at that shape beside SDPA, layer 0's attention
+inputs at B 2, S 2048 through the kernel against its plain version, and the
+prefill against token-by-token decode at B 2, S 256 at fp32 and bf16
+(`llm_prefill`); `greedy_decode` twice, the continuous-batching engine and
+`launch/serve_llm.main` (`llm_serve`); rwkv6-3b's prefill at B 4, S 4096,
+one WKV launch a layer with the final state, the same checks, layer 0's y
+and state against the plain recurrence and y bitwise with and without the
+state pointer at chunks 16, 32, 64 (`rwkv_prefill`).
 Then the GNN paths at the full width of the gcn-paper workload (a
 2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
 exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
@@ -1231,10 +1243,10 @@ def flash_case(name, q, k, v, causal, reps):
     row.update(kernel="flash_attention", case=name, B=B, H=H, S=S, T=T, D=D,
                causal=causal, dtype=dtype_name(q.dtype),
                kernel_ms=cuda_ms(kernel, reps),
-               # the per-call time again, as the median of 7 readings: the
+               # the per-call time again, as the median of 3 readings: the
                # host's rate of calls varies from reading to reading
                kernel_call_ms=statistics.median(cuda_ms(kernel, reps)
-                                                for _ in range(7)),
+                                                for _ in range(3)),
                kernel_device_ms=cuda_ms(kernel, reps, queued=True),
                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), max(1, reps // 10)),
@@ -1317,7 +1329,7 @@ def attention_phase(device):
                                               torch.float32, False),
     }.items():
         rows.append(flash_case(case, *qkv(gen, B, Hc, kvc, Sc, Tc, Dc, dtype,
-                                          device), causal, 20))
+                                          device), causal, 10))
     emit("attention", model=CONFIG.name, B=B, H=H, S=S, D=D,
          cases=[f"{dtype_name(dtype)} causal={causal}" for dtype, causal in main],
          launches=launches, ms={r["case"]: r["kernel_ms"] for r in rows[:3]},
@@ -1419,6 +1431,10 @@ def wkv_phase(device):
     want, row, call = wkv_case(f"rwkv6-3b train_4k x{B} chunk={C}", r, k, v, g,
                                u, C, 10)
     cases.append((row, call))
+    # the final state on these inputs, whose decay varies by channel and
+    # step and whose bonus u is not 0 (the seeded model's layers start at
+    # g = -1 and u = 0)
+    with_state = wkv_state_held(r, k, v, g, u, C)
     # the chunk no longer reaches the kernel's arithmetic: 16 and 32 equal
     # chunk 64's output bit for bit (and so sit within the tolerance of the
     # plain version), and so do chunks past the previous kernel's 128
@@ -1462,9 +1478,441 @@ def wkv_phase(device):
     emit("wkv", model=CONFIG.name, B=B, H=H, S=S, K=K, chunk=C,
          launches=launches, ms=rows[0]["kernel_ms"],
          device_ms=rows[0]["kernel_device_ms"], tile=WKV_TILE,
+         with_state=with_state,
          resources={dtype_name(dt): kernel_resources(K, dt)
                     for dt in (torch.float32, torch.bfloat16)},
          seconds=time.perf_counter() - t0)
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path: prefill through the flash and WKV kernels, decode
+# from the KV cache and the recurrent state, greedy decode, batching
+# ---------------------------------------------------------------------------
+
+# llama3.2-1b's timed prefill: prefill_32k's 32768 tokens, its batch of 32
+# cut to 1 for the time limit
+LLM_PREFILL_BATCH = 1
+# layer 0's attention inputs held kernel against plain at this (B, S): the
+# plain version's [B, H, S, S] fp32 scores at 32768 tokens would be 137 GB
+LLM_KERNEL_CHECK = (2, 2048)
+# the prefill held to token-by-token decode from an empty cache
+# (tests/test_prefill.py's contract) at this (B, S)
+PREFILL_DECODE_CHECK = (2, 256)
+DECODE_TOKENS = 32  # tokens decoded from each long prefill's cache
+# prefill against token-by-token decode (tests/test_prefill.py's contract),
+# each gap a share of the logits' (the state's) largest magnitude.  At dtype
+# float32, with the cache's bf16 entries (k, v; rwkv's token-shift rows,
+# which decode reads and the prefill does not) held in fp32, only the order
+# of the sums differs: within 1e-3.  At the configs' bf16, with the cache
+# as the reference stores it, 16-32 layers of bf16 rounding in two orders
+# read 1.64e-2 (llama) and 3.58e-2 (rwkv) on an H100: within 0.05.  The
+# bf16 gate holds what only the bf16 run computes, the flash kernel's bf16
+# instantiation over all 16 layers and the cache as stored, to that
+# reading; the float32 gate is the one that catches a wrong recurrence or
+# tiling at a few parts in a million
+PREFILL_DECODE_TOL = {"bfloat16": 0.05, "float32": 1e-3}
+RWKV_PREFILL = (4, 4096)  # rwkv6-3b's timed prefill: the wkv phase's B, S
+SERVE_PROMPTS = (4, 32, 32)  # greedy_decode's batch, prompt, new tokens
+SERVE_REQUESTS = (8, 4, 8, 8)  # requests, slots, prompt and new tokens each
+
+
+def llm_kernel_group(name: str) -> str:
+    """The group of a kernel in an LLM prefill's trace."""
+    low = name.lower()
+    for group, marks in (("flash", ("flash",)), ("wkv", ("wkv",)),
+                         ("cublas", ("gemm", "xmma", "cutlass", "cublas",
+                                     "nvjet"))):
+        if any(m in low for m in marks):
+            return group
+    return "copies" if "copy" in low else "other"
+
+
+def lm_prompt(cfg, B, S, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    return {"tokens": tokens,
+            "positions": torch.arange(S, device=device)[None].expand(B, S)}
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def prefill_run(cfg, params, batch, kernel):
+    """One prefill through the entry point with the counts from 0: its
+    logits, cache, seconds and launches (one of ``kernel`` a layer)."""
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    zero_counts()
+    (logits, cache), seconds = timed_s(lambda: T.prefill(cfg, params, batch))
+    launches = read_counts()
+    check_counts(launches, {kernel: cfg.num_layers}, f"{cfg.name} prefill")
+    B = batch["tokens"].shape[0]
+    check(logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
+    return logits, cache, seconds, launches
+
+
+def rerun_bitwise(cfg, params, batch, kernel, logits, cache):
+    again, cache2, seconds, _ = prefill_run(cfg, params, batch, kernel)
+    check(torch.equal(again, logits)
+          and all(torch.equal(cache2[n], cache[n]) for n in cache),
+          f"{cfg.name} prefill: a rerun differs")
+    return seconds
+
+
+def decode_from(cfg, params, cache, logits, pos0, n):
+    """n greedy tokens from a prefill's cache (updated in place), decode
+    running no kernel: ms a token."""
+    from repro_torch.models import transformer as T
+
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, cache = T.serve_step(cfg, params, cache, tok, pos0 + i)
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    check_counts(read_counts(), {}, f"{cfg.name} decode")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode: not finite")
+    return ms
+
+
+def prefill_vs_decode(cfg, params, device, seed):
+    """tests/test_prefill.py's contract at full width: the prefill's last
+    logits (and, for RWKV6, the state it hands on) against token-by-token
+    `serve_step` from an empty cache, which runs no kernel, within
+    PREFILL_DECODE_TOL of the largest magnitude: at the config's bf16 with
+    the cache as stored, at float32 with an fp32 cache."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.kvcache import init_cache
+
+    B, S = PREFILL_DECODE_CHECK
+    out = {}
+    for dtype, share in PREFILL_DECODE_TOL.items():
+        c = dataclasses.replace(cfg, dtype=dtype)
+        batch = lm_prompt(c, B, S, device, seed)
+        logits_pf, cache_pf = T.prefill(c, params, batch)
+        cache = init_cache(c, B, S, device=device)
+        if dtype == "float32":
+            cache = {n: t.float() for n, t in cache.items()}
+        zero_counts()
+        t0 = time.perf_counter()
+        for i in range(S):
+            logits, cache = T.serve_step(c, params, cache,
+                                         batch["tokens"][:, i:i + 1], i)
+        torch.cuda.synchronize()
+        row = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / S)
+        check_counts(read_counts(), {}, f"{c.name} {dtype} token-by-token")
+        pairs = {"logits": (logits, logits_pf)}
+        if cfg.ssm_kind:
+            pairs["state"] = (cache["s"], cache_pf["s"])
+        for what, (got, want) in pairs.items():
+            scale = float(want.abs().max())
+            gap = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and gap <= share * scale,
+                  f"{c.name} {dtype}: prefill's {what} against token-by-token "
+                  f"decode: max gap {gap} over {share} of its scale {scale}")
+            row[what] = dict(max_abs=gap, scale=scale, share=gap / scale,
+                             tol_share=share)
+        out[dtype] = row
+        del cache, cache_pf
+    return out
+
+
+def layer0_attention(cfg, params, batch):
+    """Layer 0's q and expanded k, v as the prefill hands them to the flash
+    kernel: contiguous [B, H, S, D] in the config's dtype."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import attention_qkv, repeat_kv, rmsnorm
+
+    with torch.inference_mode():
+        blk = params.blocks[0]
+        h = T.embed_tokens(cfg, params, batch["tokens"])
+        q, k, v = attention_qkv(blk.attn, rmsnorm(blk.ln1, h, cfg.norm_eps),
+                                cfg, positions=batch["positions"])
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        return tuple(t.permute(0, 2, 1, 3).contiguous()
+                     for t in (q, repeat_kv(k, n_rep), repeat_kv(v, n_rep)))
+
+
+# query rows of layer 0's 32768-token inputs held against a plain fp32
+# computation over all keys: the first rows, a block across the middle tile
+# boundary and the last rows (about 1 GB of fp32 scores a block)
+FLASH_LONG_ROWS = 256
+
+
+def flash_rows_plain(q, k, v, lo, n):
+    """The plain version of causal attention at query rows [lo, lo + n)
+    over all of k and v, each row masked at its true position, as
+    `ref.flash_attention_ref` computes it: (the output in q's dtype, the
+    bf16 scale |plain| + P.|V| in fp32)."""
+    T, D = k.shape[2], q.shape[-1]
+    s = torch.matmul(q[:, :, lo:lo + n].float(), k.float().transpose(-1, -2))
+    s = s / (D ** 0.5)
+    seen = (torch.arange(T, device=q.device)[None, :]
+            <= torch.arange(lo, lo + n, device=q.device)[:, None])
+    s = torch.where(seen, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    del s
+    want = torch.matmul(p, v.float()).to(q.dtype)
+    return want, want.float().abs() + torch.matmul(p, v.float().abs())
+
+
+def flash_at(q, k, v, reps):
+    """The flash kernel at one causal bf16 shape too long for the whole
+    plain version (its [B, H, S, S] fp32 scores would be 137 GB at 32768
+    tokens): the kernel's output at FLASH_LONG_ROWS query rows from the
+    start, across the middle and at the end held against
+    `flash_rows_plain` within FLASH_TOL with the |plain| + P.|V| scale, as
+    `flash_case` holds whole outputs; the kernel's and SDPA's ms, and the
+    bound."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, H, S, D = q.shape
+    got = flash_attention(q, k, v, causal=True)
+    tol = FLASH_TOL[q.dtype]
+    n = FLASH_LONG_ROWS
+    held_rows = []
+    for lo in (0, S // 2 - n // 2, S - n):
+        want, scale = flash_rows_plain(q, k, v, lo, n)
+        part = got[:, :, lo:lo + n]
+        over = excess(part, want, tol, scale)
+        err = float((part.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(part).all()) and over <= 0,
+              f"flash_attention S={S} rows [{lo}, {lo + n}): |kernel - plain| "
+              f"exceeds {tol[0]} + {tol[1]} x (|plain| + P.|V|) by {over} "
+              f"(max abs {err})")
+        held_rows.append(dict(rows=[lo, lo + n], max_abs_err=err, excess=over))
+        del want, scale
+    lib = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True)
+    return dict(B=B, H=H, S=S, D=D, held_rows=held_rows, tol=list(tol),
+                max_abs_err=max(r["max_abs_err"] for r in held_rows),
+                kernel_ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                                  reps),
+                library_ms=cuda_ms(lambda: torch.nn.functional
+                                   .scaled_dot_product_attention(
+                                       q, k, v, is_causal=True), reps),
+                library_max_abs_err=float((got.float() - lib.float()).abs().max()),
+                plain_ms=None,
+                **bound(q.element_size() * B * H * D * 4 * S,
+                        4 * B * H * D * attention_pairs(S, S, True),
+                        BF16_TENSOR_FLOPS_PER_S))
+
+
+def llm_prefill_phase(cfg, params, init_s, device):
+    """llama3.2-1b at full width, the port's own seeded weights: the timed
+    prefill (prefill_32k's length, batch LLM_PREFILL_BATCH) through
+    `transformer.prefill`, one flash launch a layer, its rerun bitwise, 32
+    tokens decoded from its cache, one trace of it by kernel group, the
+    flash kernel at the prefill's shape, layer 0's inputs at
+    LLM_KERNEL_CHECK through the kernel against its plain version, and
+    the prefill against token-by-token decode."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_shape
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    B, S = LLM_PREFILL_BATCH, get_shape("prefill_32k").seq_len
+    batch = lm_prompt(cfg, B, S, device, 11)
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, first_s, launches = prefill_run(cfg, params, batch,
+                                                   "flash_attention")
+    peak = torch.cuda.max_memory_allocated()
+    rerun_s = rerun_bitwise(cfg, params, batch, "flash_attention", logits, cache)
+    cache = {n: F.pad(t, (0, 0, 0, 0, 0, DECODE_TOKENS)) for n, t in cache.items()}
+    decode_ms = decode_from(cfg, params, cache, logits, S, DECODE_TOKENS)
+    del cache
+    profile_phase("llm_prefill_profile", lambda: T.prefill(cfg, params, batch),
+                  {"flash_bf16_kernel": cfg.num_layers}, groups=llm_kernel_group,
+                  model=cfg.name, B=B, S=S)
+    at_32k = flash_at(*layer0_attention(cfg, params, batch), 5)
+    del batch
+    kb, ks = LLM_KERNEL_CHECK
+    row = flash_case(f"{cfg.name} prefill layer 0 B={kb} S={ks}",
+                     *layer0_attention(cfg, params, lm_prompt(cfg, kb, ks, device, 12)),
+                     True, 10)
+    gaps = prefill_vs_decode(cfg, params, device, 13)
+    emit("llm_prefill", model=cfg.name, B=B, S=S,
+         cut="prefill_32k's batch 32 cut to 1 for the time limit",
+         init_s=init_s, first_prefill_s=first_s, prefill_ms=rerun_s * 1e3,
+         prompt_tokens_per_s=B * S / rerun_s, peak_gb=peak / 1e9,
+         launches=launches, rerun_bitwise=True, decode_tokens=DECODE_TOKENS,
+         decode_ms_per_token=decode_ms, flash_32k=at_32k,
+         kernel_check=dict(case=row["case"], max_abs_err=row["max_abs_err"],
+                           excess=row["excess"]),
+         prefill_vs_decode=gaps, seconds=time.perf_counter() - t0)
+    return [row], launches
+
+
+def layer0_wkv(cfg, params, batch):
+    """Layer 0's r, k, v, g [B, H, S, K] fp32 and u [H, K], as the prefill's
+    scan hands them to the WKV kernel."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.ssm import _time_mix_inputs
+
+    with torch.inference_mode():
+        blk = params.blocks[0]
+        h = T.embed_tokens(cfg, params, batch["tokens"])
+        r, k, v, _, g = _time_mix_inputs(blk.tmix, rmsnorm(blk.ln1, h,
+                                                           cfg.norm_eps),
+                                         cfg, None)
+        return (*(t.float().permute(0, 2, 1, 3).contiguous()
+                  for t in (r, k, v, g)), blk.tmix["u"].float().contiguous())
+
+
+def wkv_state_held(r, k, v, g, u, C):
+    """r, k, v, g, u through `wkv_with_state`: y and the final state
+    against `wkv_chunk_ref(..., return_state=True)` within WKV_TOL, two
+    launches bitwise, y bitwise `wkv`'s (the null state pointer) at chunks
+    16, 32 and 64, and each launch's ms with and without the state."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv_chunk import G_MIN, wkv, wkv_with_state
+
+    y, state = wkv_with_state(r, k, v, g, u, chunk=C)
+    y2, state2 = wkv_with_state(r, k, v, g, u, chunk=C)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    want_y, want_s = ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u,
+                                       return_state=True)
+    events[1].record()
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(state, state2),
+          "wkv_with_state: two launches differ")
+    over = {name: excess(got, want, WKV_TOL)
+            for name, got, want in (("y", y, want_y), ("state", state, want_s))}
+    check(all(o <= 0 for o in over.values()) and bool(torch.isfinite(state).all()),
+          f"wkv_with_state against wkv_chunk_ref: beyond {WKV_TOL} by {over}")
+    for chunk in (16, 32, 64):
+        yc, sc = wkv_with_state(r, k, v, g, u, chunk=chunk)
+        check(torch.equal(yc, wkv(r, k, v, g, u, chunk=chunk))
+              and torch.equal(yc, y) and torch.equal(sc, state),
+              f"wkv chunk {chunk}: y with the state pointer not bitwise "
+              "without it")
+    B, H, S, K = r.shape
+    return dict(max_abs_err_y=float((y - want_y).abs().max()),
+                max_abs_err_state=float((state - want_s).abs().max()),
+                excess=over, tol=list(WKV_TOL), plain_ms=events[0].elapsed_time(events[1]),
+                ms_with_state=cuda_ms(lambda: wkv_with_state(r, k, v, g, u, chunk=C), 10),
+                ms_without=cuda_ms(lambda: wkv(r, k, v, g, u, chunk=C), 10),
+                state_bytes=B * H * K * K * 4, bitwise_chunks=[16, 32, 64],
+                inputs=dict(g_min=float(g.min()), g_max=float(g.max()),
+                            u_abs_max=float(u.abs().max())))
+
+
+def wkv_state_check(cfg, params, batch):
+    """`wkv_state_held` on layer 0's inputs as the prefill hands them over."""
+    return wkv_state_held(*layer0_wkv(cfg, params, batch), cfg.ssm_chunk)
+
+
+def rwkv_prefill_phase(device):
+    """rwkv6-3b at full width, the port's own seeded weights: the timed
+    prefill (RWKV_PREFILL) through `transformer.prefill`, one WKV launch a
+    layer with the final state, its rerun bitwise, 32 tokens decoded from
+    its state, one trace by kernel group, layer 0's y and state against the
+    plain recurrence, and the prefill (logits, state) against
+    token-by-token decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-3b")
+    params, init_s = timed_s(lambda: T.init_params(cfg, 0, device))
+    B, S = RWKV_PREFILL
+    batch = lm_prompt(cfg, B, S, device, 21)
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, first_s, launches = prefill_run(cfg, params, batch, "wkv")
+    peak = torch.cuda.max_memory_allocated()
+    rerun_s = rerun_bitwise(cfg, params, batch, "wkv", logits, cache)
+    decode_ms = decode_from(cfg, params, cache, logits, S, DECODE_TOKENS)
+    del cache
+    profile_phase("rwkv_prefill_profile", lambda: T.prefill(cfg, params, batch),
+                  {"wkv_chunk_kernel": cfg.num_layers}, groups=llm_kernel_group,
+                  model=cfg.name, B=B, S=S)
+    state_check = wkv_state_check(cfg, params, batch)
+    gaps = prefill_vs_decode(cfg, params, device, 23)
+    emit("rwkv_prefill", model=cfg.name, B=B, S=S, init_s=init_s,
+         first_prefill_s=first_s, prefill_ms=rerun_s * 1e3,
+         prompt_tokens_per_s=B * S / rerun_s, peak_gb=peak / 1e9,
+         launches=launches, rerun_bitwise=True, decode_tokens=DECODE_TOKENS,
+         decode_ms_per_token=decode_ms, wkv_state=state_check,
+         prefill_vs_decode=gaps, seconds=time.perf_counter() - t0)
+    del params
+    release()
+    return launches
+
+
+def llm_serve_phase(cfg, params, device):
+    """llama3.2-1b at full width: `greedy_decode` (SERVE_PROMPTS) twice,
+    the tokens equal; `ContinuousBatchingEngine` over SERVE_REQUESTS; and
+    `serve_llm.main` at the smoke size on the card.  Decode runs no kernel
+    (the reference's loop feeds the prompt token by token)."""
+    from repro_torch.launch import serve_llm
+    from repro_torch.launch.batching import ContinuousBatchingEngine, Request
+    from repro_torch.launch.serve import greedy_decode
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(31)
+    B, P, N = SERVE_PROMPTS
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P))
+                               .astype(np.int32)).to(device)
+    zero_counts()
+    out, greedy_s = timed_s(lambda: greedy_decode(cfg, params, prompts, N))
+    again = greedy_decode(cfg, params, prompts, N)
+    check(out.shape == (B, N) and torch.equal(out, again),
+          "greedy_decode: two decodes differ")
+    n_req, slots, plen, new = SERVE_REQUESTS
+    eng = ContinuousBatchingEngine(cfg, params, slots=slots, max_len=64)
+    for uid in range(n_req):
+        eng.submit(Request(uid=uid, prompt=rng.integers(1, cfg.vocab_size, plen)
+                           .astype(np.int32), max_new=new))
+    stats, batching_s = timed_s(eng.run_until_drained)
+    check(stats.requests_completed == n_req
+          and stats.tokens_generated == n_req * new,
+          f"continuous batching: {stats}")
+    check_counts(read_counts(), {}, "greedy decode and batching")
+    smoke, smoke_s = timed_s(lambda: serve_llm.main(["--device", "cuda"]))
+    check(smoke["batching"].requests_completed == 8, "serve_llm: batching")
+    emit("llm_serve", model=cfg.name, batch=B, prompt=P, new=N,
+         greedy_s=greedy_s, greedy_ms_per_step=greedy_s * 1e3 / (P + N - 1),
+         greedy_tokens_per_s=B * (P + N) / greedy_s, determinism=True,
+         batching=dict(requests=n_req, slots=slots, ticks=stats.ticks,
+                       tokens=stats.tokens_generated,
+                       occupancy=stats.mean_occupancy, seconds=batching_s,
+                       ms_per_tick=batching_s * 1e3 / stats.ticks),
+         serve_llm=dict(seconds=smoke_s, decode_s=smoke["seconds"],
+                        tokens_per_s=smoke["tokens_per_s"],
+                        ticks=smoke["batching"].ticks),
+         seconds=time.perf_counter() - t0)
+
+
+def llm_phases(device):
+    """The serving path of both families: llama3.2-1b's prefill and serve
+    phases on one set of weights, then rwkv6-3b's prefill.  Returns the
+    kernel rows and the prefills' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("llama3.2-1b")
+    params, init_s = timed_s(lambda: T.init_params(cfg, 0, device))
+    rows, launches = llm_prefill_phase(cfg, params, init_s, device)
+    llm_serve_phase(cfg, params, device)
+    del params
+    release()
+    add_counts(launches, rwkv_prefill_phase(device))
     return rows, launches
 
 
@@ -1856,14 +2304,16 @@ def trace(fn):
     return spans, by_name, wall_us
 
 
-def profile_phase(phase, fn, kernels, **fields):
+def profile_phase(phase, fn, kernels, groups=None, **fields):
     """A trace of one call of fn (`trace`): device busy time, idle share,
     the longest idle gaps, and the kernels that took the time.  ``kernels``
     maps each kernel that must appear to its launches in one call, which the
     trace must hold exactly (a trace that lost events would understate the
     busy time).  The profiler now and then drops a kernel record from a
     trace: a trace that falls short is taken again, up to TRACE_ATTEMPTS
-    times, and the phase fails if none holds every launch."""
+    times, and the phase fails if none holds every launch.  ``groups``
+    (optional) maps a kernel's name to its group; the line then also holds
+    each group's launches and device ms."""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         spans, by_name, wall_us = trace(fn)
         held_launches = {kernel: sum(c for name, (c, _) in by_name.items()
@@ -1884,6 +2334,12 @@ def profile_phase(phase, fn, kernels, **fields):
             cur[1:] = [t, name]
     busy_us += cur[1] - cur[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
+    if groups is not None:
+        by_group = {}
+        for name, (c, us) in by_name.items():
+            n, ms = by_group.get(groups(name), (0, 0.0))
+            by_group[groups(name)] = (n + c, ms + us / 1e3)
+        fields["groups"] = {g: dict(count=n, ms=ms) for g, (n, ms) in by_group.items()}
     emit(phase, **fields, trace_attempts=attempt, traced_wall_ms=wall_us / 1e3,
          device_busy_ms=busy_us / 1e3,
          device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
@@ -3400,6 +3856,11 @@ def main(argv=None) -> int:
     rows["wkv"], n = wkv_phase(device)
     add_counts(launches, n)
     torch.cuda.empty_cache()
+    # the LLM serving path at full width: llama3.2-1b's and rwkv6-3b's
+    # prefills through the two kernels, decode, greedy decode, batching
+    llm_rows, n = llm_phases(device)
+    rows["flash_attention"] += llm_rows
+    add_counts(launches, n)
 
     t0 = time.perf_counter()
     g = er_graph(CONFIG.num_vertices, avg_degree=CONFIG.avg_degree,

@@ -1,13 +1,16 @@
 """Model and input-shape configs: a trimmed copy of `repro/configs/base.py`.
 
-Only the fields that the port's copied model configs set (`llama3_2_1b`,
-`rwkv6_3b`) and the `train_4k` input shape; the same names, defaults and
-checks as the reference, so a copied `CONFIG` equals the reference's field
-by field.
+The fields that the port's copied model configs set (`llama3_2_1b`,
+`rwkv6_3b`) and those its serving path reads (the attention flavour, the
+family switches it refuses, the numerics), under the reference's names and
+defaults, so a copied `CONFIG` equals the reference's field by field; the
+`train_4k`, `prefill_32k` and `decode_32k` input shapes; and the registry
+(`get_config`, `get_smoke_config`, `get_shape`) over the archs the port has.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,14 +27,32 @@ class ModelConfig:
     d_ff: int = 1024
     vocab_size: int = 1024
 
+    # --- attention flavour ---
     rope_theta: float = 1e4
-    tie_embeddings: bool = False
+    rope_style: str = "full"  # full | half (chatglm 2d-rope) | mrope (qwen2-vl)
+    qkv_bias: bool = False
+    attn_logit_softcap: float = 0.0
+    sliding_window: int = 0  # >0 enables sliding-window attention variant
+
+    # --- MLA (deepseek-v2) and MoE: not ported; the serving path refuses them ---
+    use_mla: bool = False
+    num_experts: int = 0
 
     # --- SSM (rwkv6) ---
     ssm_kind: str = ""  # "" | rwkv6 | mamba2
     ssm_state: int = 0  # head key dim (rwkv6)
     ssm_heads: int = 0
     ssm_chunk: int = 64  # chunked-scan chunk length
+    attn_every: int = 0  # hybrid: shared attention block every N layers
+
+    # --- encoder-decoder (seamless): not ported ---
+    is_encoder_decoder: bool = False
+
+    # --- numerics ---
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"  # activation/compute dtype
+    param_dtype: str = "float32"
 
     def __post_init__(self):
         assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -40,6 +61,14 @@ class ModelConfig:
             assert self.ssm_state > 0 and self.ssm_heads > 0
         if self.num_heads and not self.ssm_kind:
             assert self.num_heads % max(self.num_kv_heads, 1) == 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,4 +81,30 @@ class ShapeConfig:
 
 INPUT_SHAPES = {
     "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
 }
+
+# the archs the port has a copy of
+PORTED_ARCHS = ("llama3.2-1b", "rwkv6-3b")
+
+
+def _module(arch_id: str):
+    if arch_id not in PORTED_ARCHS:
+        raise KeyError(
+            f"arch {arch_id!r} is not in the port, which serves {PORTED_ARCHS}; "
+            "the other language models wait in ROADMAP.md queue 1, item 15")
+    return importlib.import_module(
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).smoke_config()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]

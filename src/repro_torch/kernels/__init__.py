@@ -7,6 +7,7 @@ gradient with respect to the weights); in `csrc/sddmm.cu`, sddmm (GAT edge
 logits) and ell_slot_transpose (the per-slot scalar transpose of its
 gradient); in `csrc/flash_attention.cu`, flash_attention (softmax
 attention forward, causal or not, fp32 and bf16); in `csrc/wkv_chunk.cu`,
-wkv (the chunked RWKV6 WKV forward).  Built with nvcc at first use
+wkv (the chunked RWKV6 WKV forward; `wkv_with_state` also returns the
+final state).  Built with nvcc at first use
 (`build.py`); dispatched on the tensor's device (`ops.py`).
 """

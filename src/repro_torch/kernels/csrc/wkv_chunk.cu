@@ -7,7 +7,10 @@
 //   r, k, v, g [BH, S, K] (fp32 or bf16, loaded to fp32), u [H, K], y [BH, S, K]
 //   in the inputs' dtype, rounded once on the store.  g is clipped to
 //   [g_min, 0] as it is loaded (g_min is -1.2 rounded to the inputs' dtype,
-//   as the reference clips in it).
+//   as the reference clips in it).  Optionally the final state [BH, K, K] in
+//   fp32 (a prefill hands it to decode): each CTA writes its key rows by
+//   value columns once, after its last tile, from the registers that carried
+//   it; y's arithmetic is the same with or without it.
 //
 // Replaces the Pallas TPU kernel `_wkv_kernel` / `wkv_chunk_pallas`
 // (src/repro/kernels/wkv_chunk.py:26,67, pallas_call :83).  The TPU walks its
@@ -240,8 +243,8 @@ template <typename T, int K>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
-                 const T* __restrict__ u, T* __restrict__ y, int H, int S,
-                 float g_min) {
+                 const T* __restrict__ u, T* __restrict__ y,
+                 float* __restrict__ state, int H, int S, float g_min) {
   using Lay = Layout<T, K>;
   constexpr int VB = Lay::VB, QS = Lay::QS, VS = Lay::VS, AS = Lay::AS;
   constexpr int NT = VB / 8;   // n8 tiles of the state's columns
@@ -460,11 +463,24 @@ wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
                total(acc[n], 3));
     }
   }
+
+  // the final state, where the caller asked for it: each state owner's 16
+  // key rows of the CTA's VB value columns, once, after the last tile (st
+  // already holds 2^{Le} (state + ke^T v), the state itself); [BH, K, K]
+  // fp32, key rows by value columns, as the reference's scan carries it
+  if (state != nullptr && s_owner) {
+    float* out = state + (long long)bh * K * K + (16 * warp + gid) * K + jv + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(st[n][0], st[n][1]);
+      *reinterpret_cast<float2*>(out + 8 * K + 8 * n) = make_float2(st[n][2], st[n][3]);
+    }
+  }
 }
 
 template <typename T, int K>
 cudaError_t prepare(void (**kernel)(const T*, const T*, const T*, const T*,
-                                    const T*, T*, int, int, float)) {
+                                    const T*, T*, float*, int, int, float)) {
   *kernel = wkv_chunk_kernel<T, K>;
   cudaError_t err = cudaFuncSetAttribute(
       *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T, K>::kBytes);
@@ -476,20 +492,23 @@ cudaError_t prepare(void (**kernel)(const T*, const T*, const T*, const T*,
 
 template <typename T, int K>
 int launch(const void* r, const void* k, const void* v, const void* g, const void* u,
-           void* y, int BH, int H, int S, float g_min, cudaStream_t stream) {
-  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int, int, float);
+           void* y, void* state, int BH, int H, int S, float g_min,
+           cudaStream_t stream) {
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, float*, int, int,
+                 float);
   const cudaError_t err = prepare<T, K>(&kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<BH * (K / Layout<T, K>::VB), kThreads, Layout<T, K>::kBytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(y), H, S,
-      g_min);
+      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(y),
+      static_cast<float*>(state), H, S, g_min);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int K>
 int ctas_per_sm() {
-  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int, int, float);
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, float*, int, int,
+                 float);
   cudaError_t err = prepare<T, K>(&kernel);
   int n = 0;
   if (err == cudaSuccess)
@@ -500,11 +519,12 @@ int ctas_per_sm() {
 
 template <typename T>
 int launch_k(const void* r, const void* k, const void* v, const void* g, const void* u,
-             void* y, int BH, int H, int S, int K, float g_min, cudaStream_t stream) {
+             void* y, void* state, int BH, int H, int S, int K, float g_min,
+             cudaStream_t stream) {
   switch (K) {
-    case 16: return launch<T, 16>(r, k, v, g, u, y, BH, H, S, g_min, stream);
-    case 32: return launch<T, 32>(r, k, v, g, u, y, BH, H, S, g_min, stream);
-    case 64: return launch<T, 64>(r, k, v, g, u, y, BH, H, S, g_min, stream);
+    case 16: return launch<T, 16>(r, k, v, g, u, y, state, BH, H, S, g_min, stream);
+    case 32: return launch<T, 32>(r, k, v, g, u, y, state, BH, H, S, g_min, stream);
+    case 64: return launch<T, 64>(r, k, v, g, u, y, state, BH, H, S, g_min, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -523,14 +543,18 @@ int occupancy_k(int K) {
 
 // Plain C entry point (loaded with ctypes).  BH, S >= 1, K in {16, 32, 64},
 // 16-byte aligned contiguous tensors (the wrapper checks), bf16 = 1 for bf16
-// inputs and output, 0 for fp32, g_min the decay's clip floor.  Returns
-// cudaGetLastError() after the launch; 0 means it was accepted.
+// inputs and output, 0 for fp32, g_min the decay's clip floor.  state, where
+// not null, receives the final [BH, K, K] fp32 state (8-byte aligned); null
+// writes nothing.  Returns cudaGetLastError() after the launch; 0 means it
+// was accepted.
 extern "C" int wkv_chunk_launch(const void* r, const void* k, const void* v,
-                                const void* g, const void* u, void* y, int BH, int H,
-                                int S, int K, int bf16, float g_min, void* stream) {
+                                const void* g, const void* u, void* y, void* state,
+                                int BH, int H, int S, int K, int bf16, float g_min,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_k<__nv_bfloat16>(r, k, v, g, u, y, BH, H, S, K, g_min, s);
-  return launch_k<float>(r, k, v, g, u, y, BH, H, S, K, g_min, s);
+  if (bf16)
+    return launch_k<__nv_bfloat16>(r, k, v, g, u, y, state, BH, H, S, K, g_min, s);
+  return launch_k<float>(r, k, v, g, u, y, state, BH, H, S, K, g_min, s);
 }
 
 // CTAs of the kernel for key width K that fit on one SM (the occupancy

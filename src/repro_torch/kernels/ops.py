@@ -6,7 +6,8 @@ wrapper dispatches on the device of the tensors it is given: the plain
 PyTorch version for CPU tensors, the hand-written kernel for CUDA tensors,
 never the plain version for a CUDA tensor.  `flash_attention` and `wkv`
 take the reference's signature without `force_pallas`; `wkv` clips g to
-[-1.2, 0] on both paths.
+[-1.2, 0] on both paths, and `wkv_with_state` also returns the final state
+(the prefill's, for decode).
 """
 from repro_torch.kernels.ell_spmm import (
     ell_attend,
@@ -22,9 +23,9 @@ from repro_torch.kernels.sddmm import (
     sddmm,
     sddmm_ell,
 )
-from repro_torch.kernels.wkv_chunk import wkv
+from repro_torch.kernels.wkv_chunk import wkv, wkv_with_state
 
 __all__ = ["ell_attend", "ell_attend_dw", "ell_slot_gather",
            "ell_slot_transpose", "ell_spmm", "ell_spmm_transpose",
            "ell_transpose_plan", "flash_attention", "sddmm", "sddmm_ell",
-           "wkv"]
+           "wkv", "wkv_with_state"]

@@ -115,7 +115,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+                  g: torch.Tensor, u: torch.Tensor, *,
+                  return_state: bool = False):
     """RWKV6 WKV, the per-step recurrence: r, k, v, g [B,H,S,K] (g the log
     decay, <= 0), u [H,K] the bonus -> y [B,H,S,K] in r's dtype.  Per (b, h),
     from a zero [K, K] state in fp32:
@@ -123,7 +124,9 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y_t = r_t . (state + u (x) (k_t (x) v_t))
         state <- e^{g_t} * state + k_t (x) v_t
 
-    Products summed elementwise in fp32 (no matmul, so no TF32 either)."""
+    Products summed elementwise in fp32 (no matmul, so no TF32 either).
+    With ``return_state``, (y, the state after the last step [B,H,K,K] fp32,
+    key rows by value columns)."""
     B, H, S, K = r.shape
     rf, kf, vf, gf = (x.reshape(B * H, S, K).float() for x in (r, k, v, g))
     uf = u.float().expand(B, H, K).reshape(B * H, K, 1)
@@ -134,4 +137,7 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv = kf[:, t, :, None] * vf[:, t, None, :]
         y[:, t] = (rf[:, t, :, None] * (state + uf * kv)).sum(1)
         state = wf[:, t, :, None] * state + kv
-    return y.reshape(B, H, S, K).to(r.dtype)
+    y = y.reshape(B, H, S, K).to(r.dtype)
+    if return_state:
+        return y, state.reshape(B, H, K, K)
+    return y

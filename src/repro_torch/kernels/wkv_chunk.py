@@ -27,9 +27,13 @@ on the H100: r, k, v, g read and y written once, 0.250 ms at B 4, H 40,
 S 4096, K 64 in fp32.  Sums run in a fixed order, so two launches are
 bitwise equal, and the output is the same at every chunk.
 
+`wkv_with_state` also returns the final [B,H,K,K] state in fp32, written
+by the same launch (a null state pointer writes nothing, and y does not
+depend on it).
+
 A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on the clipped
 g); a CUDA tensor launches the kernel on the current stream or raises.
-`wkv.launches` counts one a call that launches.
+`wkv.launches` counts one a call of either wrapper that launches.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _library() -> ctypes.CDLL:
     lib = build.load("wkv_chunk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv_chunk_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+    lib.wkv_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                      ctypes.c_float, p]
     lib.wkv_chunk_launch.restype = ctypes.c_int
     lib.wkv_chunk_error_string.argtypes = [ctypes.c_int]
@@ -111,13 +115,10 @@ def _check_kernel(r, k, v, g, u) -> None:
         raise ValueError(f"wkv: shape {tuple(r.shape)} out of the kernel's range")
 
 
-def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-        u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
-    """The RWKV6 WKV of (r, k, v, clip(g, -1.2, 0), u) -> y [B,H,S,K] in r's
-    dtype (see the module docstring)."""
-    _check(r, k, v, g, u, chunk)
-    if r.device.type == "cpu":
-        return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+def _launch(r, k, v, g, u, state) -> torch.Tensor:
+    """One launch of the kernel on the current stream; ``state`` (a
+    [B,H,K,K] fp32 tensor on r's device, or None) receives the final
+    state.  Counts the launch on `wkv.launches`."""
     _check_kernel(r, k, v, g, u)
     B, H, S, K = r.shape
     y = torch.empty_like(r)
@@ -130,6 +131,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     with torch.cuda.device(r.device):
         err = lib.wkv_chunk_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    g.data_ptr(), u.data_ptr(), y.data_ptr(),
+                                   None if state is None else state.data_ptr(),
                                    B * H, H, S, K,
                                    int(r.dtype == torch.bfloat16),
                                    g_min, stream)
@@ -138,6 +140,34 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                            f"({lib.wkv_chunk_error_string(err).decode()})")
     wkv.launches += 1
     return y
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+        u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
+    """The RWKV6 WKV of (r, k, v, clip(g, -1.2, 0), u) -> y [B,H,S,K] in r's
+    dtype (see the module docstring)."""
+    _check(r, k, v, g, u, chunk)
+    if r.device.type == "cpu":
+        return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+    return _launch(r, k, v, g, u, None)
+
+
+def wkv_with_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   g: torch.Tensor, u: torch.Tensor, *,
+                   chunk: int = 64) -> tuple:
+    """`wkv` and the state after the last step, (y [B,H,S,K] in r's dtype,
+    state [B,H,K,K] fp32, key rows by value columns): what a prefill hands
+    to decode.  On the card one launch of the same kernel, which writes the
+    state from the registers that carried it (y bitwise `wkv`'s); on the
+    CPU `ref.wkv_chunk_ref(..., return_state=True)`."""
+    _check(r, k, v, g, u, chunk)
+    if r.device.type == "cpu":
+        return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u,
+                                 return_state=True)
+    B, H, S, K = r.shape
+    # every CTA writes its whole slice (`_check` refuses S = 0)
+    state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    return _launch(r, k, v, g, u, state), state
 
 
 wkv.launches = 0  # kernel launches since the last reset (CPU calls excluded)

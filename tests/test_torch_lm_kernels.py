@@ -6,8 +6,11 @@ chunked WKV against `wkv_chunk_pallas` (interpret mode) and `wkv_chunk_ref`
 over the cases of `test_wkv_chunk`, with the same tolerances.  The Pallas
 flash kernel itself cannot run here: this jax's `pallas` has no `load`,
 which `_flash_kernel` calls, so the flash cases hold the port to the
-reference's plain version.  Also: the copied model configs equal the
-reference's, CPU calls launch nothing, the input guards, and a missing nvcc.
+reference's plain version; `wkv_with_state` (y and the final state)
+against the reference model's scan `_chunked_linear_attention(...,
+return_state=True)`.  Also: the copied model configs (fields, q_dim and
+kv_dim) and the input shapes equal the reference's, CPU calls launch
+nothing, the input guards, and a missing nvcc.
 
 On a CPU-only host the wrappers take their plain versions (the CUDA kernels
 have no CPU mode) and the CUDA-only tests skip.  On a host with a card they
@@ -153,6 +156,59 @@ def test_wkv_clips_the_decay_below_its_floor():
     clipped[3] = np.clip(inputs[3], -1.2, 0.0)
     again = ops.wkv(*(torch.from_numpy(a) for a in clipped), chunk=16).numpy()
     np.testing.assert_array_equal(got, again)
+
+
+@pytest.mark.parametrize("B,H,S,K,chunk", WKV_CASES)
+def test_wkv_with_state_matches_the_reference_scan(B, H, S, K, chunk):
+    """`wkv_with_state` (CPU: the plain recurrence with its final state)
+    against the reference model's scan, `_chunked_linear_attention(...,
+    mode="rwkv", return_state=True)`, on [B,S,H,K] views of the same
+    inputs; y also equal to `ops.wkv`'s."""
+    jnp, _ = _jax()
+    from repro.models.ssm import _chunked_linear_attention
+
+    r, k, v, g, u = _wkv_inputs(B, H, S, K)
+    y, state = ops.wkv_with_state(*(torch.from_numpy(a) for a in (r, k, v, g, u)),
+                                  chunk=chunk)
+    assert state.shape == (B, H, K, K) and state.dtype == torch.float32
+    np.testing.assert_array_equal(
+        y.numpy(), ops.wkv(*(torch.from_numpy(a) for a in (r, k, v, g, u)),
+                           chunk=chunk).numpy())
+    seq = [jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (r, k, v, g)]
+    with _full_precision():
+        want_y, want_state = _chunked_linear_attention(
+            *seq, chunk=chunk, mode="rwkv", bonus=jnp.asarray(u),
+            return_state=True)
+    np.testing.assert_allclose(y.numpy(),
+                               np.asarray(want_y).transpose(0, 2, 1, 3),
+                               atol=WKV_ATOL, rtol=WKV_RTOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state),
+                               atol=WKV_ATOL, rtol=WKV_RTOL)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "rwkv6-3b"])
+@pytest.mark.parametrize("which", ["CONFIG", "smoke_config"])
+def test_config_properties_equal_the_reference(name, which):
+    """The derived widths the serving path reads, beside the fields."""
+    pytest.importorskip("jax")
+    import importlib
+
+    module = name.replace("-", "_").replace(".", "_")
+    ref_mod = importlib.import_module(f"repro.configs.{module}")
+    port_mod = {"llama3.2-1b": tllama, "rwkv6-3b": trwkv}[name]
+    want, got = (getattr(m, which) for m in (ref_mod, port_mod))
+    want, got = (c() if callable(c) else c for c in (want, got))
+    for prop in ("q_dim", "kv_dim"):
+        assert getattr(got, prop) == getattr(want, prop), prop
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_shapes_equal_the_reference(shape):
+    pytest.importorskip("jax")
+    from repro.configs.base import INPUT_SHAPES
+
+    assert tbase.INPUT_SHAPES[shape] == tbase.ShapeConfig(
+        *dataclasses.astuple(INPUT_SHAPES[shape]))
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "rwkv6-3b"])

@@ -190,7 +190,9 @@ for name in names:
 for name in ("repro_torch.core.training", "repro_torch.core.execution.chunk",
              "repro_torch.core.execution.spmm_models",
              "repro_torch.core.protocols.sync",
-             "repro_torch.core.partition.feature_partition"):
+             "repro_torch.core.partition.feature_partition",
+             "repro_torch.models.transformer", "repro_torch.launch.serve",
+             "repro_torch.launch.batching", "repro_torch.launch.serve_llm"):
     assert name in names, name
 # the packages' lazy exports, every one resolved
 for pkg in ("repro_torch.core", "repro_torch.core.execution",
