@@ -22,6 +22,23 @@ prefill against token-by-token decode at B 2, S 256 at fp32 and bf16
 one WKV launch a layer with the final state, the same checks, layer 0's y
 and state against the plain recurrence and y bitwise with and without the
 state pointer at chunks 16, 32, 64 (`rwkv_prefill`).
+Then the LLM training path (`llm_train_phases`): the flash backward's two
+kernels (dQ, then dK/dV) through autograd of `ops.flash_attention` at
+llama3.2-1b's training width (B 2, S 4096), counted from 0, then 12 cases
+(bf16 and fp32, causal and not, D 32, 64, 128, ragged, S != T) each
+against autograd through the plain version, bitwise across two launches,
+the forward's o bitwise with and without its LSE output, timed beside the
+bound and SDPA's backward (`flash_bwd`); the WKV backward kernel the same
+way at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
+cotangent; K 32), dg 0 wherever g was clipped (`wkv_bwd`); then three
+AdamW steps of llama3.2-1b (train_4k's 4096 tokens, batch cut to 2) and
+two of rwkv6-3b (B 1) at full width and depth under remat "minimal"
+through `launch/train.make_train_step`, each step's launches counted from
+0, a rerun from the same seeded state bitwise equal, one traced step by
+kernel group, and layer 0's backward kernel inputs of the first step held
+against the plain versions (`llm_train`, `rwkv_train`); last the 40m
+example `repro_torch.examples.train_llm_100m` for LLM_SMALL_STEPS steps,
+its loss down 5 % within LLM_SMALL_SECONDS (`llm_train_small`).
 Then the GNN paths at the full width of the gcn-paper workload (a
 2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
 exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
@@ -153,6 +170,7 @@ card and the repository's `src/` beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -168,6 +186,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -250,7 +269,9 @@ MB_TRAINABLE_STEPS, MB_TRAINABLE_CACHE = 1, 32  # 2 batches until PR 30
 # round
 QUERY_SAMPLER = ["--batch-size", "16", "--fanouts", "15,10,5"]
 QUERY_CACHE = 1024
-QUERY_STREAM, QUERY_TARGETS = 64, 8
+# (QUERY_STREAM was 64, cut to 32 to make room for the training phases:
+# each query costs ~0.28 s of host build twice, stream and replay)
+QUERY_STREAM, QUERY_TARGETS = 32, 8
 QUERY_FLUSH_REQUESTS, QUERY_FLUSH_POOL = 16, 64
 QUERY_REF_ROUNDS = 4
 # `traced`: pipelined (thread) steps and the full-graph steps timed with
@@ -305,6 +326,8 @@ SPMM_D, SPMM_REPS = 256, 5
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "sddmm": "src/repro_torch/kernels/csrc/sddmm.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "wkv_chunk": "src/repro_torch/kernels/csrc/wkv_chunk.cu"}
 # each kernel: its source, and the TPU kernel (or gradient rule) it replaces
 KERNELS = {
@@ -316,6 +339,13 @@ KERNELS = {
     "flash_attention": ("flash_attention",
                         "src/repro/kernels/flash_attention.py:20"),
     "wkv": ("wkv_chunk", "src/repro/kernels/wkv_chunk.py:26"),
+    # the backward kernels replace no Pallas kernel (both Pallas kernels
+    # are forward only): JAX's autodiff of the routines that call them
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               "src/repro/models/layers.py:167"),
+    "flash_attention_bwd_dkdv": ("flash_attention_bwd",
+                                 "src/repro/models/layers.py:167"),
+    "wkv_bwd": ("wkv_chunk", "src/repro/models/ssm.py:29"),
 }
 # the kernel a profile trace counts for each wrapper's launch, where it is
 # not <wrapper>_kernel
@@ -346,14 +376,20 @@ def counters() -> dict:
         ell_spmm,
         ell_spmm_transpose,
     )
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
     from repro_torch.kernels.sddmm import ell_slot_transpose, sddmm
-    from repro_torch.kernels.wkv_chunk import wkv
+    from repro_torch.kernels.wkv_chunk import wkv, wkv_bwd
 
     return dict(ell_spmm=ell_spmm, ell_spmm_transpose=ell_spmm_transpose,
                 sddmm=sddmm, ell_slot_transpose=ell_slot_transpose,
                 ell_attend_dw=ell_attend_dw, flash_attention=flash_attention,
-                wkv=wkv)
+                wkv=wkv, flash_attention_bwd_dq=flash_attention_bwd_dq,
+                flash_attention_bwd_dkdv=flash_attention_bwd_dkdv,
+                wkv_bwd=wkv_bwd)
 
 
 def zero_counts() -> None:
@@ -1497,9 +1533,13 @@ LLM_PREFILL_BATCH = 1
 # plain version's [B, H, S, S] fp32 scores at 32768 tokens would be 137 GB
 LLM_KERNEL_CHECK = (2, 2048)
 # the prefill held to token-by-token decode from an empty cache
-# (tests/test_prefill.py's contract) at this (B, S)
-PREFILL_DECODE_CHECK = (2, 256)
-DECODE_TOKENS = 32  # tokens decoded from each long prefill's cache
+# (tests/test_prefill.py's contract) at this (B, S): S was 256, cut to 128
+# (one full 128-row tile of the bf16 flash kernel) to make room for the
+# training phases: the four token-by-token runs took ~40 s at 256
+PREFILL_DECODE_CHECK = (2, 128)
+# tokens decoded from each long prefill's cache (32 before, cut to make
+# room for the training phases: decode is host-bound, ~30-70 ms a token)
+DECODE_TOKENS = 16
 # prefill against token-by-token decode (tests/test_prefill.py's contract),
 # each gap a share of the logits' (the state's) largest magnitude.  At dtype
 # float32, with the cache's bf16 entries (k, v; rwkv's token-shift rows,
@@ -1770,8 +1810,11 @@ def layer0_wkv(cfg, params, batch):
         r, k, v, _, g = _time_mix_inputs(blk.tmix, rmsnorm(blk.ln1, h,
                                                            cfg.norm_eps),
                                          cfg, None)
+        # u is a view of the trainable stacked parameter: detached, so the
+        # checks below launch the forward kernel alone, as the prefill does
         return (*(t.float().permute(0, 2, 1, 3).contiguous()
-                  for t in (r, k, v, g)), blk.tmix["u"].float().contiguous())
+                  for t in (r, k, v, g)),
+                blk.tmix["u"].detach().float().contiguous())
 
 
 def wkv_state_held(r, k, v, g, u, C):
@@ -1913,6 +1956,573 @@ def llm_phases(device):
     del params
     release()
     add_counts(launches, rwkv_prefill_phase(device))
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# the LLM training path: the flash and WKV backward kernels, then three
+# AdamW steps of llama3.2-1b and two of rwkv6-3b at full width and depth,
+# and the 40m example
+# ---------------------------------------------------------------------------
+
+# flash backward against its plain version (autograd through
+# `flash_attention_ref`), elementwise within atol + rtol (|plain| + the sum
+# of the magnitudes of the gradient's terms).  fp32: sums in another order
+# over up to 4096 terms.  bf16: the plain version rounds dP and the three
+# gradients to bf16 and the kernel keeps dP in fp32, and delta reads the
+# bf16 output, so each gradient may land a few bf16 steps (2**-8) of its
+# terms' magnitude apart
+FLASH_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -6)}
+# the forward's log-sum-exp against the plain fp32 one
+FLASH_LSE_TOL = (1e-5, 1e-5)
+FLASH_BWD_HEADS = 8  # heads of one slice of the plain backward ([B, 8, S, T] fp32)
+# SDPA's backends for the backward's library yardstick: cuDNN's attention
+# is left out, with it each new bf16 shape took ~2 s of set-up on the card
+# (the fp32 cases, which it does not take, ~0.02 s a case)
+SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.MATH]
+# wkv backward against autograd through the plain recurrence, as the
+# forward is held (WKV_TOL): every gradient is an fp32 sum over at most K
+# terms a step and the steps in another order
+WKV_BWD_TOL = WKV_TOL
+# llama3.2-1b's train steps: train_4k's 4096 tokens, its batch of 256 cut
+# to 2 (time and memory: ~20 GB of fp32 params, grads and AdamW moments);
+# rwkv6-3b's at B 1 (~47 GB of them), S 4096
+LLM_TRAIN = dict(batch=2, steps=3)
+RWKV_TRAIN = dict(batch=1, steps=2)
+LLM_TRAIN_LR = 3e-4  # AdamW, the reference's default base lr, no warm-up
+# the 40m example (`repro_torch.examples.train_llm_100m`), its defaults
+# (batch 8, seq 256, lr 3e-3, 20 warm-up steps) for this many steps
+LLM_SMALL_STEPS = 60
+LLM_SMALL_SECONDS = 10.0
+
+
+def flash_bwd_plain(q, k, v, do, causal):
+    """The plain backward (`ref.flash_attention_bwd_ref`) in slices of
+    FLASH_BWD_HEADS heads, with each gradient's error scale (|plain| plus
+    the sum of the magnitudes of its terms: |dS| = P (|dP| + |delta|) times
+    |K| or |Q|, P^T |dO|), the plain log-sum-exp, and the ms of the plain
+    backward's calls."""
+    from repro_torch.kernels import ref
+
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    grads, scales, lses, spans = [[], [], []], [[], [], []], [], []
+    for h0 in range(0, H, FLASH_BWD_HEADS):
+        part = [t[:, h0:h0 + FLASH_BWD_HEADS] for t in (q, k, v, do)]
+        spans.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+        spans[-1][0].record()
+        for i, g in enumerate(ref.flash_attention_bwd_ref(*part, causal=causal)):
+            grads[i].append(g)
+        spans[-1][1].record()
+        qs, ks, vs, ds = (t.float() for t in part)
+        s = torch.matmul(qs, ks.transpose(-1, -2)) / (D ** 0.5)
+        if causal:
+            seen = (torch.arange(T, device=q.device)[None, :]
+                    <= torch.arange(S, device=q.device)[:, None])
+            s = torch.where(seen, s, torch.full_like(s, -1e30))
+        lses.append(torch.logsumexp(s, -1))
+        p = torch.softmax(s, -1)
+        del s
+        dp = torch.matmul(ds, vs.transpose(-1, -2))
+        ads = p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())
+        del dp
+        scales[0].append(torch.matmul(ads, ks.abs()) / (D ** 0.5))
+        scales[1].append(torch.matmul(ads.transpose(-1, -2), qs.abs()) / (D ** 0.5))
+        scales[2].append(torch.matmul(p.transpose(-1, -2), ds.abs()))
+        del p, ads
+    grads = [torch.cat(g, 1) for g in grads]
+    scales = [torch.cat(c, 1) + g.float().abs() for c, g in zip(scales, grads)]
+    torch.cuda.synchronize()
+    return (grads, scales, torch.cat(lses, 1),
+            sum(a.elapsed_time(b) for a, b in spans))
+
+
+def flash_bwd_case(name, q, k, v, do, causal, reps):
+    """One flash backward case: the forward's o bitwise with and without
+    its LSE and the LSE against the plain one; dq (the first pass) and dk,
+    dv (the second) against the plain backward within FLASH_BWD_TOL and
+    bitwise across two launches; the times of each pass, of the plain
+    backward and of SDPA's backward (`torch.autograd.grad` through
+    `scaled_dot_product_attention`: the yardstick only), and each pass's
+    bound.  Returns the dq row and the dk/dv row."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+        flash_attention_with_lse,
+    )
+
+    t0 = time.perf_counter()
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    tol = FLASH_BWD_TOL[q.dtype]
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    check(torch.equal(o, flash_attention(q, k, v, causal=causal)),
+          f"flash {name}: o differs with and without the LSE output")
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, do, causal=causal)
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    dk2, dv2 = flash_attention_bwd_dkdv(q, k, v, lse, delta2, do, causal=causal)
+    want, scales, want_lse, plain_ms = flash_bwd_plain(q, k, v, do, causal)
+    check(all(torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2), (dv, dv2),
+                                             (delta, delta2))),
+          f"flash backward {name}: two launches differ")
+    lse_over = excess(lse, want_lse, FLASH_LSE_TOL)
+    check(lse_over <= 0, f"flash {name}: lse beyond {FLASH_LSE_TOL} by {lse_over}")
+    errs, overs = {}, {}
+    for what, got, w, sc in zip(("dq", "dk", "dv"), (dq, dk, dv), want, scales):
+        check(bool(torch.isfinite(got).all()), f"flash backward {name}: {what} "
+              "not finite")
+        errs[what] = float((got.float() - w.float()).abs().max())
+        overs[what] = excess(got, w, tol, sc)
+        check(overs[what] <= 0, f"flash backward {name}: {what} beyond {tol[0]} "
+              f"+ {tol[1]} x scale by {overs[what]} (max abs {errs[what]})")
+    del want, scales
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPA_BACKENDS):
+        out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
+                                                               is_causal=causal)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                         retain_graph=True), reps)
+    del out, qq, kk, vv
+    pairs = attention_pairs(S, T, causal)
+    rate = BF16_TENSOR_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    e = q.element_size()
+    bhd = B * H * D
+    common = dict(case=name, B=B, H=H, S=S, T=T, D=D, causal=causal,
+                  dtype=dtype_name(q.dtype), tol=list(tol), plain_ms=plain_ms,
+                  library_ms=library_ms, bitwise_repeat=True,
+                  lse_max_abs_err=float((lse - want_lse).abs().max()),
+                  o_bitwise_with_lse=True,
+                  # the whole backward: S, dP, dQ, dK, dV, 2 D flops a pair each
+                  backward_bound_ms=bound(e * bhd * (4 * S + 4 * T) + 8 * B * H * S,
+                                          5 * 2 * D * B * H * pairs, rate)["bound_ms"])
+    # dQ's pass: q, k, v, o, dO, lse read, dq, delta written; S, dP, dQ
+    dq_row = dict(common, kernel="flash_attention_bwd_dq", max_abs_err=errs["dq"],
+                  excess=overs["dq"],
+                  kernel_ms=cuda_ms(lambda: flash_attention_bwd_dq(
+                      q, k, v, o, lse, do, causal=causal), reps),
+                  **bound(e * bhd * (4 * S + 2 * T) + 8 * B * H * S,
+                          3 * 2 * D * B * H * pairs, rate))
+    # dK/dV's pass: q, k, v, dO, lse, delta read, dk, dv written; S, dP, dK, dV
+    dkdv_row = dict(common, kernel="flash_attention_bwd_dkdv",
+                    max_abs_err=max(errs["dk"], errs["dv"]),
+                    excess=max(overs["dk"], overs["dv"]),
+                    kernel_ms=cuda_ms(lambda: flash_attention_bwd_dkdv(
+                        q, k, v, lse, delta, do, causal=causal), reps),
+                    **bound(e * bhd * (2 * S + 4 * T) + 8 * B * H * S,
+                            4 * 2 * D * B * H * pairs, rate))
+    dq_row["seconds"] = dkdv_row["seconds"] = time.perf_counter() - t0
+    emit("kernel", **dq_row)
+    emit("kernel", **dkdv_row)
+    return dq_row, dkdv_row
+
+
+def flash_bwd_phase(device):
+    """The flash backward at llama3.2-1b's training width (train_4k's 4096
+    tokens at LLM_TRAIN's batch, 32 heads of 64, causal, bf16): its main
+    path through autograd of `ops.flash_attention` with the launches
+    counted from 0 (one forward with the LSE, one dQ, one dK/dV), then the
+    kernel cases, counted apart: bf16 and fp32, causal and not, D 32, 64,
+    128, a ragged tile and S != T."""
+    from repro_torch.configs import get_shape
+    from repro_torch.configs.llama3_2_1b import CONFIG
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    gen = torch.Generator(device=device).manual_seed(41)
+    B, H, kv, D = LLM_TRAIN["batch"], CONFIG.num_heads, CONFIG.num_kv_heads, CONFIG.head_dim
+    S = get_shape("train_4k").seq_len
+
+    def draw(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q, k, v = qkv(gen, B, H, kv, S, S, D, torch.bfloat16, device)
+    do = draw(B, H, S, D, dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    zero_counts()
+    out = ops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, dict(flash_attention=1, flash_attention_bwd_dq=1,
+                                flash_attention_bwd_dkdv=1), "flash_bwd")
+    check(all(g.shape == q.shape and bool(torch.isfinite(g).all()) for g in grads),
+          "flash_bwd: gradients")
+    del out, grads, leaves
+    dq_rows, dkdv_rows = [], []
+    for row in [flash_bwd_case(f"llama3.2-1b train_4k x{B} bf16 causal", q, k, v,
+                               do, True, 5)]:
+        dq_rows.append(row[0])
+        dkdv_rows.append(row[1])
+    del q, k, v, do
+    for case, (Bc, Hc, Sc, Tc, Dc, dtype, causal) in {
+            "bf16 non-causal D=64": (1, 8, 1024, 1024, 64, torch.bfloat16, False),
+            "fp32 causal D=64": (1, 8, 1024, 1024, 64, torch.float32, True),
+            "fp32 non-causal D=64": (1, 8, 1024, 1024, 64, torch.float32, False),
+            "bf16 causal D=128": (1, 8, 1024, 1024, 128, torch.bfloat16, True),
+            "fp32 non-causal D=128": (1, 8, 1024, 1024, 128, torch.float32, False),
+            "bf16 causal D=32": (2, 8, 1024, 1024, 32, torch.bfloat16, True),
+            "fp32 non-causal D=32": (2, 8, 1024, 1024, 32, torch.float32, False),
+            "ragged bf16 causal S=T=1000": (1, 8, 1000, 1000, 64, torch.bfloat16, True),
+            "ragged fp32 causal S=T=1000 D=128": (1, 4, 1000, 1000, 128,
+                                                 torch.float32, True),
+            "bf16 S=300 T=700": (1, 8, 300, 700, 64, torch.bfloat16, False),
+            "fp32 causal S=700 T=300 D=32": (1, 8, 700, 300, 32, torch.float32,
+                                             True)}.items():
+        qc = draw(Bc, Hc, Sc, Dc, dtype=dtype)
+        kc, vc = (draw(Bc, Hc, Tc, Dc, dtype=dtype) for _ in range(2))
+        dq_row, dkdv_row = flash_bwd_case(case, qc, kc, vc,
+                                          draw(Bc, Hc, Sc, Dc, dtype=dtype),
+                                          causal, 5)
+        dq_rows.append(dq_row)
+        dkdv_rows.append(dkdv_row)
+    main = dq_rows[0]
+    emit("flash_bwd", model=CONFIG.name, B=B, H=H, S=S, D=D, launches=launches,
+         dq_ms=main["kernel_ms"], dkdv_ms=dkdv_rows[0]["kernel_ms"],
+         backward_ms=main["kernel_ms"] + dkdv_rows[0]["kernel_ms"],
+         sdpa_backward_ms=main["library_ms"],
+         backward_bound_ms=main["backward_bound_ms"], cases=len(dq_rows),
+         seconds=time.perf_counter() - t0)
+    return dq_rows, dkdv_rows, launches
+
+
+# batch rows a call of the plain wkv backward takes: the per-step
+# recurrence's autograd keeps ~10 GB a row at H 40, S 4096, and its ~30
+# small launches a step make a call of 4096 steps take ~4-5 s whatever its
+# width (10.7 s in slices of one row at B 4)
+WKV_PLAIN_ROWS = 4
+
+
+def wkv_bwd_plain(r, k, v, g, u, dy, dstate):
+    """`ref.wkv_bwd_ref` WKV_PLAIN_ROWS batch rows at a time, du summed over
+    the slices in order."""
+    from repro_torch.kernels import ref
+
+    n = WKV_PLAIN_ROWS
+    parts = [ref.wkv_bwd_ref(*(t[b:b + n] for t in (r, k, v, g)), u, dy[b:b + n],
+                             None if dstate is None else dstate[b:b + n])
+             for b in range(0, r.shape[0], n)]
+    du = parts[0][4]
+    for p in parts[1:]:
+        du = du + p[4]
+    return [torch.cat([p[i] for p in parts]) for i in range(4)] + [du]
+
+
+def wkv_bwd_case(name, r, k, v, g, u, dy, dstate, reps):
+    """One wkv backward case: dr, dk, dv, dg, du against autograd through
+    the plain recurrence within WKV_BWD_TOL, dg exactly 0 wherever g was
+    clipped, bitwise across two launches; the kernel's and the plain
+    version's times and the bound (no single PyTorch call: library_ms
+    null)."""
+    from repro_torch.kernels.wkv_chunk import wkv_bwd
+
+    got = wkv_bwd(r, k, v, g, u, dy, dstate)
+    again = wkv_bwd(r, k, v, g, u, dy, dstate)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    want = wkv_bwd_plain(r, k, v, g, u, dy, dstate)
+    events[1].record()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"wkv backward {name}: two launches differ")
+    errs, overs = {}, {}
+    for what, a, w in zip(("dr", "dk", "dv", "dg", "du"), got, want):
+        check(bool(torch.isfinite(a).all()), f"wkv backward {name}: {what} not finite")
+        errs[what] = float((a - w).abs().max())
+        overs[what] = excess(a, w, WKV_BWD_TOL)
+        check(overs[what] <= 0, f"wkv backward {name}: {what} beyond "
+              f"{WKV_BWD_TOL} by {overs[what]} (max abs {errs[what]})")
+    clipped = (g < -1.2) | (g > 0)
+    check(not bool(got[3][clipped].any()),
+          f"wkv backward {name}: dg not 0 where g was clipped")
+    B, H, S, K = r.shape
+    # r, k, v, g, dy read and dr, dk, dv, dg written once, u and du; per
+    # step the gradient's 11 K^2 flops (dr, dk, dv, the dg sums, G's
+    # update) and the states' 3 K^2 (the backward needs every state)
+    row = dict(kernel="wkv_bwd", case=name, B=B, H=H, S=S, K=K,
+               with_state_cotangent=dstate is not None, max_abs_err=max(errs.values()),
+               max_abs_err_by_grad=errs, excess=max(overs.values()),
+               tol=list(WKV_BWD_TOL), bitwise_repeat=True,
+               clipped_share=float(clipped.float().mean()),
+               kernel_ms=cuda_ms(lambda: wkv_bwd(r, k, v, g, u, dy, dstate), reps),
+               plain_ms=events[0].elapsed_time(events[1]), library_ms=None,
+               **bound(4 * (9 * B * H * S * K + 2 * H * K
+                            + (B * H * K * K if dstate is not None else 0)),
+                       14 * B * H * S * K * K))
+    emit("kernel", **row)
+    return row
+
+
+def wkv_bwd_phase(device):
+    """The wkv backward at rwkv6-3b width (40 heads of key dim 64) over
+    four train_4k sequences: its main path through autograd of `ops.wkv`
+    with the launches counted from 0 (one forward, one backward), then the
+    cases, counted apart: the main shape (random g spanning the clip floor,
+    u != 0), S 1000 (a ragged last tile) with the final state's cotangent
+    through `wkv_with_state`, and K 32."""
+    from repro_torch.configs import get_shape
+    from repro_torch.configs.rwkv6_3b import CONFIG
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(43)
+    B, H, K = 4, CONFIG.ssm_heads, CONFIG.ssm_state
+    S = get_shape("train_4k").seq_len
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    r, k, v = (draw(B, H, S, K, scale=0.5) for _ in range(3))
+    # about a fifth of the decays below the floor -1.2, none at 0
+    g = -torch.exp(draw(B, H, S, K, scale=0.8) - 0.5)
+    u = draw(H, K, scale=0.3)
+    dy = draw(B, H, S, K)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, g, u)]
+    torch.cuda.synchronize()
+    zero_counts()
+    grads = torch.autograd.grad(ops.wkv(*leaves, chunk=CONFIG.ssm_chunk), leaves, dy)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, dict(wkv=1, wkv_bwd=1), "wkv_bwd")
+    check(all(bool(torch.isfinite(t).all()) for t in grads), "wkv_bwd: gradients")
+    del grads, leaves
+    rows = [wkv_bwd_case(f"rwkv6-3b train_4k x{B}", r, k, v, g, u, dy, None, 3)]
+    n = 1000
+    rows.append(wkv_bwd_case("S=1000 with the state's cotangent",
+                             *(t[:1, :, :n].contiguous() for t in (r, k, v, g)), u,
+                             dy[:1, :, :n].contiguous(), draw(1, H, K, K), 3))
+    rows.append(wkv_bwd_case(f"K=32 S={S // 2}", *(t[:1, :, :S // 2, :32].contiguous()
+                                                  for t in (r, k, v, g)),
+                             u[:, :32].contiguous(),
+                             dy[:1, :, :S // 2, :32].contiguous(), None, 3))
+    emit("wkv_bwd", model=CONFIG.name, B=B, H=H, S=S, K=K, launches=launches,
+         ms=rows[0]["kernel_ms"], bound_ms=rows[0]["bound_ms"],
+         plain_ms=rows[0]["plain_ms"], seconds=time.perf_counter() - t0)
+    return rows, launches
+
+
+def train_batches(cfg, B, steps, device, seed):
+    """train_4k's length at batch B: `data.pipeline.make_batch`, one seed a
+    step (uniform random tokens and labels)."""
+    from repro_torch.configs import get_shape
+    from repro_torch.data.pipeline import make_batch
+
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=B)
+    return [make_batch(cfg, shape, seed + i, device)["batch"] for i in range(steps)]
+
+
+class LastCall:
+    """Records the arguments of the last call of a module's function (the
+    layer-0 backward: the last a step's backward reaches) while passing
+    every call through."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.args = None
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            self.args = (args, kw)
+            return orig(*args, **kw)
+
+        # one attribute dict: a launch count the wrapped function bumps
+        # through its module name lands on the function `counters` reads
+        wrapped.__dict__ = orig.__dict__
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def train_run(cfg, B, steps, batches, device, per_step, watch=None):
+    """`steps` AdamW steps (`launch.train.make_train_step`) of the port's
+    seeded weights from a fresh state, each with the counts from 0 and the
+    path's launches checked: the losses, grad norms, step seconds, the
+    final params on the host, and, with ``watch`` (a `LastCall`), the
+    layer-0 backward's arguments of the first step."""
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    opt = make_optimizer("adamw", cosine_schedule(LLM_TRAIN_LR, 0, steps))
+    state, init_s = timed_s(lambda: init_train_state(cfg, opt, 0, device))
+    step = make_train_step(cfg, opt)
+    out = dict(losses=[], grad_norms=[], step_s=[], init_s=init_s)
+    for i in range(steps):
+        torch.cuda.synchronize()
+        zero_counts()
+        with (watch if watch is not None and i == 0 else contextlib.nullcontext()):
+            (state, m), sec = timed_s(lambda: step(state, batches[i]))
+        check_counts(read_counts(), per_step, f"{cfg.name} train step {i}")
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_s"].append(sec)
+    check(all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])),
+          f"{cfg.name} train: losses {out['losses']}")
+    return state, step, out
+
+
+def param_digest(model) -> list:
+    """Per parameter, two integer sums over its fp32 bit patterns (the
+    patterns and their squares, wrapping in int64), computed on the card:
+    a rerun that differs in any bit of any parameter changes them (short
+    of an exact cancellation), without a host copy of the weights."""
+    out = []
+    with torch.no_grad():
+        for p in model.parameters():
+            b = p.detach().view(torch.int32).to(torch.int64)
+            out.append(torch.stack([b.sum(), (b * b).sum()]))
+    return torch.stack(out).tolist()
+
+
+def llm_train_phase(cfg, B, steps, kernels, per_step, watch_fn, held_fn, device,
+                    phase):
+    """One family's training at full width and depth: `train_run` twice
+    from the same seeded state (losses and grad norms bitwise equal, the
+    final params' `param_digest` equal), one traced step by kernel group,
+    then the layer-0 backward's kernel inputs held against their plain
+    versions (`held_fn`)."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import wkv_chunk as W
+
+    t0 = time.perf_counter()
+    batches = train_batches(cfg, B, steps, device, 101)
+    torch.cuda.reset_peak_memory_stats()
+    watch = LastCall({"flash": F, "wkv": W}[watch_fn], {"flash": "flash_attention_bwd",
+                                                         "wkv": "wkv_bwd"}[watch_fn])
+    state, step, first = train_run(cfg, B, steps, batches, device, per_step, watch)
+    peak = torch.cuda.max_memory_allocated()
+    final = param_digest(state["params"])
+    del state, step
+    release()
+    state, step, again = train_run(cfg, B, steps, batches, device, per_step)
+    check(again["losses"] == first["losses"]
+          and again["grad_norms"] == first["grad_norms"]
+          and param_digest(state["params"]) == final,
+          f"{cfg.name} train: a rerun from the same state differs "
+          f"({first['losses']} vs {again['losses']})")
+    S = batches[0]["tokens"].shape[1]
+    profile_phase(f"{phase}_profile", lambda: step(state, batches[0]), kernels,
+                  groups=llm_kernel_group, model=cfg.name, B=B, S=S)
+    del state, step, batches
+    release()
+    held = held_fn(*watch.args[0], **watch.args[1])
+    ms = [s * 1e3 for s in first["step_s"]]
+    steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    emit(phase, model=cfg.name, B=B, S=S, steps=steps, optimizer="adamw",
+         lr=LLM_TRAIN_LR, remat=cfg.remat_policy,
+         cut=f"train_4k's batch 256 cut to {B} (time and memory)",
+         losses=first["losses"], grad_norms=first["grad_norms"], step_ms=ms,
+         steady_step_ms=steady, tokens_per_s=B * S / (steady / 1e3),
+         init_s=first["init_s"], peak_gb=peak / 1e9, launches_per_step=per_step,
+         rerun_bitwise=True, layer0=held, seconds=time.perf_counter() - t0)
+    return {name: n * steps * 2 for name, n in per_step.items()}
+
+
+def held_flash_layer0(q, k, v, o, lse, do, *, causal=True):
+    """Layer 0's flash backward inputs of the first step, the two kernels
+    against the plain backward (`flash_bwd_plain`) within FLASH_BWD_TOL."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want, scales, _, _ = flash_bwd_plain(q, k, v, do, causal)
+    tol = FLASH_BWD_TOL[q.dtype]
+    out = dict(shape=list(q.shape), dtype=dtype_name(q.dtype), tol=list(tol))
+    for what, a, w, sc in zip(("dq", "dk", "dv"), got, want, scales):
+        over = excess(a, w, tol, sc)
+        err = float((a.float() - w.float()).abs().max())
+        check(bool(torch.isfinite(a).all()) and over <= 0,
+              f"layer 0 flash backward: {what} beyond {tol} by {over} (max abs {err})")
+        out[what] = dict(max_abs_err=err, excess=over)
+    return out
+
+
+def held_wkv_layer0(r, k, v, g, u, dy, dstate=None):
+    """Layer 0's wkv backward inputs of the first step, the kernel against
+    autograd through the plain recurrence within WKV_BWD_TOL."""
+    from repro_torch.kernels.wkv_chunk import wkv_bwd
+
+    got = wkv_bwd(r, k, v, g, u, dy, dstate)
+    want = wkv_bwd_plain(r, k, v, g, u, dy, dstate)
+    out = dict(shape=list(r.shape), tol=list(WKV_BWD_TOL),
+               clipped_share=float(((g < -1.2) | (g > 0)).float().mean()))
+    for what, a, w in zip(("dr", "dk", "dv", "dg", "du"), got, want):
+        over = excess(a, w, WKV_BWD_TOL)
+        err = float((a - w).abs().max())
+        check(bool(torch.isfinite(a).all()) and over <= 0,
+              f"layer 0 wkv backward: {what} beyond {WKV_BWD_TOL} by {over} "
+              f"(max abs {err})")
+        out[what] = dict(max_abs_err=err, excess=over)
+    return out
+
+
+def llm_small_phase(device):
+    """`repro_torch.examples.train_llm_100m` on the card: the 40m preset at
+    the example's defaults for LLM_SMALL_STEPS steps; its own assertion
+    holds the 5 % drop, and the run must take at most LLM_SMALL_SECONDS."""
+    from repro_torch.examples import train_llm_100m
+
+    torch.cuda.synchronize()
+    zero_counts()
+    out, seconds = timed_s(lambda: train_llm_100m.main(
+        ["--steps", str(LLM_SMALL_STEPS), "--device", device.type]))
+    launches = read_counts()
+    L = train_llm_100m.PRESETS["40m"].num_layers
+    # remat "none": one flash forward, dQ and dK/dV a layer a step
+    check_counts(launches, dict(flash_attention=L * LLM_SMALL_STEPS,
+                                flash_attention_bwd_dq=L * LLM_SMALL_STEPS,
+                                flash_attention_bwd_dkdv=L * LLM_SMALL_STEPS),
+                 "llm_train_small")
+    check(out["drop"] >= 0.05 and seconds <= LLM_SMALL_SECONDS,
+          f"llm_train_small: drop {out['drop']} in {seconds} s")
+    emit("llm_train_small", preset="40m", steps=LLM_SMALL_STEPS, params=out["params"],
+         first_loss=out["first"], last_loss=out["last"], drop=out["drop"],
+         seconds=seconds, loop_seconds=out["seconds"],
+         tokens_per_s=LLM_SMALL_STEPS * 8 * 256 / out["seconds"], launches=launches)
+    return launches
+
+
+def llm_train_phases(device):
+    """The training path of both families after the two backward kernels'
+    phases: llama3.2-1b (`llm_train`), rwkv6-3b (`rwkv_train`), then the
+    40m example (`llm_train_small`).  Returns the kernel rows and the
+    launches."""
+    from repro_torch.configs import get_config
+
+    rows = {}
+    launches = {}
+    rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkdv"], n = \
+        flash_bwd_phase(device)
+    add_counts(launches, n)
+    release()
+    rows["wkv_bwd"], n = wkv_bwd_phase(device)
+    add_counts(launches, n)
+    release()
+    cfg = get_config("llama3.2-1b")
+    L = cfg.num_layers
+    # remat "minimal": the forward and the backward's recompute each run
+    # one flash forward a layer; one dQ and one dK/dV a layer
+    add_counts(launches, llm_train_phase(
+        cfg, LLM_TRAIN["batch"], LLM_TRAIN["steps"],
+        {"flash_bf16_kernel": 2 * L, "flash_bwd_dq_kernel": L,
+         "flash_bwd_dkdv_kernel": L},
+        dict(flash_attention=2 * L, flash_attention_bwd_dq=L,
+             flash_attention_bwd_dkdv=L), "flash", held_flash_layer0, device,
+        "llm_train"))
+    cfg = get_config("rwkv6-3b")
+    L = cfg.num_layers
+    add_counts(launches, llm_train_phase(
+        cfg, RWKV_TRAIN["batch"], RWKV_TRAIN["steps"],
+        {"wkv_chunk_kernel": 2 * L, "wkv_bwd_kernel": L},
+        dict(wkv=2 * L, wkv_bwd=L), "wkv", held_wkv_layer0, device,
+        "rwkv_train"))
+    add_counts(launches, llm_small_phase(device))
     return rows, launches
 
 
@@ -3860,6 +4470,11 @@ def main(argv=None) -> int:
     # prefills through the two kernels, decode, greedy decode, batching
     llm_rows, n = llm_phases(device)
     rows["flash_attention"] += llm_rows
+    add_counts(launches, n)
+    # the LLM training path: the three backward kernels' phases, then both
+    # families' train steps at full width and the 40m example
+    train_rows, n = llm_train_phases(device)
+    rows.update(train_rows)
     add_counts(launches, n)
 
     t0 = time.perf_counter()

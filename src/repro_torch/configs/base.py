@@ -1,8 +1,9 @@
 """Model and input-shape configs: a trimmed copy of `repro/configs/base.py`.
 
 The fields that the port's copied model configs set (`llama3_2_1b`,
-`rwkv6_3b`) and those its serving path reads (the attention flavour, the
-family switches it refuses, the numerics), under the reference's names and
+`rwkv6_3b`) and those its serving and training paths read (the attention
+flavour, the family switches it refuses, the numerics, remat and the
+optimizer), under the reference's names and
 defaults, so a copied `CONFIG` equals the reference's field by field; the
 `train_4k`, `prefill_32k` and `decode_32k` input shapes; and the registry
 (`get_config`, `get_smoke_config`, `get_shape`) over the archs the port has.
@@ -34,9 +35,10 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     sliding_window: int = 0  # >0 enables sliding-window attention variant
 
-    # --- MLA (deepseek-v2) and MoE: not ported; the serving path refuses them ---
+    # --- MLA (deepseek-v2) and MoE: not ported; the model refuses them ---
     use_mla: bool = False
     num_experts: int = 0
+    router_aux_coef: float = 0.01  # the loss's weight of the MoE aux term
 
     # --- SSM (rwkv6) ---
     ssm_kind: str = ""  # "" | rwkv6 | mamba2
@@ -48,11 +50,16 @@ class ModelConfig:
     # --- encoder-decoder (seamless): not ported ---
     is_encoder_decoder: bool = False
 
-    # --- numerics ---
+    # --- modality frontend stub: not ported (the two families take tokens) ---
+    input_mode: str = "tokens"  # tokens | embeddings
+
+    # --- numerics / training ---
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
+    remat_policy: str = "minimal"  # none | minimal | full
+    optimizer: str = "adamw"  # adamw | adafactor | sgdm | sparse_adamw
 
     def __post_init__(self):
         assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")

@@ -5,6 +5,12 @@
 //   q     [BH, S, D]   (the [B, H, S, D] tensor, contiguous)
 //   k, v  [BH, T, D]   (T may differ from S)
 //   o     [BH, S, D]   in q's dtype
+//   lse   [BH, S]      fp32, optional: each row's log-sum-exp of the scaled
+//                      scores, written beside o for the backward
+//
+// The backward (`flash_attention_bwd.cu`: `flash_bwd_dq_kernel`,
+// `flash_bwd_dkdv_kernel`) takes q, k, v, o, dO and lse and writes dq, dk,
+// dv.
 //
 // With `causal`, query q sees key k only if k <= q (absolute indices, the
 // same mask for S != T).  Scores, the running max and the running sum are
@@ -72,6 +78,7 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using sm90::smem_u32;
 
@@ -163,8 +170,9 @@ template <int D, bool kCausal>
 __global__ void __launch_bounds__(kBThreads, 2)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
-                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int BH,
-                  int S, int T_, float scale, int n_qtiles) {
+                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int BH, int S, int T_, float scale,
+                  int n_qtiles) {
   using B = BShape<D>;
   constexpr int BN = B::BN;
   constexpr int NT = BN / 8;  // 8-key column groups of a score tile
@@ -316,6 +324,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * D + c) =
           __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
   }
+  // the rows' log-sum-exp of the scaled scores, natural units (a null
+  // pointer writes nothing; o above is the same either way)
+  if (lse != nullptr && tig == 0) {
+    if (row0 < S) lse[(long long)bh * S + row0] = (m0 + log2f(d0)) * kLn2;
+    if (row1 < S) lse[(long long)bh * S + row1] = (m1 + log2f(d1)) * kLn2;
+  }
 }
 
 // The driver's tensor-map encoder, from the runtime (no -lcuda)
@@ -394,8 +408,9 @@ __device__ __forceinline__ float group_max(float x, int width) {  // over `width
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int BH, int S,
-                 int T_, float scale, int n_qtiles) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int BH, int S, int T_, float scale,
+                 int n_qtiles) {
   using F = FShape<D>;
   constexpr int BK = F::BK, RQ = F::RQ, TK = F::TK, KT = F::KT, DC = F::DC;
   constexpr int kRow = F::kRow, kQtRow = F::kQtRow;
@@ -569,6 +584,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(tot, 1e-30f);
     const int row = q0 + r0 + i;
     if (row >= S) continue;
+    if (lse != nullptr && tk == 0) lse[(long long)bh * S + row] = (m[i] + log2f(den)) * kLn2;
     if constexpr (DC >= 4) {
 #pragma unroll
       for (int c = 0; c < DC; c += 4)
@@ -601,8 +617,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<bool>* set) {
 }
 
 template <typename T, int D, bool kCausal>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int T_,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+           int T_, float scale, cudaStream_t stream) {
   static std::atomic<bool> smem_set[kMaxDevices];
   if constexpr (sizeof(T) == 2) {
     constexpr int bytes = BShape<D>::bytes;
@@ -616,7 +632,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
     if (err != cudaSuccess) return (int)err;
     const int n_qtiles = (S + kBQ - 1) / kBQ;
     kernel<<<(unsigned int)((long long)n_qtiles * BH), kBThreads, bytes, stream>>>(
-        tm_q, tm_k, tm_v, static_cast<bf16*>(o), BH, S, T_, scale, n_qtiles);
+        tm_q, tm_k, tm_v, static_cast<bf16*>(o), lse, BH, S, T_, scale, n_qtiles);
   } else {
     constexpr int bytes = FShape<D>::bytes;
     auto kernel = flash_f32_kernel<D, kCausal>;
@@ -625,18 +641,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
     const int n_qtiles = (S + kFQ - 1) / kFQ;
     kernel<<<(unsigned int)((long long)n_qtiles * BH), kFThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), BH, S, T_, scale, n_qtiles);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, BH, S, T_, scale,
+        n_qtiles);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kCausal>
-int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int S,
-             int T_, int D, float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+             int S, int T_, int D, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32, kCausal>(q, k, v, o, BH, S, T_, scale, stream);
-    case 64: return launch<T, 64, kCausal>(q, k, v, o, BH, S, T_, scale, stream);
-    case 128: return launch<T, 128, kCausal>(q, k, v, o, BH, S, T_, scale, stream);
+    case 32: return launch<T, 32, kCausal>(q, k, v, o, lse, BH, S, T_, scale, stream);
+    case 64: return launch<T, 64, kCausal>(q, k, v, o, lse, BH, S, T_, scale, stream);
+    case 128: return launch<T, 128, kCausal>(q, k, v, o, lse, BH, S, T_, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -646,17 +663,20 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int S
 // Plain C entry point (loaded with ctypes).  BH, S >= 1 (the wrapper
 // returns early for an empty output), T >= 0 (no key gives 0 / 1e-30 = 0
 // everywhere), D in {32, 64, 128}, bf16 = 1 for bf16
-// inputs and output, 0 for fp32.  Returns cudaGetLastError() after the
-// launch; 0 means it was accepted.
+// inputs and output, 0 for fp32.  lse, where not null, receives each
+// row's log-sum-exp of the scaled scores [BH, S] fp32 (natural units), the
+// backward's input; null writes nothing.  Returns cudaGetLastError() after
+// the launch; 0 means it was accepted.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int BH, int S, int T, int D, int bf16,
-                                      int causal, float scale, void* stream) {
+                                      void* o, void* lse, int BH, int S, int T, int D,
+                                      int bf16, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return causal ? launch_d<__nv_bfloat16, true>(q, k, v, o, BH, S, T, D, scale, s)
-                  : launch_d<__nv_bfloat16, false>(q, k, v, o, BH, S, T, D, scale, s);
-  return causal ? launch_d<float, true>(q, k, v, o, BH, S, T, D, scale, s)
-                : launch_d<float, false>(q, k, v, o, BH, S, T, D, scale, s);
+    return causal ? launch_d<__nv_bfloat16, true>(q, k, v, o, l, BH, S, T, D, scale, s)
+                  : launch_d<__nv_bfloat16, false>(q, k, v, o, l, BH, S, T, D, scale, s);
+  return causal ? launch_d<float, true>(q, k, v, o, l, BH, S, T, D, scale, s)
+                : launch_d<float, false>(q, k, v, o, l, BH, S, T, D, scale, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,4 +1,5 @@
-// Chunked RWKV6 WKV forward for Hopper (sm_90a), fp32 arithmetic.
+// Chunked RWKV6 WKV forward and its backward for Hopper (sm_90a), fp32
+// arithmetic (the backward, `wkv_bwd_kernel`, is below the forward).
 //
 //   per (b, h), from a zero [K, K] state:
 //     y_t   = r_t . (state + u (x) (k_t (x) v_t))
@@ -539,6 +540,290 @@ int occupancy_k(int K) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// backward (fp32)
+//
+// The gradient of the recurrence above with respect to r, k, v, g (through
+// the clip) and u, given dy [BH, S, K] and, optionally, the final state's
+// cotangent dstate [BH, K, K].  With S_t the state before step t (the
+// forward's zero state at t = 0) and G_t the cotangent of the state after
+// step t (G_{S-1} = dstate, or 0), walking t down from S - 1:
+//
+//   dr_t[i] = sum_j dy_t[j] S_t[i, j] + u[i] k_t[i] (v_t . dy_t)
+//   dk_t[i] = sum_j G_t[i, j] v_t[j] + u[i] r_t[i] (v_t . dy_t)
+//   dv_t[j] = sum_i G_t[i, j] k_t[i] + (sum_i r_t[i] u[i] k_t[i]) dy_t[j]
+//   dg_t[i] = e^{g_t[i]} sum_j G_t[i, j] S_t[i, j]   (0 where g was clipped)
+//   du[i]  += r_t[i] k_t[i] (v_t . dy_t)
+//   G_{t-1} = r_t dy_t^T + e^{g_t} o G_t
+//
+// The TPU kernel has no gradient rule; this replaces JAX's autodiff of the
+// reference's `_chunked_linear_attention` (src/repro/models/ssm.py:29).
+//
+// What is hard.  dg needs every step's previous state, and the state may not
+// be rebuilt backwards (e^{-g} (S_t - k v^T) grows by up to e^{1.2} a step
+// and loses fp32 within tens of steps).  So one CTA a (b, h) first runs the
+// recurrence forward, writing the state at each 32-step tile boundary to a
+// workspace; then it walks the tiles backwards, recomputing each tile's 32
+// states from its boundary into a second workspace (L2-resident: 512 KB a
+// CTA at K = 64) and reading them back in reverse.  Every thread owns the
+// same 4 x 4 block of the state, of its recomputation and of G throughout
+// (key rows 4 ri.., value columns 4 cj..), so the workspaces are private to
+// it and the walk needs no barrier a step.  dr, dk and dg sum over value
+// columns: a fixed xor-shuffle tree across the K / 4 threads of a row block.
+// dv sums over key rows, across warps: each step's partial of each row
+// block goes to shared memory, and the tile's dv is summed from them in a
+// fixed order after the tile.  du is this CTA's sum over t, written per
+// (b, h) and summed over b by the caller.  No float atomics: two launches
+// are bitwise equal.
+//
+// Bound on this card: bytes (r, k, v, g, dy read and dr, dk, dv, dg written
+// once, 0.12 ms at B 1, H 40, S 4096, K 64; its ~12 K^2 flops a step take
+// about as long at the fp32 rate).  This simple kernel is bound by its
+// serial walk: one CTA a (b, h) (40 of 132 SMs busy at B 1), a few hundred
+// instructions a step a thread.
+
+constexpr int kBTile = 32;  // steps a tile of the backward walk
+
+template <int K>
+struct BLayout {
+  static constexpr int NB = K / 4;  // 4 x 4 blocks along each side of the state
+  static constexpr int kWork = NB * NB;  // threads that own a block
+  static constexpr int kThreads = kWork < 32 ? 32 : kWork;
+  // a tile's r, k, v, w = e^{clip g}, dy, the clip mask ([kBTile][K] each),
+  // the dv partials [kBTile][NB][K], u [K], v . dy and sum r u k [kBTile]
+  static constexpr int kVec = kBTile * K;
+  static constexpr int kPart = kBTile * NB * K;
+  static constexpr int kFloats = 6 * kVec + kPart + K + 2 * kBTile;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+template <int K>
+__global__ void __launch_bounds__(BLayout<K>::kThreads)
+wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g,
+               const float* __restrict__ u, const float* __restrict__ dy,
+               const float* __restrict__ dstate, float* __restrict__ dr,
+               float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dg,
+               float* __restrict__ du_part, float* __restrict__ ckpt,
+               float* __restrict__ scratch, int H, int S, float g_min) {
+  using Lay = BLayout<K>;
+  constexpr int NB = Lay::NB, NT = Lay::kThreads, V = Lay::kVec;
+  extern __shared__ __align__(16) float bsm[];
+  float* Rs = bsm;
+  float* Ks = Rs + V;
+  float* Vs = Ks + V;
+  float* Ws = Vs + V;
+  float* DYs = Ws + V;
+  float* Ms = DYs + V;
+  float* Part = Ms + V;
+  float* Us = Part + Lay::kPart;
+  float* VDY = Us + K;
+  float* BON = VDY + kBTile;
+
+  const int tid = threadIdx.x, bh = blockIdx.x, h = bh % H;
+  // threads past the K / 4 x K / 4 owners (K = 16) shadow thread 0 and
+  // store nothing
+  const bool owner = tid < Lay::kWork;
+  const int w = owner ? tid : 0, ri = w / NB, cj = w % NB;
+  const int i0 = 4 * ri, j0 = 4 * cj;
+  const long long base = (long long)bh * S * K;
+  const int ntiles = (S + kBTile - 1) / kBTile;
+  float* my_ckpt = ckpt + ((long long)bh * ntiles * NT + tid) * 16;
+  float* my_scr = scratch + ((long long)bh * kBTile * NT + tid) * 16;
+
+  for (int i = tid; i < K; i += NT) Us[i] = u[h * K + i];
+
+  // tile c's arrays; with `all`, r, dy and the mask too (steps past S: zeros
+  // and w = 1)
+  auto load_tile = [&](int c, bool all) {
+    const int t0 = c * kBTile, rows = min(kBTile, S - t0);
+    for (int idx = tid; idx < V / 4; idx += NT) {
+      const int t = idx / (K / 4), c4 = (idx % (K / 4)) * 4, e = t * K + c4;
+      const bool in = t < rows;
+      const long long at = base + (long long)(t0 + t) * K + c4;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 gg = in ? *reinterpret_cast<const float4*>(g + at) : zero;
+      const float gl[4] = {gg.x, gg.y, gg.z, gg.w};
+      float ww[4], mm[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ww[q] = in ? expf(fminf(fmaxf(gl[q], g_min), 0.f)) : 1.f;
+        mm[q] = in && gl[q] >= g_min && gl[q] <= 0.f ? 1.f : 0.f;
+      }
+      *reinterpret_cast<float4*>(Ws + e) = make_float4(ww[0], ww[1], ww[2], ww[3]);
+      *reinterpret_cast<float4*>(Ks + e) = in ? *reinterpret_cast<const float4*>(k + at) : zero;
+      *reinterpret_cast<float4*>(Vs + e) = in ? *reinterpret_cast<const float4*>(v + at) : zero;
+      if (all) {
+        *reinterpret_cast<float4*>(Ms + e) = make_float4(mm[0], mm[1], mm[2], mm[3]);
+        *reinterpret_cast<float4*>(Rs + e) =
+            in ? *reinterpret_cast<const float4*>(r + at) : zero;
+        *reinterpret_cast<float4*>(DYs + e) =
+            in ? *reinterpret_cast<const float4*>(dy + at) : zero;
+      }
+    }
+  };
+  // one step of the recurrence on the thread's block, rounded as the plain
+  // version rounds it: e^{g} * state, then + k v
+  auto advance = [&](float (&st)[16], int t) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float wi = Ws[t * K + i0 + a], ki = Ks[t * K + i0 + a];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        st[4 * a + b] = __fadd_rn(__fmul_rn(wi, st[4 * a + b]), __fmul_rn(ki, Vs[t * K + j0 + b]));
+    }
+  };
+  auto put16 = [](float* dst, const float (&x)[16]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      reinterpret_cast<float4*>(dst)[q] =
+          make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+  };
+  auto get16 = [](float (&x)[16], const float* src) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 y = reinterpret_cast<const float4*>(src)[q];
+      x[4 * q] = y.x;
+      x[4 * q + 1] = y.y;
+      x[4 * q + 2] = y.z;
+      x[4 * q + 3] = y.w;
+    }
+  };
+
+  // 1. forward: the state at each tile's start
+  float st[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) st[e] = 0.f;
+  for (int c = 0; c < ntiles; ++c) {
+    put16(my_ckpt + (long long)c * NT * 16, st);
+    if (c + 1 == ntiles) break;  // the last tile's end state is not needed
+    __syncthreads();
+    load_tile(c, false);
+    __syncthreads();
+    for (int t = 0; t < kBTile; ++t) advance(st, t);
+  }
+
+  // 2. backward, tile by tile from the last
+  float G[16];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      G[4 * a + b] = dstate != nullptr
+                         ? dstate[(long long)bh * K * K + (i0 + a) * K + j0 + b]
+                         : 0.f;
+  float du_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = ntiles - 1; c >= 0; --c) {
+    const int t0 = c * kBTile, rows = min(kBTile, S - t0);
+    __syncthreads();  // every read of the last tile is done
+    load_tile(c, true);
+    __syncthreads();
+    if (tid < kBTile) {  // per step: v . dy and the bonus sum r u k, in order
+      float a = 0.f, b = 0.f;
+      for (int i = 0; i < K; ++i) {
+        a = fmaf(Vs[tid * K + i], DYs[tid * K + i], a);
+        b = fmaf(Rs[tid * K + i] * Us[i], Ks[tid * K + i], b);
+      }
+      VDY[tid] = a;
+      BON[tid] = b;
+    }
+    // the tile's states S_t, recomputed from its boundary
+    get16(st, my_ckpt + (long long)c * NT * 16);
+    for (int t = 0; t < rows; ++t) {
+      put16(my_scr + (long long)t * NT * 16, st);
+      advance(st, t);
+    }
+    __syncthreads();  // VDY, BON
+    for (int t = rows - 1; t >= 0; --t) {
+      float sp[16];
+      get16(sp, my_scr + (long long)t * NT * 16);
+      float pr[4], pk[4], pw[4], pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float ki = Ks[t * K + i0 + a];
+        float x = 0.f, y = 0.f, z = 0.f;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int e = 4 * a + b;
+          x = fmaf(DYs[t * K + j0 + b], sp[e], x);
+          y = fmaf(G[e], Vs[t * K + j0 + b], y);
+          z = fmaf(G[e], sp[e], z);
+          pv[b] = fmaf(G[e], ki, pv[b]);
+        }
+        pr[a] = x;
+        pk[a] = y;
+        pw[a] = z;
+      }
+#pragma unroll
+      for (int off = 1; off < NB; off <<= 1) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pr[a] += __shfl_xor_sync(0xffffffffu, pr[a], off);
+          pk[a] += __shfl_xor_sync(0xffffffffu, pk[a], off);
+          pw[a] += __shfl_xor_sync(0xffffffffu, pw[a], off);
+        }
+      }
+      if (owner) {
+        *reinterpret_cast<float4*>(Part + (t * NB + ri) * K + j0) =
+            make_float4(pv[0], pv[1], pv[2], pv[3]);
+      }
+      if (owner && cj == 0) {
+        float o_r[4], o_k[4], o_g[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int e = t * K + i0 + a;
+          const float ui = Us[i0 + a], ki = Ks[e], rr = Rs[e];
+          o_r[a] = pr[a] + ui * ki * VDY[t];
+          o_k[a] = pk[a] + ui * rr * VDY[t];
+          o_g[a] = Ms[e] * (Ws[e] * pw[a]);
+          du_acc[a] = fmaf(rr * ki, VDY[t], du_acc[a]);
+        }
+        const long long at = base + (long long)(t0 + t) * K + i0;
+        *reinterpret_cast<float4*>(dr + at) = make_float4(o_r[0], o_r[1], o_r[2], o_r[3]);
+        *reinterpret_cast<float4*>(dk + at) = make_float4(o_k[0], o_k[1], o_k[2], o_k[3]);
+        *reinterpret_cast<float4*>(dg + at) = make_float4(o_g[0], o_g[1], o_g[2], o_g[3]);
+      }
+      // G_{t-1} = r_t dy_t^T + e^{g_t} o G_t
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float wi = Ws[t * K + i0 + a], rr = Rs[t * K + i0 + a];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          G[4 * a + b] = fmaf(wi, G[4 * a + b], rr * DYs[t * K + j0 + b]);
+      }
+    }
+    __syncthreads();  // the tile's dv partials are in place
+    for (int idx = tid; idx < rows * K; idx += NT) {
+      const int t = idx / K, j = idx % K;
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < NB; ++q) acc += Part[(t * NB + q) * K + j];
+      dv[base + (long long)(t0 + t) * K + j] = fmaf(BON[t], DYs[t * K + j], acc);
+    }
+  }
+  if (owner && cj == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) du_part[(long long)bh * K + i0 + a] = du_acc[a];
+  }
+}
+
+template <int K>
+int launch_bwd(const float* r, const float* k, const float* v, const float* g,
+               const float* u, const float* dy, const float* dstate, float* dr, float* dk,
+               float* dv, float* dg, float* du_part, float* ckpt, float* scratch, int BH,
+               int H, int S, float g_min, cudaStream_t stream) {
+  using Lay = BLayout<K>;
+  auto kernel = wkv_bwd_kernel<K>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<BH, Lay::kThreads, Lay::kBytes, stream>>>(r, k, v, g, u, dy, dstate, dr, dk, dv,
+                                                      dg, du_part, ckpt, scratch, H, S,
+                                                      g_min);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  BH, S >= 1, K in {16, 32, 64},
@@ -574,6 +859,45 @@ extern "C" int wkv_chunk_smem_bytes(int K, int bf16) {
     case 129: return Layout<__nv_bfloat16, 64>::kBytes;
     default: return -1;
   }
+}
+
+// The backward (fp32 only): dr, dk, dv, dg [BH, S, K] and du_part [BH, K]
+// (du of each (b, h), summed over b by the caller) from r, k, v, g, u and
+// dy, and dstate [BH, K, K] (the final state's cotangent; null for none).
+// ckpt and scratch are fp32 workspaces of `wkv_bwd_workspace_floats`
+// floats each.  BH, S >= 1, K in {16, 32, 64}, 16-byte aligned contiguous
+// tensors.  Returns cudaGetLastError() after the launch.
+extern "C" int wkv_bwd_launch(const void* r, const void* k, const void* v, const void* g,
+                              const void* u, const void* dy, const void* dstate, void* dr,
+                              void* dk, void* dv, void* dg, void* du_part, void* ckpt,
+                              void* scratch, int BH, int H, int S, int K, float g_min,
+                              void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 16:
+      return launch_bwd<16>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
+                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+    case 32:
+      return launch_bwd<32>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
+                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+    case 64:
+      return launch_bwd<64>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
+                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The floats of the backward's two workspaces for one launch: the states at
+// the tile boundaries, then the recomputed states of one tile, per (b, h).
+extern "C" long long wkv_bwd_workspace_floats(int BH, int S, int K, int scratch) {
+  const int threads = K == 16 ? BLayout<16>::kThreads
+                      : K == 32 ? BLayout<32>::kThreads
+                                : BLayout<64>::kThreads;
+  const long long per = (long long)threads * 16;
+  return scratch ? (long long)BH * kBTile * per
+                 : (long long)BH * ((S + kBTile - 1) / kBTile) * per;
 }
 
 extern "C" const char* wkv_chunk_error_string(int err) {

@@ -114,6 +114,32 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool = True) -> tuple:
+    """(`flash_attention_ref`, each row's log-sum-exp of the scaled scores
+    [B,H,S] fp32, natural units, masked scores -1e30 as there)."""
+    S, T = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s / (q.shape[-1] ** 0.5)
+    if causal:
+        seen = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(seen, s, torch.full_like(s, -1e30))
+    return (flash_attention_ref(q, k, v, causal=causal),
+            torch.logsumexp(s, dim=-1))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True) -> tuple:
+    """(dq, dk, dv) of `flash_attention_ref` for the output's cotangent do:
+    `torch.autograd.grad` through it, each in its input's dtype (the bf16
+    casts round p, dP and the gradients as autograd rounds them)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = flash_attention_ref(*leaves, causal=causal)
+        return torch.autograd.grad(o, leaves, do)
+
+
 def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, u: torch.Tensor, *,
                   return_state: bool = False):
@@ -141,3 +167,21 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_state:
         return y, state.reshape(B, H, K, K)
     return y
+
+
+def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                dstate: torch.Tensor = None) -> tuple:
+    """(dr, dk, dv, dg, du) of `wkv_chunk_ref` on clip(g, -1.2, 0) (with
+    ``dstate``, of its final state too): `torch.autograd.grad` through the
+    per-step recurrence.  dg is 0 where g lies outside [-1.2, 0] (the
+    clamp's gradient; it passes at the bounds themselves)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, g, u)]
+        rr, kk, vv, gg, uu = leaves
+        gc = torch.clamp(gg, torch.tensor(-1.2, dtype=g.dtype).item(), 0.0)
+        if dstate is None:
+            y = wkv_chunk_ref(rr, kk, vv, gc, uu)
+            return torch.autograd.grad(y, leaves, dy)
+        y, state = wkv_chunk_ref(rr, kk, vv, gc, uu, return_state=True)
+        return torch.autograd.grad((y, state), leaves, (dy, dstate))

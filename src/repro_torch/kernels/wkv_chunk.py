@@ -1,5 +1,5 @@
-"""Chunked RWKV6 WKV forward: the wrapper of the hand-written CUDA kernel in
-`csrc/wkv_chunk.cu`, which replaces the Pallas TPU kernel
+"""Chunked RWKV6 WKV forward and backward: the wrappers of the hand-written
+CUDA kernels in `csrc/wkv_chunk.cu`.  The forward replaces the Pallas TPU kernel
 `wkv_chunk_pallas` / `_wkv_kernel` (`src/repro/kernels/wkv_chunk.py:67` /
 `:26`).
 
@@ -8,8 +8,7 @@
 r, k, v, g [B,H,S,K] and u [H,K], fp32 or bf16 (all alike, computed in
 fp32), K in {16, 32, 64}; y [B,H,S,K] in r's dtype, rounded once.  g is
 clipped to [-1.2, 0] (-1.2 rounded to the inputs' dtype) inside the kernel,
-as `wkv_chunk_pallas` clips it before its call.  Forward only, as the Pallas
-kernel: it has no gradient rule.
+as `wkv_chunk_pallas` clips it before its call.
 
 ``chunk`` is checked as the reference asserts it (S a multiple of
 ``min(chunk, S)``), and any chunk that passes is taken, but it no longer
@@ -31,9 +30,18 @@ bitwise equal, and the output is the same at every chunk.
 by the same launch (a null state pointer writes nothing, and y does not
 depend on it).
 
+Both wrappers are differentiable.  On a CUDA tensor that needs a gradient
+they run `_WKV`, whose backward launches `wkv_bwd`: one CUDA kernel that
+computes dr, dk, dv, dg (0 where g was clipped) and du in fp32, replacing
+JAX's autodiff of the reference's `_chunked_linear_attention`
+(`src/repro/models/ssm.py:29`; the Pallas kernel has no gradient rule).
+The backward takes fp32 inputs only (the model's scan hands the kernel
+fp32): a bf16 input that needs a gradient on the card raises.
+
 A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on the clipped
-g); a CUDA tensor launches the kernel on the current stream or raises.
-`wkv.launches` counts one a call of either wrapper that launches.
+g, differentiable through autograd); a CUDA tensor launches the kernel on
+the current stream or raises.  `wkv.launches` counts one a call of either
+forward wrapper that launches, `wkv_bwd.launches` one a backward launch.
 """
 from __future__ import annotations
 
@@ -61,6 +69,10 @@ def _library() -> ctypes.CDLL:
     for name in ("wkv_chunk_ctas_per_sm", "wkv_chunk_smem_bytes"):
         getattr(lib, name).argtypes = [i, i]
         getattr(lib, name).restype = ctypes.c_int
+    lib.wkv_bwd_launch.argtypes = [p] * 14 + [i, i, i, i, ctypes.c_float, p]
+    lib.wkv_bwd_launch.restype = ctypes.c_int
+    lib.wkv_bwd_workspace_floats.argtypes = [i, i, i, i]
+    lib.wkv_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -96,17 +108,13 @@ def _check(r, k, v, g, u, chunk: int) -> None:
 
 
 def _check_kernel(r, k, v, g, u) -> None:
-    """What the CUDA kernel takes beyond `_check`: K in `KEY_DIMS`, no
-    gradient, contiguous tensors, r, k, v, g on 16-byte boundaries (its
-    bulk copies), a grid in range.  Any chunk `_check` passes is taken."""
+    """What the CUDA kernel takes beyond `_check`: K in `KEY_DIMS`,
+    contiguous tensors, r, k, v, g on 16-byte boundaries (its bulk copies),
+    a grid in range.  Any chunk `_check` passes is taken."""
     B, H, S, K = r.shape
     if K not in KEY_DIMS:
         raise ValueError(f"wkv's kernel is built for key dims {KEY_DIMS}; "
                          f"got K={K}")
-    if any(t.requires_grad for t in (r, k, v, g, u)):
-        raise NotImplementedError(
-            "wkv's CUDA kernel is forward only (the Pallas kernel it replaces "
-            "has no gradient rule); detach the inputs")
     if not all(t.is_contiguous() for t in (r, k, v, g, u)):
         raise ValueError("wkv's kernel wants contiguous tensors")
     if any(t.data_ptr() % 16 for t in (r, k, v, g)):
@@ -142,13 +150,48 @@ def _launch(r, k, v, g, u, state) -> torch.Tensor:
     return y
 
 
+class _WKV(torch.autograd.Function):
+    """The forward kernel under autograd (``with_state``: the final state
+    as a second output), its backward `wkv_bwd`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, g, u, with_state):
+        if r.dtype != torch.float32:
+            raise NotImplementedError(
+                "wkv's backward kernel takes float32 inputs (the model's scan "
+                f"hands it float32); got {r.dtype} inputs that need a gradient")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, g, u)
+        if not with_state:
+            return _launch(r, k, v, g, u, None)
+        B, H, _, K = r.shape
+        state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+        return _launch(r, k, v, g, u, state), state
+
+    @staticmethod
+    def backward(ctx, dy, dstate=None):
+        r, k, v, g, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        grads = wkv_bwd(r, k, v, g, u, dy.contiguous(),
+                        None if dstate is None else dstate.contiguous())
+        return (*grads, None)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
         u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
     """The RWKV6 WKV of (r, k, v, clip(g, -1.2, 0), u) -> y [B,H,S,K] in r's
-    dtype (see the module docstring)."""
+    dtype (see the module docstring); differentiable on both paths."""
     _check(r, k, v, g, u, chunk)
     if r.device.type == "cpu":
         return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+    if _needs_grad(r, k, v, g, u):
+        _check_kernel(r, k, v, g, u)
+        return _WKV.apply(r, k, v, g, u, False)
     return _launch(r, k, v, g, u, None)
 
 
@@ -164,10 +207,64 @@ def wkv_with_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u,
                                  return_state=True)
+    if _needs_grad(r, k, v, g, u):
+        _check_kernel(r, k, v, g, u)
+        return _WKV.apply(r, k, v, g, u, True)
     B, H, S, K = r.shape
     # every CTA writes its whole slice (`_check` refuses S = 0)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
     return _launch(r, k, v, g, u, state), state
 
 
-wkv.launches = 0  # kernel launches since the last reset (CPU calls excluded)
+def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+            u: torch.Tensor, dy: torch.Tensor,
+            dstate: torch.Tensor = None) -> tuple:
+    """The gradient of `wkv` (of `wkv_with_state` with ``dstate``, the final
+    state's cotangent [B,H,K,K]) for y's cotangent dy: (dr, dk, dv, dg
+    [B,H,S,K], du [H,K]), fp32; dg is 0 where g was clipped.  On the card
+    one launch of the backward kernel (du summed over b afterwards, in
+    order); on the CPU `ref.wkv_bwd_ref`."""
+    _check(r, k, v, g, u, r.shape[2] or 1)
+    for name, t, shape in (("dy", dy, r.shape),
+                           ("dstate", dstate, r.shape[:2] + (r.shape[3],) * 2)):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or t.device != r.device):
+            raise ValueError(f"wkv_bwd wants {name} {tuple(shape)} float32 on "
+                             f"{r.device}; got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    if r.device.type == "cpu":
+        return ref.wkv_bwd_ref(r, k, v, g, u, dy, dstate)
+    _check_kernel(r, k, v, g, u)
+    if r.dtype != torch.float32:
+        raise NotImplementedError(f"wkv's backward kernel takes float32 "
+                                  f"inputs; got {r.dtype}")
+    if not (dy.is_contiguous() and dy.data_ptr() % 16 == 0) or (
+            dstate is not None and not dstate.is_contiguous()):
+        raise ValueError("wkv_bwd wants contiguous dy (16-byte aligned) and "
+                         "dstate")
+    B, H, S, K = r.shape
+    dr, dk, dv, dg = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    lib = _library()
+    ckpt, scratch = (torch.empty((lib.wkv_bwd_workspace_floats(B * H, S, K, w),),
+                                 dtype=torch.float32, device=r.device)
+                     for w in (0, 1))
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        err = lib.wkv_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), u.data_ptr(),
+            dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dg.data_ptr(),
+            du_part.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(), B * H, H, S,
+            K, float(G_MIN), stream)
+    if err != 0:
+        raise RuntimeError(f"wkv_bwd kernel launch failed: CUDA error {err} "
+                           f"({lib.wkv_chunk_error_string(err).decode()})")
+    wkv_bwd.launches += 1
+    # du over b in a fixed order (a reduction of B rows, no atomics)
+    return dr, dk, dv, dg, du_part.sum(0)
+
+
+# kernel launches since the last reset (CPU calls excluded)
+wkv.launches = 0
+wkv_bwd.launches = 0

@@ -18,8 +18,8 @@ import torch
 
 
 def check_served(cfg) -> None:
-    """Raise for a config outside the two families the port serves (dense
-    GQA with full RoPE, and RWKV6)."""
+    """Raise for a config outside the two families the port serves and
+    trains (dense GQA with full RoPE, and RWKV6)."""
     refused = {"MLA": cfg.use_mla, "MoE": cfg.num_experts > 0,
                "mamba2 / hybrid": cfg.ssm_kind == "mamba2" or cfg.attn_every > 0,
                "encoder-decoder": cfg.is_encoder_decoder,
@@ -28,8 +28,8 @@ def check_served(cfg) -> None:
     for what, hit in refused.items():
         if hit:
             raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported; the port serves the dense "
-                "GQA and RWKV6 families (ROADMAP.md queue 1, item 15)")
+                f"{cfg.name}: {what} is not ported; the port serves and trains "
+                "the dense GQA and RWKV6 families (ROADMAP.md queue 1, item 15)")
 
 
 def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:

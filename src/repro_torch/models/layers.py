@@ -16,8 +16,12 @@ expanded k, v taken to contiguous [B,H,S,D], and raises for what that kernel
 does not compute (a window, a softcap, a query offset, a value width unlike
 the query's, a head dim outside `HEAD_DIMS`); on a CPU tensor it runs a plain
 copy of the reference's streaming softmax, window and softcap included.
-`decode_attention` is plain on every device, as in the reference (no Pallas
-twin).
+Both paths are differentiable: on the card the gradient is the flash
+backward's two kernels (the kernels work on the expanded heads; autograd
+sums the grouped heads back through `repeat_kv`), on the CPU autograd
+through the streaming softmax, the counterpart of JAX's autodiff of the
+reference's.  `decode_attention` is plain on every device, as in the
+reference (no Pallas twin).
 """
 from __future__ import annotations
 
@@ -99,20 +103,36 @@ class ParamBuilder:
 
 class Params(nn.Module):
     """One of the reference's parameter dicts as a module: its tensors are
-    registered under the reference's keys (no gradient: the port's model
-    runs forward only) and read as the reference reads them,
-    ``p["wq"]``, ``"bq" in p``."""
+    registered under the reference's keys as trainable parameters (serving
+    runs under `torch.inference_mode`, which records no gradient) and read
+    as the reference reads them, ``p["wq"]``, ``"bq" in p``."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._parameters[name]
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters
+
+
+class LayerParams:
+    """One layer's slice of a stacked `Params` ([L, ...] leaves): read as
+    `Params` is, ``p["wq"]`` the layer's view of the stacked leaf."""
+
+    __slots__ = ("_tensors",)
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self._tensors = tensors
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._tensors[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tensors
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +267,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """q [B,S,H,D]; k, v [B,T,H,D] (heads already expanded) -> [B,S,H,Dv]
     in q's dtype.  CPU: the reference's streaming softmax; CUDA: the flash
-    kernel, which walks its own tiles (the chunks do not reach it)."""
+    kernel, which walks its own tiles (the chunks do not reach it), and
+    under autograd its backward kernels."""
     if q.device.type == "cpu":
         return _streaming_attention(q, k, v, causal, window, softcap, q_chunk,
                                     kv_chunk, q_offset)

@@ -6,11 +6,13 @@ reference's chunked scan (mode ``rwkv`` or ``mamba``, an optional initial
 state).  On a CUDA tensor, mode ``rwkv`` runs the port's WKV kernel
 (`kernels/csrc/wkv_chunk.cu`) on [B,H,S,K] fp32 inputs (the reference
 computes in fp32) and casts y back to q's dtype; with ``return_state`` the
-same launch writes the final state.  The kernel starts from a zero state, so
+same launch writes the final state.  Both are differentiable: on the card
+the gradient is the WKV backward kernel (`wkv_bwd`), on the CPU autograd
+through the chunked scan.  The kernel starts from a zero state, so
 an ``init_state`` on a CUDA tensor raises, as does mode ``mamba`` (no
 kernel; mamba2 is not ported).  Decode goes through `rwkv6_time_mix_step`,
 the single-step recurrence in plain torch (`linear_attention_step`), which
-the reference has no Pallas twin for either.
+the reference has no Pallas twin for either; decode never trains.
 
 Log-decays are clamped to >= LOG_DECAY_MIN per step, as the reference and
 the kernel clamp them.
@@ -77,8 +79,8 @@ def _scan_plain(q, k, v, log_decay, chunk, mode, bonus, init_state,
 
 def _scan_kernel(q, k, v, log_decay, chunk, mode, bonus, init_state,
                  return_state):
-    """Mode ``rwkv`` through the WKV kernel; raises for what it does not
-    compute."""
+    """Mode ``rwkv`` through the WKV kernel (under autograd, its backward
+    kernel too); raises for what it does not compute."""
     B, S, H, K = q.shape
     refused = {"mode 'mamba' (mamba2 is not ported)": mode != "rwkv",
                "an initial state (the kernel starts from zero; decode goes "

@@ -1,19 +1,26 @@
-"""The language model's serving path for the dense GQA and RWKV6 families:
-parameter construction, the full-sequence forward (prefill), and the
-single-token decode (serve) of `repro/models/transformer.py`.
+"""The language model for the dense GQA and RWKV6 families: parameter
+construction, the full-sequence forward, the loss (training), the prefill
+and the single-token decode (serving) of `repro/models/transformer.py`.
 
 The model is a `TransformerLM` module: ``embed``, ``lm_head`` (untied
-configs), ``final_norm`` and a `ModuleList` of `Block`s, each holding the
-reference's per-layer dicts as `Params` (``ln1``, ``ln2``, and ``attn`` +
-``mlp`` or ``tmix`` + ``cmix``), so ``blocks.3.attn.wq`` is the reference's
-``params["blocks"]["attn"]["wq"][3]``.  `init_params` draws the port's own
-weights on the device it is given (the card unless the caller asks for the
-CPU); `params_from_numpy` carries the reference's stacked [L, ...] leaves
-over, so the tests compute with JAX's weights.
+configs), ``final_norm`` and ``blocks``, whose `Params` hold the reference's
+per-layer dicts stacked over layers ([L, ...] leaves, as the reference's
+scan carries them), so the parameter ``blocks.attn.wq`` is the reference's
+``params["blocks"]["attn"]["wq"]`` and `param_tree` gives the reference's
+tree.  Iterating ``blocks`` gives each layer's views (`LayerParams`, one
+``unbind`` a leaf: its backward stacks the layers' gradients once).
+`init_params` draws the port's own weights on the device it is given (the
+card unless the caller asks for the CPU); `params_from_numpy` carries the
+reference's tree over, so the tests compute with JAX's weights.
 
-Everything runs under `torch.inference_mode()`: the kernels on this path
-(flash attention in the dense prefill, WKV in the RWKV6 prefill) are forward
-only.  The prefill reaches them through `layers.chunked_attention` and
+`forward` runs under autograd for training (`loss_fn`: the forward, the
+final norm and `chunked_softmax_xent`); each block runs under `_remat`
+(`torch.utils.checkpoint` for the "minimal" and "full" policies, as the
+reference's `jax.checkpoint`).  The kernels on its path are differentiable
+(flash attention in the dense blocks, WKV in the RWKV6 blocks: forward and
+backward kernels on the card).  `prefill`, `serve_step` and
+`serve_step_vec` run under `torch.inference_mode()`: the prefill reaches
+the forward kernels through `layers.chunked_attention` and
 `ssm._chunked_linear_attention`; decode reads the KV cache or the recurrent
 state in plain torch, as the reference does.  `serve_step` and
 `serve_step_vec` update the cache in place (a 32k-token cache is not copied
@@ -22,15 +29,17 @@ a token) and return it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.kvcache import check_served
 from repro_torch.models.layers import (
+    LayerParams,
     ParamBuilder,
     Params,
     attention_apply,
@@ -45,6 +54,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_params,
 )
+from repro_torch.utils import module_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,29 +101,58 @@ def build_params(cfg, b: ParamBuilder) -> Dict[str, Any]:
     return params
 
 
-class Block(nn.Module):
-    """One layer: its parameter dicts as `Params` modules."""
+class Layer:
+    """One layer's views: an attribute per reference dict (``ln1``, ``attn``
+    ...), each a `LayerParams`."""
+
+    def __init__(self, dicts: Dict[str, LayerParams]):
+        self.__dict__.update(dicts)
+
+
+class Blocks(nn.Module):
+    """The stacked per-layer parameters, one `Params` a reference dict.
+    ``list(blocks)`` is the layers' views, from one ``unbind`` a leaf."""
 
     def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         for name, tensors in tree.items():
             self.add_module(name, Params(tensors))
 
+    def __len__(self) -> int:
+        return next(iter(self.parameters())).shape[0]
+
+    def layers(self) -> List[Layer]:
+        per = {name: {k: t.unbind(0) for k, t in mod._parameters.items()}
+               for name, mod in self.named_children()}
+        return [Layer({name: LayerParams({k: ts[i] for k, ts in d.items()})
+                       for name, d in per.items()})
+                for i in range(len(self))]
+
+    def __iter__(self):
+        return iter(self.layers())
+
+    def __getitem__(self, i: int) -> Layer:
+        return self.layers()[i]
+
 
 class TransformerLM(nn.Module):
-    """The parameters of one model, built from the reference's tree; layer i
-    of each stacked leaf is a view of it (no copy)."""
+    """The parameters of one model, built from the reference's tree (the
+    tensors themselves, no copy)."""
 
     def __init__(self, cfg, tree: Dict[str, Any]):
         super().__init__()
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
+        self.embed = nn.Parameter(tree["embed"])
         if "lm_head" in tree:
-            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+            self.lm_head = nn.Parameter(tree["lm_head"])
         self.final_norm = Params(tree["final_norm"])
-        self.blocks = nn.ModuleList(
-            Block({name: {k: t[i] for k, t in sub.items()}
-                   for name, sub in tree["blocks"].items()})
-            for i in range(cfg.num_layers))
+        self.blocks = Blocks(tree["blocks"])
+
+
+def param_tree(params: TransformerLM) -> Dict[str, Any]:
+    """The reference's params tree over the module's parameters (the
+    Parameters themselves): ``blocks.attn.wq`` at
+    ``tree["blocks"]["attn"]["wq"]``."""
+    return module_tree(params)
 
 
 def _check_device(device) -> torch.device:
@@ -148,7 +187,7 @@ def params_from_numpy(cfg, tree: Dict[str, Any], device="cuda") -> TransformerLM
 
 
 def lm_head(cfg, params: TransformerLM) -> torch.Tensor:
-    """[D, V]."""
+    """[D, V]: the embedding's transpose when tied."""
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
@@ -199,13 +238,31 @@ def _rwkv_block_seq(cfg, blk, h, collect_state):
     return h, None
 
 
-@torch.inference_mode()
+def _remat(fn, policy: str):
+    """The reference's `_remat` over one block: "none" runs fn as it is;
+    "minimal" and "full" (and the reference's other policies) checkpoint it
+    (`torch.utils.checkpoint`, non-reentrant: only the block's input is
+    kept, its insides are recomputed in the backward), as `jax.checkpoint`
+    saves nothing inside the body.  Outside autograd (serving) there is
+    nothing to save and fn runs as it is."""
+    if policy == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def forward(cfg, params: TransformerLM, batch, *, window: int = 0,
             collect_kv: bool = False, collect_state: bool = False):
-    """Full-sequence forward.  batch keys: 'tokens' [B,S], 'positions'
-    [B,S].  Returns (h_final [B,S,D], aux (0), (stacks, None)): the stacks
-    are (k, v) [L,B,S,KV,hd] bf16 with ``collect_kv``, (tm_x, cm_x, s) with
-    ``collect_state`` (RWKV6), else None."""
+    """Full-sequence forward (train, prefill).  batch keys: 'tokens' [B,S],
+    'positions' [B,S].  Returns (h_final [B,S,D], aux (0), (stacks, None)):
+    the stacks are (k, v) [L,B,S,KV,hd] bf16 with ``collect_kv``, (tm_x,
+    cm_x, s) with ``collect_state`` (RWKV6), else None.  Differentiable;
+    each block under `_remat` with the config's policy."""
     check_served(cfg)
     h = embed_tokens(cfg, params, batch["tokens"])
     positions = batch["positions"]
@@ -213,15 +270,60 @@ def forward(cfg, params: TransformerLM, batch, *, window: int = 0,
     per_layer = []
     for blk in params.blocks:
         if cfg.ssm_kind == "rwkv6":
-            h, st = _rwkv_block_seq(cfg, blk, h, collect_state)
+            def body(hh, blk=blk):
+                return _rwkv_block_seq(cfg, blk, hh, collect_state)
         else:
-            h, st = _std_block_seq(cfg, blk, h, positions, window=window,
-                                   collect_kv=collect_kv)
+            def body(hh, blk=blk):
+                return _std_block_seq(cfg, blk, hh, positions, window=window,
+                                      collect_kv=collect_kv)
+        h, st = _remat(body, cfg.remat_policy)(h)
         per_layer.append(st)
     stacks = None
     if per_layer[0] is not None:
         stacks = tuple(torch.stack(xs) for xs in zip(*per_layer))
     return rmsnorm(params.final_norm, h, cfg.norm_eps), aux, (stacks, None)
+
+
+# ---------------------------------------------------------------------------
+# The loss
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hc: torch.Tensor, head: torch.Tensor,
+                lc: torch.Tensor) -> torch.Tensor:
+    """The summed cross-entropy of one chunk: logits [B,c,V] in fp32 from
+    operands rounded to the working dtype (the reference's einsum with
+    preferred_element_type=f32)."""
+    logits = hc.float() @ head.to(hc.dtype).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return (lse - ll).sum()
+
+
+def chunked_softmax_xent(cfg, h: torch.Tensor, head: torch.Tensor,
+                         labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Mean cross-entropy without materializing [B,S,V]: the sequence in
+    chunks of ``chunk`` tokens (all of S if it does not divide), each chunk
+    under a checkpoint (its logits recomputed in the backward), summed in
+    order, over B S."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        args = (h[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk])
+        total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _xent_chunk(*args))
+    return total / (B * S)
+
+
+def loss_fn(cfg, params: TransformerLM, batch, *, window: int = 0):
+    """(loss, {"xent", "aux"}) of batch 'tokens', 'labels', 'positions'
+    [B,S]: the forward, then `chunked_softmax_xent` against `lm_head`."""
+    h, aux, _ = forward(cfg, params, batch, window=window)
+    loss = chunked_softmax_xent(cfg, h, lm_head(cfg, params), batch["labels"])
+    return loss + cfg.router_aux_coef * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,8 @@ bitwise unchanged.
 (the engine's mini-batch path; the ids come from the frontier plan), so an
 untouched row is never written.  Every write is a copy to a distinct row:
 no `index_add_`, no accumulating `index_put_`, nothing a rerun could sum in
-another order.  The `Optimizer`-shaped `sparse_adamw` wrapper of the
-reference has no caller in the port yet.
+another order.  `sparse_adamw` is the same update as an `Optimizer`
+(`optim/optimizers.py`), reached through `make_optimizer`.
 """
 from __future__ import annotations
 
@@ -112,3 +112,39 @@ def sparse_adamw_ids(table, m, v, t, ids, grads, *, lr: float,
         return torch.cat([buf, pad], 0).index_copy_(0, ids_eff, rows)[:N]
 
     return scatter(table, p2), scatter(m, m2), scatter(v, v2), scatter(t, t2)
+
+
+def sparse_adamw(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+    """Lazy row-sparse AdamW as a generic `Optimizer`: per leaf, a leading-
+    axis row whose gradient is entirely zero is untouched (its params, both
+    moments and its per-row step count stay put; the state carries a [rows]
+    int32 count per leaf for the per-row bias correction).  With dense
+    nonzero gradients every row updates every step and the trajectory is
+    `adamw`'s with the same hyperparameters (the defaults differ:
+    embeddings want b2 0.999 and no weight decay).  As the other
+    optimizers, the new moments and counts are written into the state's
+    tensors."""
+    from repro_torch.optim.optimizers import Optimizer, _by_name
+    from repro_torch.utils import tree_map
+
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        counts = lambda p: torch.zeros(p.shape[:1], dtype=torch.int32,  # noqa: E731
+                                       device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "t": tree_map(counts, params)}
+
+    def prepare(step):
+        return dict(lr=lr_fn(step))
+
+    def leaf(g, s, p, c):
+        g32 = g.to(torch.float32)
+        touched = (g32 != 0).reshape(g32.shape[0], -1).any(1)
+        p2, m2, v2, t2 = row_adamw_update(
+            p, g32, s["m"], s["v"], s["t"], touched, lr=c["lr"], b1=b1, b2=b2,
+            eps=eps, weight_decay=weight_decay)
+        for name, new in (("m", m2), ("v", v2), ("t", t2)):
+            s[name].copy_(new)
+        return (p2 - p).to(p.dtype), s
+
+    return Optimizer(init, prepare, leaf, *_by_name("m", "v", "t"))

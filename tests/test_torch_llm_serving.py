@@ -60,8 +60,8 @@ def _t(a):
 
 
 def _close(got, want, tol=TOL):
-    np.testing.assert_allclose(np.asarray(got.float()), np.asarray(want, np.float32),
-                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(np.asarray(got.detach().float()),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -528,19 +528,12 @@ def test_seeded_draw(arch):
             for path, leaf in jax.tree_util.tree_flatten_with_path(abstract)[0]}
     a = TT.init_params(cfg, 3, CPU)
     again, other = TT.init_params(cfg, 3, CPU), TT.init_params(cfg, 4, CPU)
-    got = {}
-    for name, t in a.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":  # blocks.<i>.<dict>.<key> -> stacked leaf
-            key = "/".join(["blocks"] + parts[2:])
-            got.setdefault(key, []).append(t)
-        else:
-            got["/".join(parts)] = [t]
+    # blocks.<dict>.<key> is the stacked [L, ...] leaf, trainable
+    got = {"/".join(name.split(".")): t for name, t in a.named_parameters()}
     assert set(got) == set(want)
-    for key, ts in got.items():
-        stacked = torch.stack(ts) if key.startswith("blocks/") else ts[0]
+    for key, stacked in got.items():
         assert tuple(stacked.shape) == tuple(want[key]), key
-        assert stacked.dtype == torch.float32 and not stacked.requires_grad
+        assert stacked.dtype == torch.float32 and stacked.requires_grad
     for (name, t), (_, t2), (_, t3) in zip(a.named_parameters(),
                                            again.named_parameters(),
                                            other.named_parameters()):
@@ -552,8 +545,10 @@ def test_seeded_draw(arch):
             assert not t.any(), name
         else:
             assert not torch.equal(t, t3), name
-            fan_in = {"wo": t.shape[0] * t.shape[1] if t.dim() == 3 else t.shape[0]
-                      }.get(leaf, t.shape[0])
+            # a layer's shape: the stacked leaves lead with L
+            shape = t.shape[1:] if name.startswith("blocks.") else t.shape
+            fan_in = {"wo": shape[0] * shape[1] if len(shape) == 3 else shape[0]
+                      }.get(leaf, shape[0])
             std = 0.02 if name == "embed" else fan_in ** -0.5
             assert abs(float(t.std()) / std - 1.0) < 0.1, (name, float(t.std()), std)
 

@@ -1,0 +1,638 @@
+"""PyTorch port, LLM training: `repro_torch` held to `repro` on the CPU.
+
+The data pipeline's streams and batches (bitwise), the optimizers, the
+clip and the schedule on one numpy tree, checkpoints in the reference's
+layout (a JAX-written one restored into the port, `_gc`), the loss and
+every gradient leaf of both smoke configs against
+`jax.value_and_grad(loss_fn)` from JAX's weights (`params_from_numpy`),
+three train steps against the reference's jitted step, the plain
+gradients of `chunked_attention` and `_chunked_linear_attention` (and of
+the two kernels' plain versions) against `jax.grad`, `run_training` and
+the examples.  On the CPU the kernel wrappers take their plain versions,
+so no kernel launches here; the card runs them in `chip_smoke.py`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import base as tbase
+from repro_torch.data import pipeline as tpipe
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wkv_chunk as twkv
+from repro_torch.launch import train as ttrain
+from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as TT
+from repro_torch.optim import optimizers as topt
+from repro_torch.utils import tree_flatten_with_paths
+
+CPU = torch.device("cpu")
+ARCHS = ["llama3.2-1b", "rwkv6-3b"]
+B, S = 2, 32
+# fp32 port against fp32 JAX: the same formulas, sums in another order
+TOL = 1e-4
+# bf16 port against bf16 JAX: both round activations to bf16 at the same
+# places, but the matmuls' bf16 outputs and the cast of each fp32 sum may
+# land one bf16 step (2**-8 relative) apart, and two layers carry them into
+# the loss and gradients.  Each gradient leaf within BF16_GRAD_SHARE of its
+# largest magnitude, the loss within BF16_LOSS
+BF16_GRAD_SHARE, BF16_LOSS = 5e-2, 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's smoke-size tensors: more only
+    contend with the other test workers' processes on a shared host (six
+    workers took a 3 s run to 600 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax():
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    return jax, jnp
+
+
+def _t(a, dtype=np.float32):
+    return torch.from_numpy(np.array(a, dtype))
+
+
+def _flat(tree) -> dict:
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf
+            for path, leaf in tree_flatten_with_paths(tree)}
+
+
+def _jflat(jax, tree) -> dict:
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+            np.asarray(leaf, np.float32)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _close(got, want, tol=TOL, what=""):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
+                               rtol=tol, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# The data pipeline
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("vocab,batch,seq,seed", [(512, 4, 64, 0), (8192, 3, 257, 5)])
+def test_token_stream_bitwise_equal(vocab, batch, seq, seed):
+    _jax()
+    from repro.data.pipeline import synthetic_token_stream
+
+    want = synthetic_token_stream(vocab, batch, seq, seed=seed)
+    got = tpipe.synthetic_token_stream(vocab, batch, seq, seed=seed, device=CPU)
+    for _ in range(3):
+        w, g = next(want), next(got)
+        for key in ("tokens", "labels", "positions"):
+            assert g[key].dtype == torch.int32
+            np.testing.assert_array_equal(g[key].numpy(), np.asarray(w[key]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_make_batch_bitwise_equal(arch):
+    _jax()
+    from repro.configs import get_smoke_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import make_batch
+
+    shape = ShapeConfig("t", 48, 3, "train")
+    want = make_batch(get_smoke_config(arch), shape, seed=4)["batch"]
+    got = tpipe.make_batch(tbase.get_smoke_config(arch),
+                           tbase.ShapeConfig("t", 48, 3, "train"), 4, CPU)["batch"]
+    assert set(got) == set(want)
+    for key in got:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    pre = tpipe.make_batch(tbase.get_smoke_config(arch),
+                           tbase.ShapeConfig("p", 48, 3, "prefill"), 4, CPU)["batch"]
+    np.testing.assert_array_equal(pre["tokens"].numpy(), np.asarray(want["tokens"]))
+    assert "labels" not in pre
+
+
+# ---------------------------------------------------------------------------
+# Optimizers, clip, schedule
+# ---------------------------------------------------------------------------
+
+
+def _np_tree(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"big": rng.standard_normal((160, 136)).astype(np.float32),
+            "stack": {"w": rng.standard_normal((3, 8, 5)).astype(np.float32),
+                      "b": rng.standard_normal((7,)).astype(np.float32)}}
+
+
+def _opt_pair(name):
+    from repro.optim import optimizers as jopt
+
+    kw = dict(weight_decay=0.05) if name in ("adafactor", "sgdm") else {}
+    return (jopt.make_optimizer(name, jopt.cosine_schedule(1e-2, 2, 10), **kw),
+            topt.make_optimizer(name, topt.cosine_schedule(1e-2, 2, 10), **kw))
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor", "sgdm", "sparse_adamw"])
+def test_optimizers_match_reference(name):
+    jax, jnp = _jax()
+    jo, to = _opt_pair(name)
+    params = _np_tree(0)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = {"big": _t(params["big"]),
+          "stack": {k: _t(v) for k, v in params["stack"].items()}}
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(4):
+        grads = _np_tree(step + 1)
+        if name == "sparse_adamw":  # a row with no gradient stays put
+            grads["big"][3] = 0.0
+        jg = jax.tree.map(jnp.asarray, grads)
+        tg = {"big": _t(grads["big"]),
+              "stack": {k: _t(v) for k, v in grads["stack"].items()}}
+        ju, js = jo.update(jg, js, jp, jnp.asarray(step, jnp.int32))
+        tu, ts = to.update(tg, ts, tp, step)
+        for key, want in _jflat(jax, ju).items():
+            _close(_flat(tu)[key], want, 1e-6, f"{name} step {step} update {key}")
+        jst, tst = _jflat(jax, js), _flat(ts)
+        assert set(jst) == set(tst)
+        for key, want in jst.items():
+            _close(tst[key], want, 1e-6, f"{name} step {step} state {key}")
+        jp = jax.tree.map(lambda p, u: p + u, jp, ju)
+        tp = {"big": tp["big"] + tu["big"],
+              "stack": {k: tp["stack"][k] + tu["stack"][k] for k in tp["stack"]}}
+
+
+def test_apply_equals_update_then_add():
+    _, to = _opt_pair("adamw")
+    a = {k: _t(v) for k, v in _np_tree(0)["stack"].items()}
+    b = {k: v.clone() for k, v in a.items()}
+    sa, sb = to.init(a), to.init(b)
+    for step in range(3):
+        g = {k: _t(v) for k, v in _np_tree(step + 1)["stack"].items()}
+        u, sa = to.update(g, sa, a, step)
+        a = {k: a[k] + u[k] for k in a}
+        sb = to.apply_(g, sb, b, step)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert torch.equal(sa["m"][k], sb["m"][k]) and torch.equal(sa["v"][k], sb["v"][k])
+
+
+def test_clip_norm_schedule_and_registry_match_reference():
+    jax, jnp = _jax()
+    from repro.optim import optimizers as jopt
+
+    tree = _np_tree(3)
+    for max_norm in (1.0, 1e3):
+        jc, jn = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, tree), max_norm)
+        tt = {"big": _t(tree["big"]), "stack": {k: _t(v) for k, v in tree["stack"].items()}}
+        tc, tn = topt.clip_by_global_norm(tt, max_norm)
+        _close(tn, jn, 1e-6)
+        for key, want in _jflat(jax, jc).items():
+            _close(_flat(tc)[key], want, 1e-6, key)
+        norm = topt.clip_by_global_norm_(tt, max_norm)  # in place
+        assert torch.equal(norm, tn)
+        for key, leaf in _flat(tt).items():
+            assert torch.equal(leaf, _flat(tc)[key]), key
+    jl, tl = jopt.cosine_schedule(3e-4, 10, 100), topt.cosine_schedule(3e-4, 10, 100)
+    for step in (0, 1, 5, 10, 11, 50, 99, 100, 150):
+        got = tl(step)
+        assert got.dtype == torch.float32
+        _close(got, jl(step), 1e-9, f"lr({step})")
+    with pytest.raises(ValueError, match="'adam'") as err:
+        topt.make_optimizer("adam", tl)
+    for name in ("adafactor", "adamw", "sgdm", "sparse_adamw"):
+        assert name in str(err.value)
+    state = topt.adafactor(tl).init({"big": torch.zeros(16, 200, 300),
+                                     "small": torch.zeros(8, 8)})
+    assert state["big"]["vr"].shape == (16, 200) and state["big"]["vc"].shape == (16, 300)
+    assert set(state["small"]) == {"v"}
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+
+def test_jax_checkpoint_restores_into_the_port(tmp_path):
+    jax, jnp = _jax()
+    from repro.checkpoint import save_checkpoint as jsave
+    from repro.configs import get_smoke_config
+    from repro.launch.train import default_optimizer as jdefault
+    from repro.launch.train import init_train_state as jinit
+
+    arch = "rwkv6-3b"
+    jcfg, cfg = get_smoke_config(arch), tbase.get_smoke_config(arch)
+    jstate = jinit(jcfg, jdefault(jcfg), jax.random.PRNGKey(2))
+    # a moment that is not zero, so the optimizer state's carry-over shows
+    jstate["opt"]["m"] = jax.tree.map(lambda p: p * 0.5 + 1.0, jstate["params"])
+    jstate["step"] = jnp.asarray(5, jnp.int32)
+    path = jsave(str(tmp_path / "jax"), 5, jstate)
+    opt = ttrain.default_optimizer(cfg)
+    target = ttrain.init_train_state(cfg, opt, 0, CPU)
+    from repro_torch.checkpoint import load_checkpoint, restore_latest, save_checkpoint
+
+    with open(path + ".json") as f:
+        keys = json.load(f)["keys"]
+    port_keys = sorted("/".join(map(str, p)) for p, _ in tree_flatten_with_paths(
+        {"params": TT.param_tree(target["params"]), "opt": target["opt"],
+         "step": target["step"]}))
+    assert keys == port_keys
+    restored, step = restore_latest(str(tmp_path / "jax"), target)
+    assert step == 5 and int(restored["step"]) == 5
+    assert restored["params"] is target["params"]  # restored in place
+    want = _jflat(jax, jstate)
+    got = _flat({"params": TT.param_tree(restored["params"]), "opt": restored["opt"]})
+    for key, leaf in got.items():
+        np.testing.assert_array_equal(leaf.detach().numpy(), want[key], err_msg=key)
+    # and back: the port's checkpoint holds the same arrays under the same keys
+    out = save_checkpoint(str(tmp_path / "port"), 5, restored)
+    data = np.load(out)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(data[key.replace("/", "__")], arr, err_msg=key)
+    again = load_checkpoint(out, ttrain.init_train_state(cfg, opt, 1, CPU))
+    for key, leaf in _flat({"params": TT.param_tree(again["params"])}).items():
+        np.testing.assert_array_equal(leaf.detach().numpy(), want[key], err_msg=key)
+
+
+def test_checkpoint_gc_keeps_three(tmp_path):
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+
+    state = {"params": {"w": torch.arange(6.0).reshape(2, 3)},
+             "step": torch.zeros((), dtype=torch.int32)}
+    for step in (1, 2, 3, 4, 5):
+        save_checkpoint(str(tmp_path), step, state)
+    ckpts = sorted(f for f in os.listdir(tmp_path) if f.endswith(".npz"))
+    assert ckpts == [f"ckpt_{s:08d}.npz" for s in (3, 4, 5)]
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".json")) == [
+        c + ".json" for c in ckpts]
+    restored, step = restore_latest(str(tmp_path), state)
+    assert step == 5 and torch.equal(restored["params"]["w"], state["params"]["w"])
+    assert restore_latest(str(tmp_path / "none"), state) == (None, -1)
+
+
+# ---------------------------------------------------------------------------
+# The loss and its gradient, the train step
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Per (arch, dtype): the JAX config and params, and the port's config
+    and `params_from_numpy` model over the same weights."""
+    jax, _ = _jax()
+    from repro.configs import get_smoke_config
+    from repro.models import transformer as JT
+
+    cache = {}
+
+    def get(arch, dtype):
+        if (arch, dtype) not in cache:
+            jcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+            cfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype=dtype)
+            jparams = JT.init_params(jcfg, jax.random.PRNGKey(1))
+            tree = jax.tree.map(np.asarray, jparams)
+            cache[arch, dtype] = (jcfg, jparams, cfg, tree)
+        jcfg, jparams, cfg, tree = cache[arch, dtype]
+        return jcfg, jparams, cfg, TT.params_from_numpy(cfg, tree, CPU)
+
+    return get
+
+
+def _stream_batch(jnp, vocab, seed=7, batch=B, seq=S):
+    from repro.data.pipeline import synthetic_token_stream
+
+    jb = next(synthetic_token_stream(vocab, batch, seq, seed=seed))
+    tb = next(tpipe.synthetic_token_stream(vocab, batch, seq, seed=seed, device=CPU))
+    return jb, tb
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_every_gradient_match_jax(models, arch, dtype):
+    jax, jnp = _jax()
+    from repro.models import transformer as JT
+
+    jcfg, jparams, cfg, params = models(arch, dtype)
+    jb, tb = _stream_batch(jnp, cfg.vocab_size)
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        lambda p: JT.loss_fn(jcfg, p, jb), has_aux=True)(jparams)
+    tree = TT.param_tree(params)
+    leaves = [leaf for _, leaf in tree_flatten_with_paths(tree)]
+    loss, met = TT.loss_fn(cfg, params, tb)
+    grads = dict(zip(_flat(tree), torch.autograd.grad(loss, leaves)))
+    want = _jflat(jax, jgrads)
+    assert set(grads) == set(want)
+    if dtype == "float32":
+        _close(loss, jloss)
+        _close(met["xent"], jmet["xent"])
+        for key, g in grads.items():
+            _close(g, want[key], TOL, key)
+        return
+    assert abs(float(loss) - float(jloss)) <= BF16_LOSS, (float(loss), float(jloss))
+    for key, g in grads.items():
+        scale = float(np.abs(want[key]).max())
+        gap = float(np.abs(g.float().numpy() - want[key]).max())
+        assert gap <= BF16_GRAD_SHARE * scale + 1e-6, (key, gap, scale)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_train_steps_match_reference(models, arch):
+    jax, jnp = _jax()
+    from repro.launch.train import make_train_step as jmake
+    from repro.optim import optimizers as jopt
+
+    jcfg, jparams, cfg, params = models(arch, "float32")
+    # AdamW moves a parameter by about lr g / (|g| + eps) in its first
+    # steps, so a gradient entry within fp32 noise of 0 (1e-9 here, summed in
+    # another order) can move it by up to lr in one implementation and not
+    # the other: at lr 1e-2 and eps 1e-8 one entry in 10**5 read 2e-4 apart.
+    # At lr 1e-3 and eps 1e-6 such an entry moves by at most lr 1e-9 / 1e-6
+    jo = jopt.make_optimizer("adamw", jopt.cosine_schedule(1e-3, 0, 10), eps=1e-6)
+    to = topt.make_optimizer("adamw", topt.cosine_schedule(1e-3, 0, 10), eps=1e-6)
+    jstate = {"params": jparams, "opt": jo.init(jparams),
+              "step": jnp.zeros((), jnp.int32)}
+    tstate = {"params": params, "opt": to.init(TT.param_tree(params)),
+              "step": torch.zeros((), dtype=torch.int32)}
+    jstep = jax.jit(jmake(jcfg, jo))
+    tstep = ttrain.make_train_step(cfg, to)
+    from repro.data.pipeline import synthetic_token_stream
+
+    jstream = synthetic_token_stream(cfg.vocab_size, B, S, seed=3)
+    tstream = tpipe.synthetic_token_stream(cfg.vocab_size, B, S, seed=3, device=CPU)
+    losses = []
+    for i in range(3):
+        jstate, jm = jstep(jstate, next(jstream))
+        tstate, tm = tstep(tstate, next(tstream))
+        _close(tm["loss"], jm["loss"], TOL, f"step {i} loss")
+        _close(tm["grad_norm"], jm["grad_norm"], TOL, f"step {i} grad_norm")
+        losses.append(float(tm["loss"]))
+    assert int(tstate["step"]) == 3
+    want = _jflat(jax, {"params": jstate["params"], "opt": jstate["opt"]})
+    got = _flat({"params": TT.param_tree(tstate["params"]), "opt": tstate["opt"]})
+    for key, leaf in got.items():
+        _close(leaf, want[key], TOL, key)
+
+
+@pytest.mark.parametrize("policy", ["none", "full"])
+def test_remat_policy_changes_no_number(models, policy):
+    """"none" runs the blocks as they are, "minimal" and "full" under a
+    checkpoint: the loss and the gradients are bitwise the same."""
+    jax, jnp = _jax()
+    _, _, cfg, params = models("llama3.2-1b", "float32")
+    _, tb = _stream_batch(jnp, cfg.vocab_size)
+    leaves = [leaf for _, leaf in tree_flatten_with_paths(TT.param_tree(params))]
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, remat_policy=policy)):
+        loss, _ = TT.loss_fn(c, params, tb)
+        outs.append((loss, torch.autograd.grad(loss, leaves)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+
+
+def test_xent_chunks_match_reference():
+    jax, jnp = _jax()
+    from repro.models.transformer import chunked_softmax_xent as jxent
+
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((2, 96, 16)).astype(np.float32)
+    head = rng.standard_normal((16, 50)).astype(np.float32)
+    labels = rng.integers(0, 50, (2, 96)).astype(np.int32)
+    cfg = tbase.get_smoke_config("llama3.2-1b")
+    for chunk in (32, 40, 1024):  # 40 does not divide 96: one chunk of S
+        want = jxent(None, jnp.asarray(h), jnp.asarray(head), jnp.asarray(labels),
+                     chunk=chunk)
+        got = TT.chunked_softmax_xent(cfg, _t(h), _t(head), torch.from_numpy(labels),
+                                      chunk=chunk)
+        _close(got, want, 1e-5, f"chunk {chunk}")
+
+
+# ---------------------------------------------------------------------------
+# The plain gradients of the two kernels' routines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S_,qc,kc,causal", [(64, 16, 32, True), (48, 48, 16, False)])
+def test_chunked_attention_gradient_matches_jax(S_, qc, kc, causal):
+    jax, jnp = _jax()
+    from repro.models.layers import chunked_attention as jattn
+
+    rng = np.random.default_rng(11)
+    q, k, v, ct = (rng.standard_normal((2, S_, 4, 32)).astype(np.float32)
+                   for _ in range(4))
+    jg = jax.grad(lambda a, b, c: jnp.sum(jattn(a, b, c, causal=causal, q_chunk=qc,
+                                                 kv_chunk=kc) * ct),
+                  argnums=(0, 1, 2))(q, k, v)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    out = tlayers.chunked_attention(*leaves, causal=causal, q_chunk=qc, kv_chunk=kc)
+    tg = torch.autograd.grad(out, leaves, _t(ct))
+    for name, got, want in zip("qkv", tg, jg):
+        _close(got, want, TOL, f"d{name}")
+
+
+def _rwkv_inputs(rng, B_=2, S_=40, H=3, K=16):
+    q, k, v = (rng.standard_normal((B_, S_, H, K)).astype(np.float32) * 0.5
+               for _ in range(3))
+    # log decays across the clip floor; no value within 1e-3 of -1.2 or 0,
+    # where the clamp's and jnp.clip's gradients differ at a tie
+    g = -np.exp(rng.standard_normal((B_, S_, H, K)) * 0.8 - 0.5).astype(np.float32)
+    g = np.where(np.abs(g + 1.2) < 1e-3, g - 3e-3, g).astype(np.float32)
+    g[0, :3] = np.float32(0.25)  # above 0: clipped to 0, no gradient
+    u = rng.standard_normal((H, K)).astype(np.float32) * 0.3
+    ct = rng.standard_normal((B_, S_, H, K)).astype(np.float32)
+    return q, k, v, g, u, ct
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_chunked_linear_attention_gradient_matches_jax(chunk):
+    jax, jnp = _jax()
+    from repro.models.ssm import _chunked_linear_attention as jscan
+
+    q, k, v, g, u, ct = _rwkv_inputs(np.random.default_rng(chunk))
+    jg = jax.grad(lambda *a: jnp.sum(jscan(*a[:4], chunk=chunk, mode="rwkv",
+                                           bonus=a[4]) * ct),
+                  argnums=(0, 1, 2, 3, 4))(q, k, v, g, u)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v, g, u)]
+    out = tssm._chunked_linear_attention(*leaves[:4], chunk=chunk, mode="rwkv",
+                                         bonus=leaves[4])
+    tg = torch.autograd.grad(out, leaves, _t(ct))
+    for name, got, want in zip(("q", "k", "v", "g", "u"), tg, jg):
+        _close(got, want, TOL, f"d{name}")
+    clipped = (g < -1.2) | (g > 0)
+    assert clipped.any() and (~clipped).any()
+    assert not tg[3].numpy()[clipped].any()  # dg = 0 where g was clipped
+    assert not np.asarray(jg[3])[clipped].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_plain_version_matches_jax(causal, dtype):
+    """`flash_attention_bwd` on the CPU (its plain version, autograd through
+    `flash_attention_ref`) against `jax.vjp` of the reference's
+    `flash_attention_ref`; the LSE output against a float64 log-sum-exp."""
+    jax, jnp = _jax()
+    from repro.kernels.ref import flash_attention_ref as jref
+
+    rng = np.random.default_rng(2)
+    q, k, v, do = (rng.standard_normal((2, 3, 40, 32)).astype(np.float32)
+                   for _ in range(4))
+    jt = getattr(jnp, dtype)
+    tt = getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda a, b, c: jref(a, b, c, causal=causal),
+                     *(jnp.asarray(x, jt) for x in (q, k, v)))
+    jg = vjp(jnp.asarray(do, jt))
+    tq, tk, tv, tdo = (_t(x).to(tt) for x in (q, k, v, do))
+    o, lse = tflash.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    tg = tflash.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    tol = TOL if dtype == "float32" else 2.0 ** -6  # bf16 gradients, rounded once
+    for name, got, want in zip("qkv", tg, jg):
+        assert got.dtype == tt
+        scale = float(np.abs(np.asarray(want, np.float32)).max())
+        _close(got, np.asarray(want, np.float32), tol * max(scale, 1.0), f"d{name}")
+    s = np.einsum("bhqd,bhkd->bhqk", *(x.float().double().numpy() for x in (tq, tk)))
+    s = s / np.sqrt(32)
+    if causal:
+        s = np.where(np.tril(np.ones((40, 40), bool)), s, -1e30)
+    want_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    _close(lse, want_lse, 1e-5, "lse")
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_backward_plain_version_matches_jax(with_state):
+    """`wkv_bwd` on the CPU (autograd through `wkv_chunk_ref` on the clipped
+    g) against `jax.vjp` of the reference's `wkv_chunk_ref` on `jnp.clip`'s
+    g, and `wkv` / `wkv_with_state` under autograd giving the same."""
+    jax, jnp = _jax()
+    from repro.kernels.ref import wkv_chunk_ref as jref
+
+    q, k, v, g, u, ct = _rwkv_inputs(np.random.default_rng(9), S_=24)
+    r, k, v, g, dy = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                      for x in (q, k, v, g, ct))
+    _, vjp = jax.vjp(lambda *a: jref(*a[:3], jnp.clip(a[3], -1.2, 0.0), a[4]),
+                     r, k, v, g, u)
+    jg = vjp(jnp.asarray(dy))
+    ds = None
+    if with_state:  # the state's cotangent: not in the reference's vjp
+        ds = np.zeros((2, 3, 16, 16), np.float32)
+    tg = twkv.wkv_bwd(*(_t(x) for x in (r, k, v, g, u)), _t(dy),
+                      None if ds is None else _t(ds))
+    for name, got, want in zip(("r", "k", "v", "g", "u"), tg, jg):
+        _close(got, want, TOL, f"d{name}")
+    leaves = [_t(x).requires_grad_() for x in (r, k, v, g, u)]
+    if with_state:
+        y, state = twkv.wkv_with_state(*leaves)
+        rng = np.random.default_rng(1)
+        dstate = _t(rng.standard_normal(state.shape))
+        ag = torch.autograd.grad((y, state), leaves, (_t(dy), dstate))
+        want = tref.wkv_bwd_ref(*(_t(x) for x in (r, k, v, g, u)), _t(dy), dstate)
+    else:
+        ag = torch.autograd.grad(twkv.wkv(*leaves), leaves, _t(dy))
+        want = tg
+    for name, got, w in zip(("r", "k", "v", "g", "u"), ag, want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0, msg=f"autograd d{name}")
+
+
+def test_cpu_gradients_launch_nothing():
+    before = (tflash.flash_attention.launches, tflash.flash_attention_bwd_dq.launches,
+              tflash.flash_attention_bwd_dkdv.launches, twkv.wkv.launches,
+              twkv.wkv_bwd.launches)
+    q = torch.randn(1, 2, 16, 32, requires_grad=True)
+    tflash.flash_attention(q, q, q).sum().backward()
+    r = torch.randn(1, 2, 16, 16, requires_grad=True)
+    twkv.wkv(r, r, r, -r.abs(), torch.zeros(2, 16)).sum().backward()
+    assert q.grad is not None and r.grad is not None
+    assert before == (tflash.flash_attention.launches,
+                      tflash.flash_attention_bwd_dq.launches,
+                      tflash.flash_attention_bwd_dkdv.launches, twkv.wkv.launches,
+                      twkv.wkv_bwd.launches)
+
+
+def test_backward_wrappers_reject_bad_inputs():
+    q = torch.randn(1, 2, 16, 32)
+    o, lse = tflash.flash_attention_with_lse(q, q, q)
+    for bad in (dict(do=q[:, :1]), dict(lse=lse[..., :8]), dict(o=q.double())):
+        args = dict(o=o, lse=lse, do=q)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            tflash.flash_attention_bwd(q, q, q, args["o"], args["lse"], args["do"])
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tflash.flash_attention_bwd_dq(q, q, q, o, lse, q)
+    r = torch.randn(1, 2, 16, 16)
+    u = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="dy"):
+        twkv.wkv_bwd(r, r, r, r, u, r[..., :8])
+    with pytest.raises(ValueError, match="dstate"):
+        twkv.wkv_bwd(r, r, r, r, u, r, torch.zeros(1, 2, 16, 8))
+
+
+# ---------------------------------------------------------------------------
+# The CLI loop and the examples
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_training_losses_fall(arch):
+    """The reference's CLI loop at its default schedule (100 warm-up
+    steps): over 50 steps the mean loss of the last 10 is below the first
+    10's (one batch's loss varies by about 0.15 with its tokens)."""
+    losses = ttrain.run_training(arch, 50, batch=8, seq=32, log_every=100,
+                                 device="cpu")
+    assert len(losses) == 50 and all(np.isfinite(losses))
+    assert np.mean(losses[-10:]) < np.mean(losses[:10])
+
+
+def test_train_main_and_checkpoints(tmp_path, monkeypatch):
+    losses = ttrain.main(["--arch", "rwkv6-3b", "--steps", "3", "--batch", "2",
+                          "--seq", "16", "--device", "cpu"])
+    assert len(losses) == 3
+    assert ttrain.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--steps", "1"])
+
+
+def test_train_llm_example_presets_and_learning(monkeypatch):
+    """The presets equal the reference example's field by field; the
+    example's loop (its 5 % drop asserted inside) at a width the CPU runs
+    in seconds (the 40m preset runs on the card: `chip_smoke.py`'s
+    `llm_train_small`)."""
+    import importlib.util
+
+    from repro_torch.examples import train_llm_100m
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "train_llm_100m.py")
+    spec = importlib.util.spec_from_file_location("ref_train_llm_100m", path)
+    _jax()
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert set(train_llm_100m.PRESETS) == set(ref.PRESETS) == {"40m", "100m"}
+    for name, cfg in train_llm_100m.PRESETS.items():
+        for field in dataclasses.fields(cfg):
+            assert getattr(cfg, field.name) == getattr(ref.PRESETS[name], field.name), \
+                (name, field.name)
+    monkeypatch.setitem(train_llm_100m.PRESETS, "40m", dataclasses.replace(
+        train_llm_100m.PRESETS["40m"], num_layers=2, d_model=64, num_heads=2,
+        num_kv_heads=1, head_dim=32, d_ff=128, vocab_size=512))
+    out = train_llm_100m.main(["--steps", "30", "--batch", "4", "--seq", "64",
+                               "--device", "cpu"])
+    assert out["last"] < out["first"] * 0.95
+
+
+def test_quickstart_runs_every_step():
+    from repro_torch.examples import quickstart
+
+    out = quickstart.main(["--device", "cpu"])
+    assert {"sync", "epoch_fixed", "variation", "llm_losses"} <= set(out)
+    assert out["llm_losses"][-1] < out["llm_losses"][0]

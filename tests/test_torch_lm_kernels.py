@@ -264,8 +264,8 @@ def _bad_inputs():
                                                      v.to("meta")), ValueError),
         "flash kernel D=48": (lambda: tflash._check_kernel(
             *(torch.zeros(1, 2, 64, 48) for _ in range(3))), ValueError),
-        "flash kernel needs a gradient": (lambda: tflash._check_kernel(
-            q.clone().requires_grad_(), k, v), NotImplementedError),
+        "flash backward lse shape": (lambda: tflash.flash_attention_bwd(
+            q, k, v, q, torch.zeros(1, 2, 32), q), ValueError),
         "flash kernel not contiguous": (lambda: tflash._check_kernel(
             q.transpose(2, 3).contiguous().transpose(2, 3), k, v), ValueError),
         "wkv rank 3": (lambda: wkv(r[0], kk[0], vv[0], g[0], u), ValueError),
@@ -276,8 +276,8 @@ def _bad_inputs():
         "wkv kernel K=24": (lambda: twkv._check_kernel(
             *(torch.zeros(1, 2, 64, 24) for _ in range(4)), torch.zeros(2, 24)),
             ValueError),
-        "wkv kernel needs a gradient": (lambda: twkv._check_kernel(
-            r, kk, vv, g, u.clone().requires_grad_()), NotImplementedError),
+        "wkv backward dy shape": (lambda: twkv.wkv_bwd(
+            r, kk, vv, g, u, vv[:, :, :32]), ValueError),
         "wkv kernel off a 16-byte boundary": (lambda: twkv._check_kernel(
             *(torch.zeros(4 * 64 * 16 + 1)[1:].view(1, 4, 64, 16)
               for _ in range(4)), torch.zeros(4, 16)), ValueError),
@@ -434,3 +434,66 @@ def test_cuda_wkv_chunk_invariance(cuda_device):
     outs = [ops.wkv(r, k, v, g, u, chunk=c).cpu().numpy() for c in (16, 32, 64)]
     for other in outs[1:]:
         np.testing.assert_array_equal(other, outs[0])
+
+
+CUDA_BWD_CASES = [  # B, H, S, T, D, causal, dtype
+    (1, 4, 256, 256, 64, True, "bfloat16"),
+    (1, 2, 300, 200, 128, False, "float32"),
+    (2, 2, 129, 129, 32, True, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,H,S,T,D,causal,dtype", CUDA_BWD_CASES)
+def test_cuda_flash_backward_matches_plain_on_card(cuda_device, B, H, S, T, D,
+                                                   causal, dtype):
+    """Autograd through the flash kernel (its two backward kernels) against
+    autograd through the plain version: fp32 within 1e-4; bf16 within 2**-6
+    of the largest gradient (both round dP, P and the gradients to bf16 at
+    other places); two launches bitwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, H, S, D), generator=gen, device=cuda_device).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, H, T, D), generator=gen, device=cuda_device).to(dt)
+            for _ in range(2))
+    before = (tflash.flash_attention_bwd_dq.launches,
+              tflash.flash_attention_bwd_dkdv.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(tflash.flash_attention(*leaves, causal=causal), leaves, do)
+    again = torch.autograd.grad(tflash.flash_attention(*leaves, causal=causal), leaves, do)
+    assert (tflash.flash_attention_bwd_dq.launches,
+            tflash.flash_attention_bwd_dkdv.launches) == (before[0] + 2, before[1] + 2)
+    want = tref.flash_attention_bwd_ref(q, k, v, do, causal=causal)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        if dtype == "float32":
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+        else:
+            gap = float((a.float() - w.float()).abs().max())
+            assert gap <= 2.0 ** -6 * float(w.float().abs().max()), gap
+
+
+@pytest.mark.parametrize("S,K,with_state", [(1000, 64, True), (300, 32, False)])
+def test_cuda_wkv_backward_matches_plain_on_card(cuda_device, S, K, with_state):
+    """Autograd through the WKV kernel (its backward kernel) against autograd
+    through the plain recurrence within (1e-4, 1e-3); dg 0 where g was
+    clipped; two launches bitwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda_device) * scale
+
+    r, k, v = (draw(2, 3, S, K, scale=0.5) for _ in range(3))
+    g = -torch.exp(draw(2, 3, S, K, scale=0.8) - 0.5)
+    u, dy, ds = draw(3, K, scale=0.3), draw(2, 3, S, K), draw(2, 3, K, K)
+    got = twkv.wkv_bwd(r, k, v, g, u, dy, ds if with_state else None)
+    again = twkv.wkv_bwd(r, k, v, g, u, dy, ds if with_state else None)
+    want = tref.wkv_bwd_ref(r, k, v, g, u, dy, ds if with_state else None)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=WKV_ATOL, rtol=WKV_RTOL)
+    assert not got[3][(g < -1.2) | (g > 0)].any()
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, g, u)]
+    ag = torch.autograd.grad(twkv.wkv(*leaves), leaves, dy)
+    ref_grads = twkv.wkv_bwd(r, k, v, g, u, dy)
+    assert all(torch.equal(a, b) for a, b in zip(ag, ref_grads))

@@ -192,7 +192,11 @@ for name in ("repro_torch.core.training", "repro_torch.core.execution.chunk",
              "repro_torch.core.protocols.sync",
              "repro_torch.core.partition.feature_partition",
              "repro_torch.models.transformer", "repro_torch.launch.serve",
-             "repro_torch.launch.batching", "repro_torch.launch.serve_llm"):
+             "repro_torch.launch.batching", "repro_torch.launch.serve_llm",
+             "repro_torch.launch.train", "repro_torch.optim.optimizers",
+             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
+             "repro_torch.examples.train_llm_100m",
+             "repro_torch.examples.quickstart"):
     assert name in names, name
 # the packages' lazy exports, every one resolved
 for pkg in ("repro_torch.core", "repro_torch.core.execution",
