@@ -23,13 +23,15 @@ one WKV launch a layer with the final state, the same checks, layer 0's y
 and state against the plain recurrence and y bitwise with and without the
 state pointer at chunks 16, 32, 64 (`rwkv_prefill`).
 Then the LLM training path (`llm_train_phases`): the flash backward's two
-kernels (dQ, then dK/dV) through autograd of `ops.flash_attention` at
-llama3.2-1b's training width (B 2, S 4096), counted from 0, then 12 cases
-(bf16 and fp32, causal and not, D 32, 64, 128, ragged, S != T) each
-against autograd through the plain version, bitwise across two launches,
-the forward's o bitwise with and without its LSE output, timed beside the
-bound and SDPA's backward (`flash_bwd`); the WKV backward kernel the same
-way at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
+kernels (dQ, then dK/dV; bf16: `wgmma` with TMA-fed tiles) through
+autograd of `ops.flash_attention` at llama3.2-1b's training width (B 2, S
+4096), counted from 0, then 18 cases (bf16 and fp32, causal and not, D 32,
+64, 128, ragged, S != T, T within one key tile) each against autograd
+through the plain version, bitwise across two launches, the forward's o
+bitwise with and without its LSE output, timed beside the bound and SDPA's
+backward, each pass's device time from one trace, and the kernels'
+registers, shared memory and CTAs an SM (`flash_bwd`); the WKV backward
+kernel the same way at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
 cotangent; K 32), dg 0 wherever g was clipped (`wkv_bwd`); then three
 AdamW steps of llama3.2-1b (train_4k's 4096 tokens, batch cut to 2) and
 two of rwkv6-3b (B 1) at full width and depth under remat "minimal"
@@ -1969,9 +1971,9 @@ def llm_phases(device):
 # `flash_attention_ref`), elementwise within atol + rtol (|plain| + the sum
 # of the magnitudes of the gradient's terms).  fp32: sums in another order
 # over up to 4096 terms.  bf16: the plain version rounds dP and the three
-# gradients to bf16 and the kernel keeps dP in fp32, and delta reads the
-# bf16 output, so each gradient may land a few bf16 steps (2**-8) of its
-# terms' magnitude apart
+# gradients to bf16, the kernels keep dP in fp32 and round dS (2**-9 of
+# each term) before dQ and dK, and delta reads the bf16 output, so each
+# gradient may land a few bf16 steps (2**-8) of its terms' magnitude apart
 FLASH_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -6)}
 # the forward's log-sum-exp against the plain fp32 one
 FLASH_LSE_TOL = (1e-5, 1e-5)
@@ -1995,6 +1997,10 @@ LLM_TRAIN_LR = 3e-4  # AdamW, the reference's default base lr, no warm-up
 # (batch 8, seq 256, lr 3e-3, 20 warm-up steps) for this many steps
 LLM_SMALL_STEPS = 60
 LLM_SMALL_SECONDS = 10.0
+# the backward passes' kernels as a trace names them (bf16: the wgmma ones)
+FLASH_BWD_TRACE = {
+    torch.bfloat16: ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
+    torch.float32: ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
 
 
 def flash_bwd_plain(q, k, v, do, causal):
@@ -2045,7 +2051,9 @@ def flash_bwd_case(name, q, k, v, do, causal, reps):
     bitwise across two launches; the times of each pass, of the plain
     backward and of SDPA's backward (`torch.autograd.grad` through
     `scaled_dot_product_attention`: the yardstick only), and each pass's
-    bound.  Returns the dq row and the dk/dv row."""
+    bound.  Returns the dq row, the dk/dv row (emitted by `flash_bwd_phase`
+    once the trace has given their device times) and the two passes'
+    calls."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkdv,
@@ -2079,13 +2087,7 @@ def flash_bwd_case(name, q, k, v, do, causal, reps):
         check(overs[what] <= 0, f"flash backward {name}: {what} beyond {tol[0]} "
               f"+ {tol[1]} x scale by {overs[what]} (max abs {errs[what]})")
     del want, scales
-    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-    with sdpa_kernel(SDPA_BACKENDS):
-        out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
-                                                               is_causal=causal)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
-                                                         retain_graph=True), reps)
-    del out, qq, kk, vv
+    library_ms = sdpa_backward_ms(q, k, v, do, causal, SDPA_BACKENDS, reps)
     pairs = attention_pairs(S, T, causal)
     rate = BF16_TENSOR_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     e = q.element_size()
@@ -2114,9 +2116,40 @@ def flash_bwd_case(name, q, k, v, do, causal, reps):
                     **bound(e * bhd * (2 * S + 4 * T) + 8 * B * H * S,
                             4 * 2 * D * B * H * pairs, rate))
     dq_row["seconds"] = dkdv_row["seconds"] = time.perf_counter() - t0
-    emit("kernel", **dq_row)
-    emit("kernel", **dkdv_row)
-    return dq_row, dkdv_row
+    calls = (lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal),
+             lambda: flash_attention_bwd_dkdv(q, k, v, lse, delta, do, causal=causal))
+    return dq_row, dkdv_row, calls
+
+
+def sdpa_backward_ms(q, k, v, do, causal, backends, reps):
+    """ms of SDPA's backward (`torch.autograd.grad` through
+    `scaled_dot_product_attention` on the given backends: the yardstick
+    only), or the refusal as a string where no backend takes these inputs."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    try:
+        with sdpa_kernel(backends):
+            out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
+                                                                   is_causal=causal)
+            return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                       retain_graph=True), reps)
+    except RuntimeError as err:
+        return f"not measured: {str(err)[:120]}"
+
+
+def flash_bwd_device_ms(cases) -> list:
+    """Each case's (dQ, dK/dV) kernel times on the device from one profiler
+    trace of all the cases' passes in turn (`trace`), taken again up to
+    TRACE_ATTEMPTS times until it holds the two kernels of every case, in
+    order.  ``cases``: (dtype, the two calls)."""
+    names = [name for dtype, _ in cases for name in FLASH_BWD_TRACE[dtype]]
+    for _ in range(TRACE_ATTEMPTS):
+        spans, _, _ = trace(lambda: [call() for _, calls in cases for call in calls])
+        got = [(name, (t - s) / 1e3) for s, t, name in sorted(spans)
+               if "flash_bwd_" in name]
+        if len(got) == len(names) and all(w in n for w, (n, _) in zip(names, got)):
+            return [(got[2 * i][1], got[2 * i + 1][1]) for i in range(len(cases))]
+    check(False, f"flash_bwd: {TRACE_ATTEMPTS} traces, the last holds "
+          f"{[n[:40] for n, _ in got]} for {names}")
 
 
 def flash_bwd_phase(device):
@@ -2125,10 +2158,12 @@ def flash_bwd_phase(device):
     path through autograd of `ops.flash_attention` with the launches
     counted from 0 (one forward with the LSE, one dQ, one dK/dV), then the
     kernel cases, counted apart: bf16 and fp32, causal and not, D 32, 64,
-    128, a ragged tile and S != T."""
+    128, ragged tiles, S != T and T within one key tile; each pass's device
+    time from one trace of them all, and the kernels' resources."""
     from repro_torch.configs import get_shape
     from repro_torch.configs.llama3_2_1b import CONFIG
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, bwd_kernel_resources
 
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
@@ -2153,12 +2188,17 @@ def flash_bwd_phase(device):
     check(all(g.shape == q.shape and bool(torch.isfinite(g).all()) for g in grads),
           "flash_bwd: gradients")
     del out, grads, leaves
-    dq_rows, dkdv_rows = [], []
-    for row in [flash_bwd_case(f"llama3.2-1b train_4k x{B} bf16 causal", q, k, v,
-                               do, True, 5)]:
+    dq_rows, dkdv_rows, calls = [], [], []
+
+    def add(row):
         dq_rows.append(row[0])
         dkdv_rows.append(row[1])
-    del q, k, v, do
+        calls.append((q.dtype, row[2]))
+
+    add(flash_bwd_case(f"llama3.2-1b train_4k x{B} bf16 causal", q, k, v, do, True, 5))
+    cudnn = sdpa_backward_ms(q, k, v, do, True, [SDPBackend.CUDNN_ATTENTION], 5)
+    add(flash_bwd_case(f"llama3.2-1b train_4k x{B} bf16 non-causal", q, k, v, do,
+                       False, 5))
     for case, (Bc, Hc, Sc, Tc, Dc, dtype, causal) in {
             "bf16 non-causal D=64": (1, 8, 1024, 1024, 64, torch.bfloat16, False),
             "fp32 causal D=64": (1, 8, 1024, 1024, 64, torch.float32, True),
@@ -2172,20 +2212,40 @@ def flash_bwd_phase(device):
                                                  torch.float32, True),
             "bf16 S=300 T=700": (1, 8, 300, 700, 64, torch.bfloat16, False),
             "fp32 causal S=700 T=300 D=32": (1, 8, 700, 300, 32, torch.float32,
-                                             True)}.items():
-        qc = draw(Bc, Hc, Sc, Dc, dtype=dtype)
-        kc, vc = (draw(Bc, Hc, Tc, Dc, dtype=dtype) for _ in range(2))
-        dq_row, dkdv_row = flash_bwd_case(case, qc, kc, vc,
-                                          draw(Bc, Hc, Sc, Dc, dtype=dtype),
-                                          causal, 5)
-        dq_rows.append(dq_row)
-        dkdv_rows.append(dkdv_row)
+                                             True),
+            # the bf16 kernels' tiling (128 rows a CTA; key tiles of 64 in
+            # the dQ pass, query tiles of 64, 32 at D = 128, in the dK/dV
+            # pass): ragged ends at D 32 and 128, S != T under the mask,
+            # S % 4 != 0 (lse and delta read row by row), T within one tile
+            "ragged bf16 causal S=T=1000 D=32": (1, 8, 1000, 1000, 32,
+                                                 torch.bfloat16, True),
+            "ragged bf16 causal S=T=1000 D=128": (1, 8, 1000, 1000, 128,
+                                                  torch.bfloat16, True),
+            "bf16 causal S=700 T=300": (1, 8, 700, 300, 64, torch.bfloat16, True),
+            "bf16 causal S=T=129": (1, 8, 129, 129, 64, torch.bfloat16, True),
+            "bf16 S=300 T=48": (1, 8, 300, 48, 64, torch.bfloat16, False)}.items():
+        q = draw(Bc, Hc, Sc, Dc, dtype=dtype)
+        k, v = (draw(Bc, Hc, Tc, Dc, dtype=dtype) for _ in range(2))
+        add(flash_bwd_case(case, q, k, v, draw(Bc, Hc, Sc, Dc, dtype=dtype), causal, 5))
+    for dq_row, dkdv_row, (dq_ms, dkdv_ms) in zip(dq_rows, dkdv_rows,
+                                                  flash_bwd_device_ms(calls)):
+        dq_row["kernel_device_ms"], dkdv_row["kernel_device_ms"] = dq_ms, dkdv_ms
+        emit("kernel", **dq_row)
+        emit("kernel", **dkdv_row)
+    del q, k, v, do, calls
     main = dq_rows[0]
     emit("flash_bwd", model=CONFIG.name, B=B, H=H, S=S, D=D, launches=launches,
          dq_ms=main["kernel_ms"], dkdv_ms=dkdv_rows[0]["kernel_ms"],
          backward_ms=main["kernel_ms"] + dkdv_rows[0]["kernel_ms"],
-         sdpa_backward_ms=main["library_ms"],
+         dq_device_ms=main["kernel_device_ms"],
+         dkdv_device_ms=dkdv_rows[0]["kernel_device_ms"],
+         sdpa_backward_ms=main["library_ms"], sdpa_cudnn_backward_ms=cudnn,
          backward_bound_ms=main["backward_bound_ms"], cases=len(dq_rows),
+         non_causal=dict(dq_ms=dq_rows[1]["kernel_ms"], dkdv_ms=dkdv_rows[1]["kernel_ms"],
+                         sdpa_backward_ms=dq_rows[1]["library_ms"]),
+         resources={dtype_name(dt): {D_: bwd_kernel_resources(D_, dt)
+                                     for D_ in HEAD_DIMS}
+                    for dt in (torch.bfloat16, torch.float32)},
          seconds=time.perf_counter() - t0)
     return dq_rows, dkdv_rows, launches
 
@@ -2510,8 +2570,8 @@ def llm_train_phases(device):
     # one flash forward a layer; one dQ and one dK/dV a layer
     add_counts(launches, llm_train_phase(
         cfg, LLM_TRAIN["batch"], LLM_TRAIN["steps"],
-        {"flash_bf16_kernel": 2 * L, "flash_bwd_dq_kernel": L,
-         "flash_bwd_dkdv_kernel": L},
+        {"flash_bf16_kernel": 2 * L, FLASH_BWD_TRACE[torch.bfloat16][0]: L,
+         FLASH_BWD_TRACE[torch.bfloat16][1]: L},
         dict(flash_attention=2 * L, flash_attention_bwd_dq=L,
              flash_attention_bwd_dkdv=L), "flash", held_flash_layer0, device,
         "llm_train"))

@@ -8,9 +8,10 @@
 //   lse   [BH, S]      fp32, optional: each row's log-sum-exp of the scaled
 //                      scores, written beside o for the backward
 //
-// The backward (`flash_attention_bwd.cu`: `flash_bwd_dq_kernel`,
-// `flash_bwd_dkdv_kernel`) takes q, k, v, o, dO and lse and writes dq, dk,
-// dv.
+// The backward (`flash_attention_bwd.cu`: `flash_bwd_dq_wgmma_kernel` and
+// `flash_bwd_dkdv_wgmma_kernel` in bf16, `flash_bwd_dq_kernel` and
+// `flash_bwd_dkdv_kernel` in fp32) takes q, k, v, o, dO and lse and writes
+// dq, dk, dv.  The TMA tensor maps are `tensor_map.cuh`'s, shared with it.
 //
 // With `causal`, query q sees key k only if k <= q (absolute indices, the
 // same mask for S != T).  Scores, the running max and the running sum are
@@ -72,6 +73,7 @@
 #include <atomic>
 
 #include "hopper_sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -332,44 +334,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The driver's tensor-map encoder, from the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-d map over a [BH, rows, D] bf16 tensor whose box is one swizzle block
-// of box_rows rows (rows = 0: a one-row map, never read)
-template <int D>
-bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int rows, int box_rows) {
-  using B = BShape<D>;
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  rows = rows > 0 ? rows : 1;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)B::kCols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                B::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // ---------------------------------------------------------------------------
 // fp32
 
@@ -622,10 +586,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   static std::atomic<bool> smem_set[kMaxDevices];
   if constexpr (sizeof(T) == 2) {
     constexpr int bytes = BShape<D>::bytes;
+    static_assert(BShape<D>::SW == sm90::swizzle_bytes(D), "the maps' swizzle is the tiles'");
     CUtensorMap tm_q, tm_k, tm_v;
-    if (!tensor_map<D>(&tm_q, q, BH, S, kBQ) ||  // no key: maps over q, never read
-        !tensor_map<D>(&tm_k, T_ > 0 ? k : q, BH, T_, BShape<D>::BN) ||
-        !tensor_map<D>(&tm_v, T_ > 0 ? v : q, BH, T_, BShape<D>::BN))
+    if (!sm90::tensor_map(&tm_q, q, BH, S, D, kBQ) ||  // no key: maps over q, never read
+        !sm90::tensor_map(&tm_k, T_ > 0 ? k : q, BH, T_, D, BShape<D>::BN) ||
+        !sm90::tensor_map(&tm_v, T_ > 0 ? v : q, BH, T_, D, BShape<D>::BN))
       return (int)cudaErrorInvalidValue;
     auto kernel = flash_bf16_kernel<D, kCausal>;
     cudaError_t err = allow_smem(kernel, bytes, smem_set);

@@ -32,6 +32,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival (release: this thread's earlier accesses happen before the
+// phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // spins until the barrier's phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   uint32_t done;
@@ -76,6 +82,19 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- register budgets of warpgroups ------------------------------------------
+
+// this warpgroup's registers a thread raised / lowered to N (a multiple of 8
+// in [24, 256]); every warp of the warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -96,6 +115,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+// ... and of A-fragment registers, which an asynchronous multiply reads
+// until its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // shared-memory matrix descriptor: start address, leading and stride byte
 // offsets, swizzle (1: 128-byte, 2: 64-byte); the swizzle atoms must sit on
@@ -109,6 +135,16 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint3
   return d;
 }
 
+// d = A.B^T (+ d if accumulate) over a 64 x 32 x 16 bf16 tile, A and B in
+// shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 // d = A.B^T (+ d if accumulate) over a 64 x 64 x 16 bf16 tile, A and B in
 // shared memory, both K-major
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {

@@ -1,10 +1,11 @@
 """Flash attention forward and backward: the wrappers of the hand-written
-CUDA kernels in `csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`.  The forward replaces the Pallas
-TPU kernel `flash_attention_pallas` / `_flash_kernel`
-(`src/repro/kernels/flash_attention.py:59` / `:20`); the backward's two
-kernels (dQ, then dK and dV) replace JAX's autodiff of the reference's
-`chunked_attention` (`src/repro/models/layers.py:167`): the Pallas kernel
-has no gradient rule.
+CUDA kernels in `csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`
+(bf16: `wgmma` with TMA-fed tiles in both directions; fp32: SIMT FFMA).
+The forward replaces the Pallas TPU kernel `flash_attention_pallas` /
+`_flash_kernel` (`src/repro/kernels/flash_attention.py:59` / `:20`); the
+backward's two kernels (dQ, then dK and dV) replace JAX's autodiff of the
+reference's `chunked_attention` (`src/repro/models/layers.py:167`): the
+Pallas kernel has no gradient rule.
 
     o[b,h,q] = sum_k softmax_k(q[b,h,q] . k[b,h,k] / sqrt(D)) v[b,h,k]
 
@@ -57,7 +58,25 @@ def _bwd_library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_resources.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.flash_attention_bwd_resources.restype = ctypes.c_int
     return lib
+
+
+def bwd_kernel_resources(D: int, dtype: torch.dtype) -> dict:
+    """Per backward pass ("dq", "dkdv"): the causal kernel's registers a
+    thread, local (spilled) bytes a thread, dynamic shared memory a CTA and
+    CTAs an SM (the occupancy calculator on the current card), for head dim
+    D and dtype (bf16: the wgmma kernels; fp32: the SIMT ones)."""
+    out = {}
+    for name, dkdv in (("dq", 0), ("dkdv", 1)):
+        got = (ctypes.c_int * 4)()
+        err = _bwd_library().flash_attention_bwd_resources(
+            D, int(dtype == torch.bfloat16), 1, dkdv, got)
+        _raise_on_bwd(err, "flash_attention_bwd_resources")
+        out[name] = dict(registers=got[0], local_bytes=got[1],
+                         smem_bytes=got[2], ctas_per_sm=got[3])
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -47,6 +47,16 @@ FLASH_CASES = [(1, 2, 128, 64), (2, 4, 256, 64), (1, 1, 512, 128)]
 WKV_CASES = [(1, 2, 64, 16, 16), (2, 3, 128, 32, 32), (1, 1, 128, 64, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's small tensors: more only
+    contend with the other test workers' processes on a shared host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax():
     jnp = pytest.importorskip("jax.numpy")
     from repro.kernels import ref as jref
@@ -122,6 +132,82 @@ def test_flash_attention_with_more_keys_than_queries():
     p = np.exp(s - s.max(-1, keepdims=True))
     want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def _bwd_bf16_kernel_arithmetic(q, k, v, do, causal):
+    """The bf16 backward kernels' arithmetic in plain torch: every product
+    summed in fp32 from bf16 operands; P = exp(s / sqrt(D) - lse) rounded to
+    bf16 before dV = P^T.dO; dS = P (dP - delta) rounded to bf16 before
+    dQ and dK; delta = rowsum(dO o O) of the forward's bf16 output; lse and
+    o the forward's plain version's."""
+    S, T, D = q.shape[2], k.shape[2], q.shape[3]
+    scale = D ** -0.5
+    o, lse = tref.flash_attention_lse_ref(q, k, v, causal=causal)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None])
+    if causal:
+        seen = torch.arange(T)[None, :] <= torch.arange(S)[:, None]
+        p = torch.where(seen, p, torch.zeros_like(p))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta)).bfloat16().float()
+    dq = ds @ kf * scale
+    dk = ds.transpose(-1, -2) @ qf * scale
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+def _bwd_term_scales(q, k, v, do, causal):
+    """Each gradient's sum of the magnitudes of its terms, as `chip_smoke.py`
+    holds the card's backward (`flash_bwd_plain`): |dS| = P (|dP| +
+    |delta|) times |K| or |Q| (and the scale), P^T |dO|; all fp32."""
+    S, T, D = q.shape[2], k.shape[2], q.shape[3]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = qf @ kf.transpose(-1, -2) / D ** 0.5
+    if causal:
+        seen = torch.arange(T)[None, :] <= torch.arange(S)[:, None]
+        s = torch.where(seen, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, -1)
+    dp = dof @ vf.transpose(-1, -2)
+    ads = p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())
+    return (ads @ kf.abs() / D ** 0.5, ads.transpose(-1, -2) @ qf.abs() / D ** 0.5,
+            p.transpose(-1, -2) @ dof.abs())
+
+
+# B, H, S, T, D, causal: S = T unless non-causal (the JAX reference's
+# causal mask is tril(S, S)); a ragged S % 4 != 0 row count
+BWD_ROUNDING_CASES = [(1, 2, 64, 64, 32, True), (1, 2, 129, 129, 64, True),
+                      (2, 1, 96, 160, 64, False)]
+
+
+@pytest.mark.parametrize("B,H,S,T,D,causal", BWD_ROUNDING_CASES)
+def test_bf16_backward_rounding_fits_the_card_tolerance(B, H, S, T, D, causal):
+    """The bf16 backward kernels round P and dS to bf16 before their
+    products and sum in fp32 (`_bwd_bf16_kernel_arithmetic`, the card's
+    arithmetic in plain torch): each gradient stays within the card tier's
+    bf16 bound (2**-6 of the largest gradient) of the plain backward
+    (`ref.flash_attention_bwd_ref`) and of `jax.vjp` through the JAX
+    reference, and within `chip_smoke.py`'s FLASH_BWD_TOL (1e-3 + 2**-6 of
+    |plain| + the magnitudes of the gradient's terms) of the plain one."""
+    jnp, jref = _jax()
+    import jax
+
+    q, k, v = _qkv(B, H, S, T, D, seed=9)
+    do = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    args = [torch.from_numpy(a).bfloat16() for a in (q, k, v, do)]
+    got = _bwd_bf16_kernel_arithmetic(*args, causal)
+    plain = tref.flash_attention_bwd_ref(*args, causal=causal)
+    with _full_precision():
+        _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal=causal),
+                         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+        from_jax = vjp(jnp.asarray(do, jnp.bfloat16))
+    scales = _bwd_term_scales(*args, causal)
+    for g, w, j, sc in zip(got, plain, from_jax, scales):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        for want in (w.float(), torch.from_numpy(np.asarray(j, np.float32))):
+            gap = float((g.float() - want).abs().max())
+            assert gap <= 2.0 ** -6 * float(want.abs().max()), gap
+        over = (g.float() - w.float()).abs() - (1e-3 + 2.0 ** -6 * (sc + w.float().abs()))
+        assert float(over.max()) <= 0, float(over.max())
 
 
 def _jax_wkv(r, k, v, g, u, chunk):
@@ -440,6 +526,18 @@ CUDA_BWD_CASES = [  # B, H, S, T, D, causal, dtype
     (1, 4, 256, 256, 64, True, "bfloat16"),
     (1, 2, 300, 200, 128, False, "float32"),
     (2, 2, 129, 129, 32, True, "float32"),
+    # the bf16 (wgmma) kernels' tiling: 128 rows a CTA, key tiles of 64 (dQ
+    # pass), query tiles of 64 (32 at D = 128; dK/dV pass): ragged ends at
+    # D 32 and 128, S != T under the causal mask, S % 4 != 0 (lse and delta
+    # read row by row), T within one key tile, and llama3.2-1b's training
+    # shape without the mask
+    (1, 2, 1000, 1000, 32, True, "bfloat16"),
+    (1, 2, 1000, 1000, 128, True, "bfloat16"),
+    (1, 2, 700, 300, 64, True, "bfloat16"),
+    (1, 2, 129, 129, 64, True, "bfloat16"),
+    (1, 2, 300, 48, 64, False, "bfloat16"),
+    (1, 2, 300, 48, 64, True, "bfloat16"),
+    (2, 32, 4096, 4096, 64, False, "bfloat16"),
 ]
 
 
@@ -448,8 +546,8 @@ def test_cuda_flash_backward_matches_plain_on_card(cuda_device, B, H, S, T, D,
                                                    causal, dtype):
     """Autograd through the flash kernel (its two backward kernels) against
     autograd through the plain version: fp32 within 1e-4; bf16 within 2**-6
-    of the largest gradient (both round dP, P and the gradients to bf16 at
-    other places); two launches bitwise."""
+    of the largest gradient (the plain version rounds dP, P and the
+    gradients to bf16, the kernels P and dS); two launches bitwise."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     dt = getattr(torch, dtype)
     q, do = (torch.randn((B, H, S, D), generator=gen, device=cuda_device).to(dt)
@@ -494,6 +592,8 @@ def test_cuda_wkv_backward_matches_plain_on_card(cuda_device, S, K, with_state):
         torch.testing.assert_close(a, w, atol=WKV_ATOL, rtol=WKV_RTOL)
     assert not got[3][(g < -1.2) | (g > 0)].any()
     leaves = [t.clone().requires_grad_() for t in (r, k, v, g, u)]
-    ag = torch.autograd.grad(twkv.wkv(*leaves), leaves, dy)
+    # one chunk of S: the kernel ignores the chunk, and `_check` refuses a
+    # chunk that does not divide S (1000 and 300 are not multiples of 64)
+    ag = torch.autograd.grad(twkv.wkv(*leaves, chunk=S), leaves, dy)
     ref_grads = twkv.wkv_bwd(r, k, v, g, u, dy)
     assert all(torch.equal(a, b) for a, b in zip(ag, ref_grads))
