@@ -30,9 +30,12 @@ autograd of `ops.flash_attention` at llama3.2-1b's training width (B 2, S
 through the plain version, bitwise across two launches, the forward's o
 bitwise with and without its LSE output, timed beside the bound and SDPA's
 backward, each pass's device time from one trace, and the kernels'
-registers, shared memory and CTAs an SM (`flash_bwd`); the WKV backward
-kernel the same way at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
-cotangent; K 32), dg 0 wherever g was clipped (`wkv_bwd`); then three
+registers, shared memory and CTAs an SM (`flash_bwd`); the WKV backward's
+two kernels (the tiles' walks, then the gradients a tile) the same way
+at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
+cotangent; K 32) against the plain recurrence in float64, dg 0 wherever g
+was clipped, each kernel's device time beside the design's DRAM floor
+(`wkv_bwd`); then three
 AdamW steps of llama3.2-1b (train_4k's 4096 tokens, batch cut to 2) and
 two of rwkv6-3b (B 1) at full width and depth under remat "minimal"
 through `launch/train.make_train_step`, each step's launches counted from
@@ -98,8 +101,8 @@ bitwise equal to `mb_node_p2p`, its all_to_all and all_reduce calls
 counted); the pipelined epoch over the same traffic with the prefetch
 thread (`mb_node_pipelined`) and the pool of sampling processes over a
 shared-memory ring (`mb_node_process`, then a second epoch on the same
-pool, its LRU serving every batch, then a steady epoch, the LRU emptied,
-and the pool closed with no segment left), each bitwise equal to
+pool, its LRU serving every batch, and the pool closed with no segment
+left), each bitwise equal to
 `mb_node_p2p` (losses, params, CommStats), with its StageTimes beside
 `pipelined_wall_model`; gcn under broadcast and the ring
 (`mb_node_broadcast`, `mb_node_ring`: MB_BASELINE_STEPS each, bitwise
@@ -575,10 +578,14 @@ def add_counts(total: dict, counts: dict) -> None:
 
 
 JSONL = []  # the file every phase line is also appended to (--jsonl)
+STARTED = time.perf_counter()  # the script's start, for each line's at_s
 
 
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields})
+    """Prints the phase's line (and appends it to each --jsonl file), with
+    the seconds since the script started (`at_s`)."""
+    line = json.dumps({"phase": phase, **fields,
+                       "at_s": time.perf_counter() - STARTED})
     print(line, flush=True)
     for path in JSONL:
         with open(path, "a") as f:
@@ -2251,20 +2258,26 @@ def flash_bwd_phase(device):
 
 
 # batch rows a call of the plain wkv backward takes: the per-step
-# recurrence's autograd keeps ~10 GB a row at H 40, S 4096, and its ~30
-# small launches a step make a call of 4096 steps take ~4-5 s whatever its
-# width (10.7 s in slices of one row at B 4)
-WKV_PLAIN_ROWS = 4
+# recurrence's autograd in float64 keeps ~18 GB a row at H 40, S 4096, and
+# its ~20 small launches a step make a call of 4096 steps take a few
+# seconds whatever its width
+WKV_PLAIN_ROWS = 2
+# the plain wkv backward's arithmetic: du sums B S per-step terms, and in
+# fp32 that sum alone rounds by up to ~8e-4 at the main case (B 4, S 4096),
+# beyond WKV_BWD_TOL of du's smaller entries (each case's row reports both
+# du's distance from its exact value, `du_exact_gap`)
+WKV_PLAIN_DTYPE = torch.float64
 
 
 def wkv_bwd_plain(r, k, v, g, u, dy, dstate):
-    """`ref.wkv_bwd_ref` WKV_PLAIN_ROWS batch rows at a time, du summed over
-    the slices in order."""
+    """`ref.wkv_bwd_ref` in WKV_PLAIN_DTYPE, WKV_PLAIN_ROWS batch rows at a
+    time, du summed over the slices in order; fp32 results."""
     from repro_torch.kernels import ref
 
     n = WKV_PLAIN_ROWS
     parts = [ref.wkv_bwd_ref(*(t[b:b + n] for t in (r, k, v, g)), u, dy[b:b + n],
-                             None if dstate is None else dstate[b:b + n])
+                             None if dstate is None else dstate[b:b + n],
+                             dtype=WKV_PLAIN_DTYPE)
              for b in range(0, r.shape[0], n)]
     du = parts[0][4]
     for p in parts[1:]:
@@ -2275,9 +2288,11 @@ def wkv_bwd_plain(r, k, v, g, u, dy, dstate):
 def wkv_bwd_case(name, r, k, v, g, u, dy, dstate, reps):
     """One wkv backward case: dr, dk, dv, dg, du against autograd through
     the plain recurrence within WKV_BWD_TOL, dg exactly 0 wherever g was
-    clipped, bitwise across two launches; the kernel's and the plain
-    version's times and the bound (no single PyTorch call: library_ms
-    null)."""
+    clipped, bitwise across two launches; the backward's and the plain
+    version's times, the function's bound (no single PyTorch call:
+    library_ms null) and beside it the design's DRAM floor, each kernel's
+    own (`wkv_bwd_floor`).  Returns the row (emitted by `wkv_bwd_phase`
+    once the trace has given each kernel's device time) and the call."""
     from repro_torch.kernels.wkv_chunk import wkv_bwd
 
     got = wkv_bwd(r, k, v, g, u, dy, dstate)
@@ -2299,6 +2314,11 @@ def wkv_bwd_case(name, r, k, v, g, u, dy, dstate, reps):
     clipped = (g < -1.2) | (g > 0)
     check(not bool(got[3][clipped].any()),
           f"wkv backward {name}: dg not 0 where g was clipped")
+    # du's exact value: the sum over b and t of r k (v . dy), in float64
+    du = (r.double() * k.double() * (v.double() * dy.double()).sum(-1, keepdim=True)).sum((0, 2))
+    du_gap = {what: float((d.double() - du).abs().max())
+              for what, d in (("kernel", got[4]), ("plain", want[4]))}
+    del du
     B, H, S, K = r.shape
     # r, k, v, g, dy read and dr, dk, dv, dg written once, u and du; per
     # step the gradient's 11 K^2 flops (dr, dk, dv, the dg sums, G's
@@ -2306,15 +2326,51 @@ def wkv_bwd_case(name, r, k, v, g, u, dy, dstate, reps):
     row = dict(kernel="wkv_bwd", case=name, B=B, H=H, S=S, K=K,
                with_state_cotangent=dstate is not None, max_abs_err=max(errs.values()),
                max_abs_err_by_grad=errs, excess=max(overs.values()),
-               tol=list(WKV_BWD_TOL), bitwise_repeat=True,
+               tol=list(WKV_BWD_TOL), bitwise_repeat=True, du_exact_gap=du_gap,
                clipped_share=float(clipped.float().mean()),
                kernel_ms=cuda_ms(lambda: wkv_bwd(r, k, v, g, u, dy, dstate), reps),
                plain_ms=events[0].elapsed_time(events[1]), library_ms=None,
                **bound(4 * (9 * B * H * S * K + 2 * H * K
                             + (B * H * K * K if dstate is not None else 0)),
                        14 * B * H * S * K * K))
-    emit("kernel", **row)
-    return row
+    row["design_floor_ms"] = wkv_bwd_floor(B, H, S, K, dstate is not None)
+    return row, lambda: wkv_bwd(r, k, v, g, u, dy, dstate)
+
+
+# the backward's kernels as a trace names them, in launch order
+WKV_BWD_TRACE = ("wkv_bwd_walk_kernel", "wkv_bwd_grad_kernel")
+
+
+def wkv_bwd_floor(B, H, S, K, with_state) -> dict:
+    """The backward design's DRAM floor in ms, each kernel's bytes once
+    over the memory rate: the walks read k, g, v and r, g, dy (dstate)
+    and write the tiles' states and scaled end cotangents ([K, K] a (b, h)
+    and 32-step tile each); the gradient pass reads r, k, g, v, dy, u and
+    both workspaces and writes dr, dk, dv, dg and the du partials."""
+    n = B * H * S * K * 4
+    tiles = B * H * -(-S // 32)
+    ws = tiles * K * K * 4
+    walk = 6 * n + 2 * ws + (B * H * K * K * 4 if with_state else 0)
+    grad = 9 * n + 2 * ws + H * K * 4 + tiles * K * 4
+    ms = {name: b / HBM_BYTES_PER_S * 1e3 for name, b in zip(WKV_BWD_TRACE, (walk, grad))}
+    return dict(ms, total=sum(ms.values()))
+
+
+def wkv_bwd_device_ms(calls) -> list:
+    """Each call's (walk, gradient) kernel times on the device from one
+    profiler trace of all the calls in turn (`trace`), taken again up to
+    TRACE_ATTEMPTS times until it holds both kernels of every call, in
+    order."""
+    names = list(WKV_BWD_TRACE) * len(calls)
+    for _ in range(TRACE_ATTEMPTS):
+        spans, _, _ = trace(lambda: [call() for call in calls])
+        got = [(name, (t - s) / 1e3) for s, t, name in sorted(spans)
+               if "wkv_bwd_" in name]
+        if len(got) == len(names) and all(w in n for w, (n, _) in zip(names, got)):
+            return [dict(zip(WKV_BWD_TRACE, (got[2 * i][1], got[2 * i + 1][1])))
+                    for i in range(len(calls))]
+    check(False, f"wkv_bwd: {TRACE_ATTEMPTS} traces, the last holds "
+          f"{[n[:40] for n, _ in got]} for {names}")
 
 
 def wkv_bwd_phase(device):
@@ -2327,6 +2383,7 @@ def wkv_bwd_phase(device):
     from repro_torch.configs import get_shape
     from repro_torch.configs.rwkv6_3b import CONFIG
     from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv_chunk import KEY_DIMS, bwd_kernel_resources
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(43)
@@ -2350,18 +2407,27 @@ def wkv_bwd_phase(device):
     check_counts(launches, dict(wkv=1, wkv_bwd=1), "wkv_bwd")
     check(all(bool(torch.isfinite(t).all()) for t in grads), "wkv_bwd: gradients")
     del grads, leaves
-    rows = [wkv_bwd_case(f"rwkv6-3b train_4k x{B}", r, k, v, g, u, dy, None, 3)]
+    cases = [wkv_bwd_case(f"rwkv6-3b train_4k x{B}", r, k, v, g, u, dy, None, 3)]
     n = 1000
-    rows.append(wkv_bwd_case("S=1000 with the state's cotangent",
-                             *(t[:1, :, :n].contiguous() for t in (r, k, v, g)), u,
-                             dy[:1, :, :n].contiguous(), draw(1, H, K, K), 3))
-    rows.append(wkv_bwd_case(f"K=32 S={S // 2}", *(t[:1, :, :S // 2, :32].contiguous()
-                                                  for t in (r, k, v, g)),
-                             u[:, :32].contiguous(),
-                             dy[:1, :, :S // 2, :32].contiguous(), None, 3))
+    cases.append(wkv_bwd_case("S=1000 with the state's cotangent",
+                              *(t[:1, :, :n].contiguous() for t in (r, k, v, g)), u,
+                              dy[:1, :, :n].contiguous(), draw(1, H, K, K), 3))
+    cases.append(wkv_bwd_case(f"K=32 S={S // 2}", *(t[:1, :, :S // 2, :32].contiguous()
+                                                   for t in (r, k, v, g)),
+                              u[:, :32].contiguous(),
+                              dy[:1, :, :S // 2, :32].contiguous(), None, 3))
+    rows = [row for row, _ in cases]
+    for row, device_ms in zip(rows, wkv_bwd_device_ms([call for _, call in cases])):
+        row["kernel_device_ms"] = device_ms
+        emit("kernel", **row)
+    del cases
+    main = rows[0]
     emit("wkv_bwd", model=CONFIG.name, B=B, H=H, S=S, K=K, launches=launches,
-         ms=rows[0]["kernel_ms"], bound_ms=rows[0]["bound_ms"],
-         plain_ms=rows[0]["plain_ms"], seconds=time.perf_counter() - t0)
+         ms=main["kernel_ms"], device_ms=main["kernel_device_ms"],
+         bound_ms=main["bound_ms"], design_floor_ms=main["design_floor_ms"],
+         plain_ms=main["plain_ms"],
+         resources={K_: bwd_kernel_resources(K_) for K_ in KEY_DIMS},
+         seconds=time.perf_counter() - t0)
     return rows, launches
 
 
@@ -2579,7 +2645,7 @@ def llm_train_phases(device):
     L = cfg.num_layers
     add_counts(launches, llm_train_phase(
         cfg, RWKV_TRAIN["batch"], RWKV_TRAIN["steps"],
-        {"wkv_chunk_kernel": 2 * L, "wkv_bwd_kernel": L},
+        {"wkv_chunk_kernel": 2 * L, WKV_BWD_TRACE[0]: L, WKV_BWD_TRACE[1]: L},
         dict(wkv=2 * L, wkv_bwd=L), "wkv", held_wkv_layer0, device,
         "rwkv_train"))
     add_counts(launches, llm_small_phase(device))
@@ -3720,11 +3786,9 @@ def pipelined_phase(g, device, baseline, mode):
     reports the slot bytes, `/dev/shm` and free RAM read before it, each
     worker's resident set and each batch's arrival (`record_arrivals`);
     then a second epoch on the same pool, whose LRU serves every batch
-    (producer seconds 0), and a steady epoch with the LRU emptied (the
-    workers write slots they have written before), each bitwise equal
-    again, with `shm_rates`; then `close_prefetch_pool()`, after which
-    none of this process's segments is left in /dev/shm.  Returns the
-    launches."""
+    (producer seconds 0), bitwise equal again, and `shm_rates`; then
+    `close_prefetch_pool()`, after which none of this process's segments
+    is left in /dev/shm.  Returns the launches."""
     from repro_torch.core.execution.minibatch_pipeline import (
         pipelined_wall_model,
     )
@@ -3804,19 +3868,9 @@ def pipelined_phase(g, device, baseline, mode):
         check(lru.sample == 0.0 and lru.extract == 0.0,
               f"{name}: the second epoch's producer seconds {lru.sample}, "
               f"{lru.extract} (the LRU serves it)")
-        # the steady state: the LRU emptied, the workers produce again
-        # into ring slots every one of them has written before
-        pool._cache.clear()
-        steady_arrivals = []
-        steady = epoch(f"{name} steady epoch", steady_arrivals)
-        check(eng._proc_pool is pool and steady.sample > 0,
-              f"{name}: the steady epoch did not run on the pool's workers")
         extra.update(second_epoch_wall_s=lru.wall,
                      second_epoch_train_s=lru.train,
-                     second_epoch_bitwise_equal=True,
-                     **lanes("steady_", steady),
-                     steady_arrivals=steady_arrivals,
-                     steady_bitwise_equal=True, **shm_rates(SHM_RATE_BYTES))
+                     second_epoch_bitwise_equal=True, **shm_rates(SHM_RATE_BYTES))
         mark = f"-{os.getpid():x}-"
         eng.close_prefetch_pool()
         left = [f for f in os.listdir(proc_prefetch.SHM_DIR)

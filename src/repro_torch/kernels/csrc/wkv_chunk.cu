@@ -546,282 +546,672 @@ int occupancy_k(int K) {
 //
 // The gradient of the recurrence above with respect to r, k, v, g (through
 // the clip) and u, given dy [BH, S, K] and, optionally, the final state's
-// cotangent dstate [BH, K, K].  With S_t the state before step t (the
-// forward's zero state at t = 0) and G_t the cotangent of the state after
-// step t (G_{S-1} = dstate, or 0), walking t down from S - 1:
+// cotangent dstate [BH, K, K].  The TPU kernel has no gradient rule; this
+// replaces JAX's autodiff of the reference's `_chunked_linear_attention`
+// (src/repro/models/ssm.py:29), and like that autodiff it differentiates
+// the tiled form: per 32-step tile, in the forward's notation (S0 the state
+// before the tile, Gh = 2^{Le} G_end with G_end the cotangent of the state
+// after it, A = strict-lower(q ke^T) + diag(bonus)),
 //
-//   dr_t[i] = sum_j dy_t[j] S_t[i, j] + u[i] k_t[i] (v_t . dy_t)
-//   dk_t[i] = sum_j G_t[i, j] v_t[j] + u[i] r_t[i] (v_t . dy_t)
-//   dv_t[j] = sum_i G_t[i, j] k_t[i] + (sum_i r_t[i] u[i] k_t[i]) dy_t[j]
-//   dg_t[i] = e^{g_t[i]} sum_j G_t[i, j] S_t[i, j]   (0 where g was clipped)
-//   du[i]  += r_t[i] k_t[i] (v_t . dy_t)
-//   G_{t-1} = r_t dy_t^T + e^{g_t} o G_t
+//   dS0 = q^T dy + Gh                   (G_end of the tile before)
+//   dA = strict-lower(dy v^T), dbon = rowsum(dy o v)
+//   dq = dy S0^T + dA ke,  X = v Gh^T,  dke = dA^T q + X
+//   dv = A^T dy + ke Gh
+//   dr = dq o 2^{Lp} + u k dbon,  dk = dke o 2^{-L} + u r dbon
+//   du = sum over tiles and b of colsum(r o k o dbon)
+//   dg_t = dLe + sum_{t' > t} w_t' + b_t,  b = -ke o dke,  w = q o dq + b
+//   dLe = rowsum(Gh o S0) + colsum(ke o X)     (the end decay's share)
 //
-// The TPU kernel has no gradient rule; this replaces JAX's autodiff of the
-// reference's `_chunked_linear_attention` (src/repro/models/ssm.py:29).
+// and dg is 0 where g was clipped (the clamp's gradient: it passes at the
+// bounds).  `ref.wkv_bwd_tiled_ref` is the same algebra in plain tensor
+// ops, held to JAX in the tests.  dLe is the decay's derivative through
+// the tile's end state, Gh o S_end summed over value columns, split as
+// Gh o (S0 + ke^T v) so that the pass needs neither S_end nor another
+// product.  Every exponent is the forward's: 2^{Lp} and 2^{-L} within one
+// tile (55.4 bits at the clip floor), so every product stays finite.
 //
-// What is hard.  dg needs every step's previous state, and the state may not
-// be rebuilt backwards (e^{-g} (S_t - k v^T) grows by up to e^{1.2} a step
-// and loses fp32 within tens of steps).  So one CTA a (b, h) first runs the
-// recurrence forward, writing the state at each 32-step tile boundary to a
-// workspace; then it walks the tiles backwards, recomputing each tile's 32
-// states from its boundary into a second workspace (L2-resident: 512 KB a
-// CTA at K = 64) and reading them back in reverse.  Every thread owns the
-// same 4 x 4 block of the state, of its recomputation and of G throughout
-// (key rows 4 ri.., value columns 4 cj..), so the workspaces are private to
-// it and the walk needs no barrier a step.  dr, dk and dg sum over value
-// columns: a fixed xor-shuffle tree across the K / 4 threads of a row block.
-// dv sums over key rows, across warps: each step's partial of each row
-// block goes to shared memory, and the tile's dv is summed from them in a
-// fixed order after the tile.  du is this CTA's sum over t, written per
-// (b, h) and summed over b by the caller.  No float atomics: two launches
-// are bitwise equal.
+// Three passes in two launches, each parallel enough to fill the card at
+// rwkv6-3b's B 1 (40 heads):
 //
-// Bound on this card: bytes (r, k, v, g, dy read and dr, dk, dv, dg written
-// once, 0.12 ms at B 1, H 40, S 4096, K 64; its ~12 K^2 flops a step take
-// about as long at the fp32 rate).  This simple kernel is bound by its
-// serial walk: one CTA a (b, h) (40 of 132 SMs busy at B 1), a few hundred
-// instructions a step a thread.
+//   1. states (`wkv_bwd_walk_kernel`, the first half of its grid): one CTA
+//      a (b, h) and VB = min(K, 32) value columns walks the tiles forward
+//      as the forward kernel does (its steps 1 and 4 in the same
+//      arithmetic and order; its own code: the forward is untouched) and
+//      writes each tile's S0 to a workspace [BH, ntiles, K, K];
+//   2. cotangents (the same launch, the grid's second half): one CTA a
+//      (b, h) and VB columns walks the tiles backwards from dstate (or 0):
+//      Gh = 2^{Le} G is written for the tile, then G <- Gh + q^T dy on the
+//      tensor cores.  128 threads, the stage's three arrays by TMA bulk
+//      copies, the next tile's in flight during this one's product, as in
+//      the forward; 38,664 bytes of shared memory, five CTAs an SM (all
+//      640 of the main row at once);
+//   3. gradients (`wkv_bwd_grad_kernel`): one CTA a (b, h, tile), 4 K
+//      threads, holds all K value columns, so the sums over them stay in
+//      the CTA (5,120 CTAs at B 1).  Its first half of warps loads r, k, g
+//      by cp.async into padded rows and scans them in place (r -> q,
+//      k -> ke, g -> L) while the second half's copies of v, dy, S0 and Gh
+//      land (each half waits on a named barrier of its own), then forms
+//      rowsum(dy o v) and rowsum(Gh o S0); then dA and A (three 16 x 16
+//      blocks each), dq, dke and dv (a warp a 16 x 16 block of each, dv
+//      straight out), and last an elementwise pass (a thread a key channel
+//      and 8 steps) that forms dr, dk, the in-tile suffix sums of dg and
+//      the tile's du partial.  108,672 bytes of shared memory, two CTAs an
+//      SM (114 registers, no spill, at K = 64).
+//
+// Every product runs on the tensor cores in 3xTF32 as the forward's do (a
+// one-pass TF32 product does not hold 1e-4).  The tile's du partials
+// [BH, ntiles, K] are summed over b and the tiles by the caller in a fixed
+// order; every other sum is formed in a fixed order inside one CTA, and no
+// float atomics are used, so two launches are bitwise equal.
+//
+// What was tried (NVIDIA H100 80GB HBM3, 700 W, B 4, H 40, S 4096, K 64,
+// fp32; B 1, rwkv6-3b's training batch, in brackets): the simple kernel
+// before this one, one CTA a (b, h) walking single steps on SIMT FFMA
+// twice (a forward walk to the tile boundaries, then each tile's 32 states
+// recomputed into an L2 workspace and read back in reverse), took 17.8 ms
+// (~8.0): 160 CTAs of 180 KB each (one an SM, two waves at B 4), ~2 us a
+// step.  This shape's versions, timed with a gradient kernel whose warps
+// stamp clock64() at each barrier (`scripts/wkv_bwd_stamps.py`): the first
+// took 2.09 ms (0.58), a gradient CTA ~28,800 cycles, of them the copies
+// 6,700, the row sums 5,900 (24 butterflies one after the other), the
+// products 6,600 and the elementwise pass 7,700 (its global loads one step
+// at a time); interleaving the butterflies and issuing every load of the
+// elementwise pass at once, 1.74 ms (0.50), 23,300 cycles; each half of
+// the CTA copying only what it reads first, 1.68 ms (0.50), 21,500 cycles,
+// the copies and scan 9,100 of them and the products 7,300.  The walks
+// take ~0.70 ms of it at B 4, near their DRAM floor; at B 1 a walk waits
+// on each tile's copy (one stage: the next tile's copy overlaps only the
+// product), and a second stage would cost the B 4 grid its single wave.
+//
+// Bound on this card: the function's operations (14 K^2 flops a step at
+// the fp32 rate: 0.561 ms at the main row).  The design also writes and
+// reads the two workspaces and reads k, g, v and r, g, dy once more in
+// the walks: its DRAM floor is 1.153 ms at the main row (walks 0.501,
+// gradients 0.653; `chip_smoke.py`'s `wkv_bwd_floor`).
 
-constexpr int kBTile = 32;  // steps a tile of the backward walk
+// the scan of step 1 for a warp whose 16 key channels exist: lane (seg,
+// c4) takes channels i0 .. i0 + 3 of steps 4 seg .. 4 seg + 3 of the tile's
+// g (row stride ld, steps past `rows` read as 0); L[j][e] the inclusive
+// cumulative clipped decay (log2) of step 4 seg + j, P[j][e] the exclusive
+// one (the step before's L as summed, 0 at the tile's first step): the
+// forward's arithmetic in its order
+__device__ __forceinline__ void decay_scan(const float* gs, int ld, int rows, float g_min,
+                                           int seg, int i0, float (&L)[4][4],
+                                           float (&P)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = 4 * seg + j;
+    const float4 g4 = t < rows ? load4(gs + t * ld + i0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float gl[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      L[j][e] = fminf(fmaxf(gl[e], g_min), 0.f) * kLog2e;
+      if (j) L[j][e] += L[j - 1][e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float incl = L[3][e];
+#pragma unroll
+    for (int d = 1; d < 8; d <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, 4 * d);
+      if (seg >= d) incl += o;
+    }
+    float ex = __shfl_up_sync(0xffffffffu, incl, 4);
+    if (seg == 0) ex = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) L[j][e] += ex;
+    float prev = __shfl_up_sync(0xffffffffu, L[3][e], 4);
+    if (seg == 0) prev = 0.f;
+    P[0][e] = prev;
+#pragma unroll
+    for (int j = 1; j < 4; ++j) P[j][e] = L[j - 1][e];
+  }
+}
+
+// a lane's share of x . y over a row of K floats (columns lane, lane + 32)
+template <int K>
+__device__ __forceinline__ float lane_dot(const float* x, const float* y, int lane) {
+  float a = 0.f;
+#pragma unroll
+  for (int j = lane; j < K; j += 32) a = fmaf(x[j], y[j], a);
+  return a;
+}
+
+// N sums over the warp at once (a butterfly each, interleaved): every lane
+// ends with the totals, in a fixed order
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&a)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) a[q] += __shfl_xor_sync(0xffffffffu, a[q], o);
+  }
+}
+
+// 16 bytes from global to shared memory, zero-filled when !ok
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier of `threads` threads (whole warps) on id (1 to 15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- passes 1 and 2: the walks ----------------------------------------------
+
+constexpr int kWalkCtasPerSm = 5;
 
 template <int K>
-struct BLayout {
-  static constexpr int NB = K / 4;  // 4 x 4 blocks along each side of the state
-  static constexpr int kWork = NB * NB;  // threads that own a block
-  static constexpr int kThreads = kWork < 32 ? 32 : kWork;
-  // a tile's r, k, v, w = e^{clip g}, dy, the clip mask ([kBTile][K] each),
-  // the dv partials [kBTile][NB][K], u [K], v . dy and sum r u k [kBTile]
-  static constexpr int kVec = kBTile * K;
-  static constexpr int kPart = kBTile * NB * K;
-  static constexpr int kFloats = 6 * kVec + kPart + K + 2 * kBTile;
-  static constexpr int kBytes = kFloats * 4;
+struct WalkLayout {
+  static constexpr int VB = K < 32 ? K : 32;  // value columns a CTA
+  static constexpr int QS = K + 4;            // X [kTile][QS]: ke or q
+  static constexpr int VS = VB + 8;           // W [kTile][VS]: v or dy columns
+  // the stage: k, g, v (states) or r, g, dy (cotangents), [kTile][K] each
+  static constexpr int kArray = kTile * K * 4;
+  static constexpr int kX = 3 * kArray;
+  static constexpr int kW = kX + kTile * QS * 4;
+  static constexpr int kLe = kW + kTile * VS * 4;  // Le [K]
+  static constexpr int kBar = kLe + K * 4;
+  static constexpr int kBytes = kBar + 8;
 };
 
 template <int K>
-__global__ void __launch_bounds__(BLayout<K>::kThreads)
-wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ g,
-               const float* __restrict__ u, const float* __restrict__ dy,
-               const float* __restrict__ dstate, float* __restrict__ dr,
-               float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dg,
-               float* __restrict__ du_part, float* __restrict__ ckpt,
-               float* __restrict__ scratch, int H, int S, float g_min) {
-  using Lay = BLayout<K>;
-  constexpr int NB = Lay::NB, NT = Lay::kThreads, V = Lay::kVec;
-  extern __shared__ __align__(16) float bsm[];
-  float* Rs = bsm;
-  float* Ks = Rs + V;
-  float* Vs = Ks + V;
-  float* Ws = Vs + V;
-  float* DYs = Ws + V;
-  float* Ms = DYs + V;
-  float* Part = Ms + V;
-  float* Us = Part + Lay::kPart;
-  float* VDY = Us + K;
-  float* BON = VDY + kBTile;
+__global__ void __launch_bounds__(kThreads, kWalkCtasPerSm)
+wkv_bwd_walk_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ dy, const float* __restrict__ dstate,
+                    float* __restrict__ s0, float* __restrict__ gh, int BH, int S,
+                    float g_min) {
+  using Lay = WalkLayout<K>;
+  constexpr int VB = Lay::VB, QS = Lay::QS, VS = Lay::VS, NT = VB / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float* raw = reinterpret_cast<const float*>(smem);
+  float* X = reinterpret_cast<float*>(smem + Lay::kX);
+  float* W = reinterpret_cast<float*>(smem + Lay::kW);
+  float* Le = reinterpret_cast<float*>(smem + Lay::kLe);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lay::kBar);
 
-  const int tid = threadIdx.x, bh = blockIdx.x, h = bh % H;
-  // threads past the K / 4 x K / 4 owners (K = 16) shadow thread 0 and
-  // store nothing
-  const bool owner = tid < Lay::kWork;
-  const int w = owner ? tid : 0, ri = w / NB, cj = w % NB;
-  const int i0 = 4 * ri, j0 = 4 * cj;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  // the grid's first half walks the states, its second the cotangents
+  const bool cot = blockIdx.x >= BH * (K / VB);
+  const int blk = blockIdx.x - (cot ? BH * (K / VB) : 0);
+  const int bh = blk / (K / VB), jv = blk % (K / VB) * VB;
   const long long base = (long long)bh * S * K;
-  const int ntiles = (S + kBTile - 1) / kBTile;
-  float* my_ckpt = ckpt + ((long long)bh * ntiles * NT + tid) * 16;
-  float* my_scr = scratch + ((long long)bh * kBTile * NT + tid) * 16;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const float* const src[3] = {cot ? r : k, g, cot ? dy : v};
 
-  for (int i = tid; i < K; i += NT) Us[i] = u[h * K + i];
-
-  // tile c's arrays; with `all`, r, dy and the mask too (steps past S: zeros
-  // and w = 1)
-  auto load_tile = [&](int c, bool all) {
-    const int t0 = c * kBTile, rows = min(kBTile, S - t0);
-    for (int idx = tid; idx < V / 4; idx += NT) {
-      const int t = idx / (K / 4), c4 = (idx % (K / 4)) * 4, e = t * K + c4;
-      const bool in = t < rows;
-      const long long at = base + (long long)(t0 + t) * K + c4;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 gg = in ? *reinterpret_cast<const float4*>(g + at) : zero;
-      const float gl[4] = {gg.x, gg.y, gg.z, gg.w};
-      float ww[4], mm[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ww[q] = in ? expf(fminf(fmaxf(gl[q], g_min), 0.f)) : 1.f;
-        mm[q] = in && gl[q] >= g_min && gl[q] <= 0.f ? 1.f : 0.f;
-      }
-      *reinterpret_cast<float4*>(Ws + e) = make_float4(ww[0], ww[1], ww[2], ww[3]);
-      *reinterpret_cast<float4*>(Ks + e) = in ? *reinterpret_cast<const float4*>(k + at) : zero;
-      *reinterpret_cast<float4*>(Vs + e) = in ? *reinterpret_cast<const float4*>(v + at) : zero;
-      if (all) {
-        *reinterpret_cast<float4*>(Ms + e) = make_float4(mm[0], mm[1], mm[2], mm[3]);
-        *reinterpret_cast<float4*>(Rs + e) =
-            in ? *reinterpret_cast<const float4*>(r + at) : zero;
-        *reinterpret_cast<float4*>(DYs + e) =
-            in ? *reinterpret_cast<const float4*>(dy + at) : zero;
-      }
-    }
-  };
-  // one step of the recurrence on the thread's block, rounded as the plain
-  // version rounds it: e^{g} * state, then + k v
-  auto advance = [&](float (&st)[16], int t) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float wi = Ws[t * K + i0 + a], ki = Ks[t * K + i0 + a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        st[4 * a + b] = __fadd_rn(__fmul_rn(wi, st[4 * a + b]), __fmul_rn(ki, Vs[t * K + j0 + b]));
-    }
-  };
-  auto put16 = [](float* dst, const float (&x)[16]) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-  };
-  auto get16 = [](float (&x)[16], const float* src) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 y = reinterpret_cast<const float4*>(src)[q];
-      x[4 * q] = y.x;
-      x[4 * q + 1] = y.y;
-      x[4 * q + 2] = y.z;
-      x[4 * q + 3] = y.w;
-    }
-  };
-
-  // 1. forward: the state at each tile's start
-  float st[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) st[e] = 0.f;
-  for (int c = 0; c < ntiles; ++c) {
-    put16(my_ckpt + (long long)c * NT * 16, st);
-    if (c + 1 == ntiles) break;  // the last tile's end state is not needed
-    __syncthreads();
-    load_tile(c, false);
-    __syncthreads();
-    for (int t = 0; t < kBTile; ++t) advance(st, t);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+  auto load_tile = [&](int c) {
+    const int t0 = c * kTile;
+    const uint32_t bytes = min(kTile, S - t0) * K * 4u;
+    mbar_expect_tx(bar, 3 * bytes);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      bulk_load(smem + a * Lay::kArray, src[a] + base + (long long)t0 * K, bytes, bar);
+  };
+  if (tid == kCopier) load_tile(cot ? ntiles - 1 : 0);
 
-  // 2. backward, tile by tile from the last
-  float G[16];
+  // warp w owns rows 16 w .. 16 w + 15 of the state (or of G), every
+  // column of the CTA's, as the forward's warps do
+  const bool s_owner = K == 64 || 16 * warp < K;
+  const int row = 16 * warp + gid;
+  float st[NT][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int n = 0; n < NT; ++n) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      G[4 * a + b] = dstate != nullptr
-                         ? dstate[(long long)bh * K * K + (i0 + a) * K + j0 + b]
-                         : 0.f;
-  float du_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = ntiles - 1; c >= 0; --c) {
-    const int t0 = c * kBTile, rows = min(kBTile, S - t0);
-    __syncthreads();  // every read of the last tile is done
-    load_tile(c, true);
-    __syncthreads();
-    if (tid < kBTile) {  // per step: v . dy and the bonus sum r u k, in order
-      float a = 0.f, b = 0.f;
-      for (int i = 0; i < K; ++i) {
-        a = fmaf(Vs[tid * K + i], DYs[tid * K + i], a);
-        b = fmaf(Rs[tid * K + i] * Us[i], Ks[tid * K + i], b);
-      }
-      VDY[tid] = a;
-      BON[tid] = b;
-    }
-    // the tile's states S_t, recomputed from its boundary
-    get16(st, my_ckpt + (long long)c * NT * 16);
-    for (int t = 0; t < rows; ++t) {
-      put16(my_scr + (long long)t * NT * 16, st);
-      advance(st, t);
-    }
-    __syncthreads();  // VDY, BON
-    for (int t = rows - 1; t >= 0; --t) {
-      float sp[16];
-      get16(sp, my_scr + (long long)t * NT * 16);
-      float pr[4], pk[4], pw[4], pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float ki = Ks[t * K + i0 + a];
-        float x = 0.f, y = 0.f, z = 0.f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int e = 4 * a + b;
-          x = fmaf(DYs[t * K + j0 + b], sp[e], x);
-          y = fmaf(G[e], Vs[t * K + j0 + b], y);
-          z = fmaf(G[e], sp[e], z);
-          pv[b] = fmaf(G[e], ki, pv[b]);
-        }
-        pr[a] = x;
-        pk[a] = y;
-        pw[a] = z;
-      }
-#pragma unroll
-      for (int off = 1; off < NB; off <<= 1) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pr[a] += __shfl_xor_sync(0xffffffffu, pr[a], off);
-          pk[a] += __shfl_xor_sync(0xffffffffu, pk[a], off);
-          pw[a] += __shfl_xor_sync(0xffffffffu, pw[a], off);
-        }
-      }
-      if (owner) {
-        *reinterpret_cast<float4*>(Part + (t * NB + ri) * K + j0) =
-            make_float4(pv[0], pv[1], pv[2], pv[3]);
-      }
-      if (owner && cj == 0) {
-        float o_r[4], o_k[4], o_g[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int e = t * K + i0 + a;
-          const float ui = Us[i0 + a], ki = Ks[e], rr = Rs[e];
-          o_r[a] = pr[a] + ui * ki * VDY[t];
-          o_k[a] = pk[a] + ui * rr * VDY[t];
-          o_g[a] = Ms[e] * (Ws[e] * pw[a]);
-          du_acc[a] = fmaf(rr * ki, VDY[t], du_acc[a]);
-        }
-        const long long at = base + (long long)(t0 + t) * K + i0;
-        *reinterpret_cast<float4*>(dr + at) = make_float4(o_r[0], o_r[1], o_r[2], o_r[3]);
-        *reinterpret_cast<float4*>(dk + at) = make_float4(o_k[0], o_k[1], o_k[2], o_k[3]);
-        *reinterpret_cast<float4*>(dg + at) = make_float4(o_g[0], o_g[1], o_g[2], o_g[3]);
-      }
-      // G_{t-1} = r_t dy_t^T + e^{g_t} o G_t
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float wi = Ws[t * K + i0 + a], rr = Rs[t * K + i0 + a];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          G[4 * a + b] = fmaf(wi, G[4 * a + b], rr * DYs[t * K + j0 + b]);
-      }
-    }
-    __syncthreads();  // the tile's dv partials are in place
-    for (int idx = tid; idx < rows * K; idx += NT) {
-      const int t = idx / K, j = idx % K;
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < NB; ++q) acc += Part[(t * NB + q) * K + j];
-      dv[base + (long long)(t0 + t) * K + j] = fmaf(BON[t], DYs[t * K + j], acc);
+    for (int e = 0; e < 4; ++e) {
+      const int i = row + 8 * (e >> 1), j = jv + 8 * n + 2 * tig + (e & 1);
+      st[n][e] = cot && dstate != nullptr && s_owner ? dstate[(long long)bh * K * K + i * K + j]
+                                                     : 0.f;
     }
   }
-  if (owner && cj == 0) {
+  const int seg = lane >> 2, i0 = 16 * warp + 4 * (lane & 3);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int c = cot ? ntiles - 1 - it : it;
+    const int rows = min(kTile, S - c * kTile);
+    mbar_wait(bar, it & 1);
+    __syncthreads();  // tile c staged; every read of the last tile done
+    // the CTA's columns of v (dy), rows past S 0
+    for (int idx = tid; idx < kTile * VB / 4; idx += kThreads) {
+      const int t = idx / (VB / 4), c4 = idx % (VB / 4);
+      *reinterpret_cast<float4*>(W + t * VS + 4 * c4) =
+          t < rows ? load4(raw + 2 * kTile * K + t * K + jv + 4 * c4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    // 1. the scan; ke = k 2^{-L} (states) or q = r 2^{Lp} (cotangents)
+    if (s_owner) {
+      float L[4][4], P[4][4];
+      decay_scan(raw + kTile * K, K, rows, g_min, seg, i0, L, P);
+      if (seg == 7) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) du_part[(long long)bh * K + i0 + a] = du_acc[a];
+        for (int e = 0; e < 4; ++e) Le[i0 + e] = L[3][e];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = 4 * seg + j;
+        const float4 x4 = t < rows ? load4(raw + t * K + i0) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float xx[4] = {x4.x, x4.y, x4.z, x4.w};
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = xx[e] * ex2(cot ? P[j][e] : -L[j][e]);
+        *reinterpret_cast<float4*>(X + t * QS + i0) = make_float4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    fence_proxy_async();  // the stage is read: the TMA may write it again
+    __syncthreads();      // X, W and Le in place
+    if (tid == kCopier && it + 1 < ntiles) load_tile(cot ? c - 1 : c + 1);
+
+    // 4. X^T W on the warp's rows; states: S0 out, then 2^{Le} (S0 + ke^T v);
+    //    cotangents: Gh = 2^{Le} G out, then Gh + q^T dy
+    if (s_owner) {
+      Acc3 upd[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) zero(upd[n]);
+#pragma unroll
+      for (int k0 = 0; k0 < kTile; k0 += 8) {
+        const FragA a = frag_a_km(X, QS, 16 * warp, k0, gid, tig);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma3(upd[n], a, frag_b_kn(W, VS, k0, 8 * n, gid, tig));
+      }
+      const float d0 = ex2(Le[row]), d1 = ex2(Le[row + 8]);
+      float* out = (cot ? gh : s0) + ((long long)bh * ntiles + c) * K * K + row * K + jv +
+                   2 * tig;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (cot) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] *= e < 2 ? d0 : d1;
+        }
+        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(st[n][0], st[n][1]);
+        *reinterpret_cast<float2*>(out + 8 * K + 8 * n) = make_float2(st[n][2], st[n][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sum = ((st[n][e] + upd[n].lo[e]) + upd[n].mid[e]) + upd[n].hi[e];
+          st[n][e] = cot ? sum : sum * (e < 2 ? d0 : d1);
+        }
+      }
+    }
   }
+}
+
+// ---- pass 3: the gradients of one tile ----------------------------------------
+
+template <int K>
+struct GradLayout {
+  static constexpr int kThreads = 4 * K;  // 2 K / 16 warps: a 16 x 16 block each
+  static constexpr int NW = kThreads / 32;
+  static constexpr int QS = K + 4;        // [kTile][QS] and [K][QS] arrays
+  static constexpr int AS = kTile + 4;    // dA, A [kTile][AS]
+  static constexpr int kVec = kTile * QS;
+  static constexpr int kMat = K * QS;
+  // float offsets: r -> q, k -> ke, g -> L (in place), v, dy, dq, dke
+  static constexpr int kQ = 0, kKE = kVec, kL = 2 * kVec, kV = 3 * kVec, kDY = 4 * kVec;
+  static constexpr int kDQ = 5 * kVec, kDKE = 6 * kVec;
+  static constexpr int kS0 = 7 * kVec, kGH = kS0 + kMat;
+  static constexpr int kdA = kGH + kMat, kA = kdA + kTile * AS;
+  static constexpr int kU = kA + kTile * AS;        // u [K]
+  static constexpr int kBon = kU + K;               // bonus partials [K / 16][kTile]
+  static constexpr int kDbon = kBon + K / 16 * kTile;  // rowsum(dy o v) [kTile]
+  static constexpr int kDLe = kDbon + kTile;        // rowsum(Gh o S0) [K]
+  static constexpr int kTP = kDLe + K;              // colsum(ke o X) a row block [2][K]
+  static constexpr int kSeg = kTP + 2 * K;          // w summed a segment [4][K]
+  static constexpr int kDu = kSeg + 4 * K;          // du a segment [4][K]
+  static constexpr int kBytes = (kDu + 4 * K) * 4;
+};
+
+template <int K>
+__global__ void __launch_bounds__(4 * K, 512 / (4 * K))
+wkv_bwd_grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ u, const float* __restrict__ dy,
+                    const float* __restrict__ s0, const float* __restrict__ gh,
+                    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
+                    float* __restrict__ dg, float* __restrict__ du_part, int H, int S,
+                    float g_min) {
+  using Lay = GradLayout<K>;
+  constexpr int NT = Lay::kThreads, NW = Lay::NW, QS = Lay::QS, AS = Lay::AS;
+  extern __shared__ __align__(16) float gsm[];
+  float* Q = gsm + Lay::kQ;
+  float* KE = gsm + Lay::kKE;
+  float* Ls = gsm + Lay::kL;
+  float* V = gsm + Lay::kV;
+  float* DY = gsm + Lay::kDY;
+  float* DQ = gsm + Lay::kDQ;
+  float* DKE = gsm + Lay::kDKE;
+  float* S0 = gsm + Lay::kS0;
+  float* GH = gsm + Lay::kGH;
+  float* dA = gsm + Lay::kdA;
+  float* As = gsm + Lay::kA;
+  float* U = gsm + Lay::kU;
+  float* Bon = gsm + Lay::kBon;
+  float* Dbon = gsm + Lay::kDbon;
+  float* DLe = gsm + Lay::kDLe;
+  float* TP = gsm + Lay::kTP;
+  float* Seg = gsm + Lay::kSeg;
+  float* Du = gsm + Lay::kDu;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ntiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / ntiles, c = blockIdx.x % ntiles, h = bh % H;
+  const int t0 = c * kTile, rows = min(kTile, S - t0);
+  const long long base = (long long)bh * S * K + (long long)t0 * K;
+  const long long mat = ((long long)bh * ntiles + c) * K * K;
+
+  // 0-1. The first K / 16 warps load the tile's r, k, g (rows past S
+  //    zero-filled) and scan them in place (r -> q = r 2^{Lp}, k -> ke =
+  //    k 2^{-L}, g -> L), with the bonus partials; the others load v, dy,
+  //    then S0 and Gh, and form rowsum(dy o v) over the steps and
+  //    rowsum(Gh o S0) over key rows.  Each half waits only for its own
+  //    copies (a named barrier of its warps), so the scan runs while the
+  //    other half's copies land.
+  constexpr int NO = K / 16, HT = NT / 2;  // warps and threads a half
+  auto load_rows = [&](int a, const float* src, int ht) {
+    for (int idx = ht; idx < kTile * K / 4; idx += HT) {
+      const int t = idx / (K / 4), c4 = idx % (K / 4) * 4;
+      const bool ok = t < rows;
+      cp_async_16(gsm + a * Lay::kVec + t * QS + c4,
+                  src + base + (ok ? (long long)t * K + c4 : 0), ok);
+    }
+  };
+  if (warp < NO) {
+    load_rows(0, r, tid);
+    load_rows(1, k, tid);
+    load_rows(2, g, tid);
+    cp_async_commit();
+    for (int i = tid; i < K; i += HT) U[i] = u[h * K + i];
+    cp_async_wait<0>();
+    named_barrier(1, HT);
+    const int seg = lane >> 2, i0 = 16 * warp + 4 * (lane & 3);
+    float L[4][4], P[4][4];
+    decay_scan(Ls, QS, kTile, g_min, seg, i0, L, P);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = 4 * seg + j, at = t * QS + i0;
+      const float4 r4 = load4(Q + at), k4 = load4(KE + at);
+      const float rr[4] = {r4.x, r4.y, r4.z, r4.w}, kk[4] = {k4.x, k4.y, k4.z, k4.w};
+      float q[4], ke[4], bonus = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        q[e] = rr[e] * ex2(P[j][e]);
+        ke[e] = kk[e] * ex2(-L[j][e]);
+        bonus = fmaf(rr[e] * U[i0 + e], kk[e], bonus);
+      }
+      *reinterpret_cast<float4*>(Q + at) = make_float4(q[0], q[1], q[2], q[3]);
+      *reinterpret_cast<float4*>(KE + at) = make_float4(ke[0], ke[1], ke[2], ke[3]);
+      *reinterpret_cast<float4*>(Ls + at) = make_float4(L[j][0], L[j][1], L[j][2], L[j][3]);
+      bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
+      bonus += __shfl_xor_sync(0xffffffffu, bonus, 2);
+      if ((lane & 3) == 0) Bon[warp * kTile + t] = bonus;
+    }
+  } else {
+    const int ht = tid - HT, ow = warp - NO;  // kTile / NO steps, 16 key rows a warp
+    load_rows(3, v, ht);
+    load_rows(4, dy, ht);
+    cp_async_commit();
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float* m = (a ? gh : s0) + mat;
+      for (int idx = ht; idx < K * K / 4; idx += HT) {
+        const int i = idx / (K / 4), c4 = idx % (K / 4) * 4;
+        cp_async_16(gsm + Lay::kS0 + a * Lay::kMat + i * QS + c4, m + i * K + c4, true);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    named_barrier(2, HT);
+    float a[kTile / NO], b[16];
+#pragma unroll
+    for (int q = 0; q < kTile / NO; ++q)
+      a[q] = lane_dot<K>(DY + (ow + NO * q) * QS, V + (ow + NO * q) * QS, lane);
+    warp_sums(a);
+    cp_async_wait<0>();
+    named_barrier(2, HT);
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      b[q] = lane_dot<K>(GH + (ow + NO * q) * QS, S0 + (ow + NO * q) * QS, lane);
+    warp_sums(b);
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < kTile / NO; ++q) Dbon[ow + NO * q] = a[q];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) DLe[ow + NO * q] = b[q];
+    }
+  }
+  __syncthreads();
+
+  // 2. dA = strict-lower(dy v^T) and A = strict-lower(q ke^T) + diag(bonus),
+  //    the three 16 x 16 blocks on or below the diagonal of each
+  for (int job = warp; job < 6; job += NW) {
+    const bool isA = job >= 3;
+    const int blk = job % 3, mb = blk > 0, nb = blk > 1;
+    const float* xa = isA ? Q : DY;
+    const float* xb = isA ? KE : V;
+    Acc3 w[2];
+    zero(w[0]);
+    zero(w[1]);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const FragA a = frag_a_mk(xa, QS, 16 * mb, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(w[n], a, frag_b_nk(xb, QS, k0, 16 * nb + 8 * n, gid, tig));
+    }
+    float* out = isA ? As : dA;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = 16 * mb + gid + 8 * half;
+      float bonus = 0.f;
+      if (isA) {
+#pragma unroll
+        for (int b = 0; b < K / 16; ++b) bonus += Bon[b * kTile + t];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int s = 16 * nb + 8 * n + 2 * tig;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[e] = s + e < t ? total(w[n], 2 * half + e) : s + e == t ? bonus : 0.f;
+        *reinterpret_cast<float2*>(out + t * AS + s) = make_float2(o[0], o[1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. warp w: rows 16 mb .. (steps), columns n0 .. n0 + 15 of dq, dke, dv
+  {
+    const int mb = warp & 1, n0 = (warp >> 1) * 16, m0 = 16 * mb;
+    Acc3 acc[2];
+    auto store_smem = [&](float* dst) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float* p = dst + (m0 + gid) * QS + n0 + 8 * n + 2 * tig;
+        *reinterpret_cast<float2*>(p) = make_float2(total(acc[n], 0), total(acc[n], 1));
+        *reinterpret_cast<float2*>(p + 8 * QS) = make_float2(total(acc[n], 2), total(acc[n], 3));
+      }
+    };
+    // dq = dy S0^T + dA ke (dA is 0 past the row block's own steps)
+    zero(acc[0]);
+    zero(acc[1]);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const FragA a = frag_a_mk(DY, QS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_nk(S0, QS, k0, n0 + 8 * n, gid, tig));
+    }
+    for (int k0 = 0; k0 < m0 + 16; k0 += 8) {
+      const FragA a = frag_a_mk(dA, AS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_kn(KE, QS, k0, n0 + 8 * n, gid, tig));
+    }
+    store_smem(DQ);
+    // X = v Gh^T, its colsum(ke o X) over the row block, then dke = X + dA^T q
+    zero(acc[0]);
+    zero(acc[1]);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const FragA a = frag_a_mk(V, QS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_nk(GH, QS, k0, n0 + 8 * n, gid, tig));
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = n0 + 8 * n + 2 * tig + e;
+        float p = KE[(m0 + gid) * QS + i] * total(acc[n], e);
+        p = fmaf(KE[(m0 + gid + 8) * QS + i], total(acc[n], 2 + e), p);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+        if (gid == 0) TP[mb * K + i] = p;
+      }
+    }
+    for (int k0 = m0; k0 < kTile; k0 += 8) {  // dA[t, s] = 0 for t <= s
+      const FragA a = frag_a_km(dA, AS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_kn(Q, QS, k0, n0 + 8 * n, gid, tig));
+    }
+    store_smem(DKE);
+    // dv = A^T dy + ke Gh, straight out
+    zero(acc[0]);
+    zero(acc[1]);
+    for (int k0 = m0; k0 < kTile; k0 += 8) {  // A[t, s] = 0 for t < s
+      const FragA a = frag_a_km(As, AS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_kn(DY, QS, k0, n0 + 8 * n, gid, tig));
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const FragA a = frag_a_mk(KE, QS, m0, k0, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(acc[n], a, frag_b_kn(GH, QS, k0, n0 + 8 * n, gid, tig));
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int s = m0 + gid, col = n0 + 8 * n + 2 * tig;
+      if (s < rows)
+        store2(dv + base + (long long)s * K + col, total(acc[n], 0), total(acc[n], 1));
+      if (s + 8 < rows)
+        store2(dv + base + (long long)(s + 8) * K + col, total(acc[n], 2), total(acc[n], 3));
+    }
+  }
+  __syncthreads();
+
+  // 4. a thread a key channel i and the 8 steps of segment sg: dr, dk, the
+  //    dg terms b = -ke dke and w = q dq + b, the du partial; then dg from
+  //    the suffix sums of w, later segments' first, in a fixed order
+  const int i = tid % K, sg = tid / K;  // 4 segments
+  const float ui = U[i];
+  // the segment's r, k, g from global memory (L2: this CTA just read them),
+  // all requests in flight at once
+  float rr[8], kk[8], gg[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = 8 * sg + j;
+    const long long o = base + (long long)t * K + i;
+    rr[j] = t < rows ? r[o] : 0.f;
+    kk[j] = t < rows ? k[o] : 0.f;
+    gg[j] = t < rows ? g[o] : 0.f;
+  }
+  float wt[8], bt[8], wsum = 0.f, du = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = 8 * sg + j, at = t * QS + i;
+    const float dq = DQ[at], dke = DKE[at], db = Dbon[t];
+    bt[j] = -KE[at] * dke;
+    wt[j] = fmaf(Q[at], dq, bt[j]);
+    wsum += wt[j];
+    du = fmaf(rr[j] * kk[j], db, du);
+    if (t < rows) {
+      const long long o = base + (long long)t * K + i;
+      dr[o] = fmaf(dq, ex2(t ? Ls[at - QS] : 0.f), ui * kk[j] * db);
+      dk[o] = fmaf(dke, ex2(-Ls[at]), ui * rr[j] * db);
+    }
+  }
+  Seg[sg * K + i] = wsum;
+  Du[sg * K + i] = du;
+  __syncthreads();
+  float acc = (DLe[i] + TP[i]) + TP[K + i];
+  for (int s = 3; s > sg; --s) acc += Seg[s * K + i];
+#pragma unroll
+  for (int j = 7; j >= 0; --j) {
+    const int t = 8 * sg + j;
+    if (t < rows)
+      dg[base + (long long)t * K + i] = gg[j] >= g_min && gg[j] <= 0.f ? acc + bt[j] : 0.f;
+    acc += wt[j];
+  }
+  if (sg == 0)
+    du_part[((long long)bh * ntiles + c) * K + i] =
+        ((Du[i] + Du[K + i]) + Du[2 * K + i]) + Du[3 * K + i];
+}
+
+template <typename Kernel>
+int resources_of(Kernel kernel, int bytes, int threads, int* out) {
+  cudaFuncAttributes attr;
+  int n = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = bytes;
+  out[3] = n;
+  return 0;
 }
 
 template <int K>
 int launch_bwd(const float* r, const float* k, const float* v, const float* g,
                const float* u, const float* dy, const float* dstate, float* dr, float* dk,
-               float* dv, float* dg, float* du_part, float* ckpt, float* scratch, int BH,
-               int H, int S, float g_min, cudaStream_t stream) {
-  using Lay = BLayout<K>;
-  auto kernel = wkv_bwd_kernel<K>;
+               float* dv, float* dg, float* du_part, float* s0, float* gh, int BH, int H,
+               int S, float g_min, cudaStream_t stream) {
+  using WL = WalkLayout<K>;
+  using GL = GradLayout<K>;
+  auto walk = wkv_bwd_walk_kernel<K>;
+  auto grad = wkv_bwd_grad_kernel<K>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+      cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, WL::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grad, cudaFuncAttributeMaxDynamicSharedMemorySize, GL::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grad, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<BH, Lay::kThreads, Lay::kBytes, stream>>>(r, k, v, g, u, dy, dstate, dr, dk, dv,
-                                                      dg, du_part, ckpt, scratch, H, S,
-                                                      g_min);
+  const int ntiles = (S + kTile - 1) / kTile;
+  walk<<<2 * BH * (K / WL::VB), kThreads, WL::kBytes, stream>>>(r, k, v, g, dy, dstate, s0,
+                                                                  gh, BH, S, g_min);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  grad<<<BH * ntiles, GL::kThreads, GL::kBytes, stream>>>(r, k, v, g, u, dy, s0, gh, dr, dk,
+                                                           dv, dg, du_part, H, S, g_min);
   return (int)cudaGetLastError();
+}
+
+template <int K>
+int bwd_resources(int pass, int* out) {
+  return pass ? resources_of(wkv_bwd_grad_kernel<K>, GradLayout<K>::kBytes,
+                             GradLayout<K>::kThreads, out)
+              : resources_of(wkv_bwd_walk_kernel<K>, WalkLayout<K>::kBytes, kThreads, out);
 }
 
 }  // namespace
@@ -861,16 +1251,18 @@ extern "C" int wkv_chunk_smem_bytes(int K, int bf16) {
   }
 }
 
-// The backward (fp32 only): dr, dk, dv, dg [BH, S, K] and du_part [BH, K]
-// (du of each (b, h), summed over b by the caller) from r, k, v, g, u and
-// dy, and dstate [BH, K, K] (the final state's cotangent; null for none).
-// ckpt and scratch are fp32 workspaces of `wkv_bwd_workspace_floats`
-// floats each.  BH, S >= 1, K in {16, 32, 64}, 16-byte aligned contiguous
-// tensors.  Returns cudaGetLastError() after the launch.
+// The backward (fp32 only): dr, dk, dv, dg [BH, S, K] and du_part [BH,
+// ntiles, K] (du of each (b, h) and 32-step tile, summed by the caller)
+// from r, k, v, g, u and dy, and dstate [BH, K, K] (the final state's
+// cotangent; null for none).  s0 and gh are fp32 workspaces of
+// `wkv_bwd_workspace_floats` floats each (the tiles' states and scaled
+// end cotangents).  Two kernels on `stream`: the walks, then the
+// gradients.  BH, S >= 1, K in {16, 32, 64}, 16-byte aligned contiguous
+// tensors.  Returns cudaGetLastError() after the launches.
 extern "C" int wkv_bwd_launch(const void* r, const void* k, const void* v, const void* g,
                               const void* u, const void* dy, const void* dstate, void* dr,
-                              void* dk, void* dv, void* dg, void* du_part, void* ckpt,
-                              void* scratch, int BH, int H, int S, int K, float g_min,
+                              void* dk, void* dv, void* dg, void* du_part, void* s0,
+                              void* gh, int BH, int H, int S, int K, float g_min,
                               void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
@@ -878,26 +1270,36 @@ extern "C" int wkv_bwd_launch(const void* r, const void* k, const void* v, const
   switch (K) {
     case 16:
       return launch_bwd<16>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
-                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+                            m(dv), m(dg), m(du_part), m(s0), m(gh), BH, H, S, g_min, s);
     case 32:
       return launch_bwd<32>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
-                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+                            m(dv), m(dg), m(du_part), m(s0), m(gh), BH, H, S, g_min, s);
     case 64:
       return launch_bwd<64>(f(r), f(k), f(v), f(g), f(u), f(dy), f(dstate), m(dr), m(dk),
-                            m(dv), m(dg), m(du_part), m(ckpt), m(scratch), BH, H, S, g_min, s);
+                            m(dv), m(dg), m(du_part), m(s0), m(gh), BH, H, S, g_min, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The floats of the backward's two workspaces for one launch: the states at
-// the tile boundaries, then the recomputed states of one tile, per (b, h).
-extern "C" long long wkv_bwd_workspace_floats(int BH, int S, int K, int scratch) {
-  const int threads = K == 16 ? BLayout<16>::kThreads
-                      : K == 32 ? BLayout<32>::kThreads
-                                : BLayout<64>::kThreads;
-  const long long per = (long long)threads * 16;
-  return scratch ? (long long)BH * kBTile * per
-                 : (long long)BH * ((S + kBTile - 1) / kBTile) * per;
+// The floats of one launch's buffers: which = 0 the states and 1 the scaled
+// end cotangents (a [K, K] matrix a (b, h) and tile each), 2 the du
+// partials (K a (b, h) and tile).
+extern "C" long long wkv_bwd_workspace_floats(int BH, int S, int K, int which) {
+  const long long tiles = (long long)BH * ((S + kTile - 1) / kTile);
+  return which == 2 ? tiles * K : tiles * K * K;
+}
+
+// The backward kernel of pass (0: the walks, 1: the gradients) for key
+// width K: out[0] registers a thread, out[1] local (spilled) bytes a
+// thread, out[2] dynamic shared memory bytes a CTA, out[3] CTAs an SM (the
+// occupancy calculator on the current device).  Returns a CUDA error code.
+extern "C" int wkv_bwd_resources(int K, int pass, int* out) {
+  switch (K) {
+    case 16: return bwd_resources<16>(pass, out);
+    case 32: return bwd_resources<32>(pass, out);
+    case 64: return bwd_resources<64>(pass, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* wkv_chunk_error_string(int err) {

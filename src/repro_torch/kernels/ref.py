@@ -142,28 +142,31 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, u: torch.Tensor, *,
-                  return_state: bool = False):
+                  return_state: bool = False, dtype: torch.dtype = torch.float32):
     """RWKV6 WKV, the per-step recurrence: r, k, v, g [B,H,S,K] (g the log
     decay, <= 0), u [H,K] the bonus -> y [B,H,S,K] in r's dtype.  Per (b, h),
-    from a zero [K, K] state in fp32:
+    from a zero [K, K] state in ``dtype`` (fp32; float64 for an oracle whose
+    own rounding stays far under a kernel's tolerance):
 
         y_t = r_t . (state + u (x) (k_t (x) v_t))
         state <- e^{g_t} * state + k_t (x) v_t
 
-    Products summed elementwise in fp32 (no matmul, so no TF32 either).
-    With ``return_state``, (y, the state after the last step [B,H,K,K] fp32,
-    key rows by value columns)."""
+    Products summed elementwise in ``dtype`` (no matmul, so no TF32
+    either).  With ``return_state``, (y, the state after the last step
+    [B,H,K,K] in ``dtype``, key rows by value columns)."""
     B, H, S, K = r.shape
-    rf, kf, vf, gf = (x.reshape(B * H, S, K).float() for x in (r, k, v, g))
-    uf = u.float().expand(B, H, K).reshape(B * H, K, 1)
+    rf, kf, vf, gf = (x.reshape(B * H, S, K).to(dtype) for x in (r, k, v, g))
+    uf = u.to(dtype).expand(B, H, K).reshape(B * H, K, 1)
     wf = torch.exp(gf)
-    state = torch.zeros((B * H, K, K), dtype=torch.float32, device=r.device)
-    y = torch.empty((B * H, S, K), dtype=torch.float32, device=r.device)
+    state = torch.zeros((B * H, K, K), dtype=dtype, device=r.device)
+    # the steps' outputs stacked once at the end: a slice assignment a step
+    # would make autograd copy all of y's gradient at every step
+    ys = []
     for t in range(S):
         kv = kf[:, t, :, None] * vf[:, t, None, :]
-        y[:, t] = (rf[:, t, :, None] * (state + uf * kv)).sum(1)
+        ys.append((rf[:, t, :, None] * (state + uf * kv)).sum(1))
         state = wf[:, t, :, None] * state + kv
-    y = y.reshape(B, H, S, K).to(r.dtype)
+    y = torch.stack(ys, 1).reshape(B, H, S, K).to(r.dtype)
     if return_state:
         return y, state.reshape(B, H, K, K)
     return y
@@ -171,17 +174,99 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
-                dstate: torch.Tensor = None) -> tuple:
+                dstate: torch.Tensor = None, *,
+                dtype: torch.dtype = torch.float32) -> tuple:
     """(dr, dk, dv, dg, du) of `wkv_chunk_ref` on clip(g, -1.2, 0) (with
     ``dstate``, of its final state too): `torch.autograd.grad` through the
-    per-step recurrence.  dg is 0 where g lies outside [-1.2, 0] (the
-    clamp's gradient; it passes at the bounds themselves)."""
+    per-step recurrence, computed in ``dtype`` (fp32; float64 for an
+    oracle: du sums B S per-step terms, and in fp32 that sum alone rounds
+    by up to ~8e-4 at B 4, S 4096), returned in the inputs' dtypes.  dg is
+    0 where g lies outside [-1.2, 0] (the clamp's gradient; it passes at
+    the bounds themselves)."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (r, k, v, g, u)]
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (r, k, v, g, u)]
         rr, kk, vv, gg, uu = leaves
         gc = torch.clamp(gg, torch.tensor(-1.2, dtype=g.dtype).item(), 0.0)
         if dstate is None:
-            y = wkv_chunk_ref(rr, kk, vv, gc, uu)
-            return torch.autograd.grad(y, leaves, dy)
-        y, state = wkv_chunk_ref(rr, kk, vv, gc, uu, return_state=True)
-        return torch.autograd.grad((y, state), leaves, (dy, dstate))
+            y = wkv_chunk_ref(rr, kk, vv, gc, uu, dtype=dtype)
+            grads = torch.autograd.grad(y, leaves, dy.to(dtype))
+        else:
+            y, state = wkv_chunk_ref(rr, kk, vv, gc, uu, return_state=True, dtype=dtype)
+            grads = torch.autograd.grad((y, state), leaves,
+                                        (dy.to(dtype), dstate.to(dtype)))
+    return tuple(d.to(t.dtype) for d, t in zip(grads, (r, k, v, g, u)))
+
+
+def wkv_bwd_tiled_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                      dstate: torch.Tensor = None, *, tile: int = 32) -> tuple:
+    """`wkv_bwd_ref`'s gradients by the CUDA backward's algebra, in plain
+    tensor ops (fp32; the tests hold it to JAX).  S is cut into tiles of
+    ``tile`` steps (a ragged last tile padded with g = 0, r = k = v = dy =
+    0); per tile, L the inclusive cumulative clipped decay in log2 units,
+    Lp the exclusive one, Le = L at the tile's last step, q = r 2^Lp,
+    ke = k 2^-L, A = strict-lower(q ke^T) + diag(sum_i r u k):
+
+      1. states: S0 of each tile, S0' = 2^Le (S0 + ke^T v) from zero;
+      2. cotangents, from the last tile (G = dstate or 0): Gh = 2^Le G is
+         the tile's scaled end cotangent, then G <- Gh + q^T dy;
+      3. per tile: dA = strict-lower(dy v^T), dbon = rowsum(dy v);
+         dq = dy S0^T + dA ke, X = v Gh^T, dke = dA^T q + X,
+         dv = A^T dy + ke Gh; dr = dq 2^Lp + u k dbon,
+         dk = dke 2^-L + u r dbon; dg_t = dLe + sum_{t' > t} w_t' + b_t
+         with b = -ke dke, w = q dq + b and the end decay's
+         dLe = rowsum(Gh o S0) + colsum(ke o X); 0 where g was clipped.
+
+    Returns (dr, dk, dv, dg [B,H,S,K], du [H,K]) in fp32."""
+    B, H, S, K = r.shape
+    BH, n = B * H, -(-S // tile)
+    pad = n * tile - S
+    log2e = 1.4426950408889634
+
+    def tiles(x):
+        x = x.reshape(BH, S, K).float()
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(BH, n, tile, K)
+
+    rt, kt, vt, gt, dyt = (tiles(x) for x in (r, k, v, g, dy))
+    g_min = torch.tensor(-1.2, dtype=g.dtype).item()
+    L = torch.cumsum(torch.clamp(gt, g_min, 0.0) * log2e, dim=2)
+    Lp = torch.nn.functional.pad(L[:, :, :-1], (0, 0, 1, 0))
+    Le = L[:, :, -1]  # [BH, n, K]
+    q, ke = rt * torch.exp2(Lp), kt * torch.exp2(-L)
+    uf = u.float().expand(B, H, K).reshape(BH, 1, 1, K)
+    bonus = (rt * uf * kt).sum(-1)  # [BH, n, tile]
+
+    state, s0 = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device), []
+    for c in range(n):
+        s0.append(state)
+        state = torch.exp2(Le[:, c, :, None]) * (state + ke[:, c].transpose(1, 2) @ vt[:, c])
+    G = (torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.reshape(BH, K, K).float())
+    gh = [None] * n
+    for c in reversed(range(n)):
+        gh[c] = torch.exp2(Le[:, c, :, None]) * G
+        G = gh[c] + q[:, c].transpose(1, 2) @ dyt[:, c]
+    s0, gh = torch.stack(s0, 1), torch.stack(gh, 1)  # [BH, n, K, K]
+
+    tr = lambda x: x.transpose(-1, -2)  # noqa: E731
+    strict = torch.tril(torch.ones((tile, tile), device=r.device), -1)
+    dA = (dyt @ tr(vt)) * strict
+    A = (q @ tr(ke)) * strict + torch.diag_embed(bonus)
+    dbon = (dyt * vt).sum(-1, keepdim=True)
+    dq = dyt @ tr(s0) + dA @ ke
+    X = vt @ tr(gh)
+    dke = tr(dA) @ q + X
+    dv = tr(A) @ dyt + ke @ gh
+    dr = dq * torch.exp2(Lp) + uf * kt * dbon
+    dk = dke * torch.exp2(-L) + uf * rt * dbon
+    b = -ke * dke
+    w = q * dq + b
+    dLe = (gh * s0).sum(-1) + (ke * X).sum(2)  # [BH, n, K]
+    later = torch.flip(torch.cumsum(torch.flip(w, [2]), 2), [2]) - w
+    dg = (dLe[:, :, None] + later + b) * ((gt >= g_min) & (gt <= 0.0))
+    du = (rt * kt * dbon).reshape(B, H, n * tile, K).sum((0, 2))
+
+    def back(x):
+        return x.reshape(BH, n * tile, K)[:, :S].reshape(B, H, S, K)
+
+    return back(dr), back(dk), back(dv), back(dg), du

@@ -31,17 +31,27 @@ by the same launch (a null state pointer writes nothing, and y does not
 depend on it).
 
 Both wrappers are differentiable.  On a CUDA tensor that needs a gradient
-they run `_WKV`, whose backward launches `wkv_bwd`: one CUDA kernel that
-computes dr, dk, dv, dg (0 where g was clipped) and du in fp32, replacing
-JAX's autodiff of the reference's `_chunked_linear_attention`
-(`src/repro/models/ssm.py:29`; the Pallas kernel has no gradient rule).
+they run `_WKV`, whose backward calls `wkv_bwd`: dr, dk, dv, dg (0 where g
+was clipped) and du in fp32, replacing JAX's autodiff of the reference's
+`_chunked_linear_attention` (`src/repro/models/ssm.py:29`; the Pallas
+kernel has no gradient rule), and like it differentiating the tiled form.
+Two CUDA kernels on the current stream: `wkv_bwd_walk_kernel` walks the
+32-step tiles forward for each tile's starting state and, in the other
+half of its grid, backwards for each tile's scaled end cotangent (two
+fp32 workspaces of [K, K] a (b, h) and tile, 84 MB each at rwkv6-3b's B 1,
+S 4096); `wkv_bwd_grad_kernel` then takes one (b, h, tile) a CTA (5,120 at
+B 1) and forms the tile's gradients from small products on the tensor
+cores in 3xTF32, with a du partial a tile that the wrapper sums over b
+and the tiles in a fixed order.  No float atomics: two calls are bitwise
+equal.  `ref.wkv_bwd_tiled_ref` is the same algebra in plain tensor ops.
 The backward takes fp32 inputs only (the model's scan hands the kernel
 fp32): a bf16 input that needs a gradient on the card raises.
 
 A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on the clipped
-g, differentiable through autograd); a CUDA tensor launches the kernel on
+g, differentiable through autograd); a CUDA tensor launches the kernels on
 the current stream or raises.  `wkv.launches` counts one a call of either
-forward wrapper that launches, `wkv_bwd.launches` one a backward launch.
+forward wrapper that launches, `wkv_bwd.launches` one a backward call
+(its two kernels).
 """
 from __future__ import annotations
 
@@ -73,6 +83,8 @@ def _library() -> ctypes.CDLL:
     lib.wkv_bwd_launch.restype = ctypes.c_int
     lib.wkv_bwd_workspace_floats.argtypes = [i, i, i, i]
     lib.wkv_bwd_workspace_floats.restype = ctypes.c_longlong
+    lib.wkv_bwd_resources.argtypes = [i, i, p]
+    lib.wkv_bwd_resources.restype = ctypes.c_int
     return lib
 
 
@@ -82,6 +94,23 @@ def kernel_resources(K: int, dtype: torch.dtype) -> dict:
     lib, bf16 = _library(), int(dtype == torch.bfloat16)
     return dict(ctas_per_sm=lib.wkv_chunk_ctas_per_sm(K, bf16),
                 smem_bytes=lib.wkv_chunk_smem_bytes(K, bf16))
+
+
+def bwd_kernel_resources(K: int) -> dict:
+    """Per backward kernel ("wkv_bwd_walk_kernel", "wkv_bwd_grad_kernel"):
+    registers a thread, local (spilled) bytes a thread, dynamic shared
+    memory a CTA and CTAs an SM (the occupancy calculator on the current
+    card), for key width K."""
+    out = {}
+    for name, which in (("wkv_bwd_walk_kernel", 0), ("wkv_bwd_grad_kernel", 1)):
+        got = (ctypes.c_int * 4)()
+        err = _library().wkv_bwd_resources(K, which, got)
+        if err != 0:
+            raise RuntimeError(f"wkv_bwd_resources failed: CUDA error {err} "
+                               f"({_library().wkv_chunk_error_string(err).decode()})")
+        out[name] = dict(registers=got[0], local_bytes=got[1], smem_bytes=got[2],
+                         ctas_per_sm=got[3])
+    return out
 
 
 def _check(r, k, v, g, u, chunk: int) -> None:
@@ -222,8 +251,8 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     """The gradient of `wkv` (of `wkv_with_state` with ``dstate``, the final
     state's cotangent [B,H,K,K]) for y's cotangent dy: (dr, dk, dv, dg
     [B,H,S,K], du [H,K]), fp32; dg is 0 where g was clipped.  On the card
-    one launch of the backward kernel (du summed over b afterwards, in
-    order); on the CPU `ref.wkv_bwd_ref`."""
+    the backward's two kernels (du's tile partials summed over b and the
+    tiles afterwards, in order); on the CPU `ref.wkv_bwd_ref`."""
     _check(r, k, v, g, u, r.shape[2] or 1)
     for name, t, shape in (("dy", dy, r.shape),
                            ("dstate", dstate, r.shape[:2] + (r.shape[3],) * 2)):
@@ -244,25 +273,25 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                          "dstate")
     B, H, S, K = r.shape
     dr, dk, dv, dg = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
     lib = _library()
-    ckpt, scratch = (torch.empty((lib.wkv_bwd_workspace_floats(B * H, S, K, w),),
-                                 dtype=torch.float32, device=r.device)
-                     for w in (0, 1))
+    # the tiles' states, their scaled end cotangents, the du partials
+    s0, gh, du_part = (torch.empty((lib.wkv_bwd_workspace_floats(B * H, S, K, w),),
+                                   dtype=torch.float32, device=r.device)
+                       for w in (0, 1, 2))
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = lib.wkv_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), u.data_ptr(),
             dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dg.data_ptr(),
-            du_part.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(), B * H, H, S,
+            du_part.data_ptr(), s0.data_ptr(), gh.data_ptr(), B * H, H, S,
             K, float(G_MIN), stream)
     if err != 0:
         raise RuntimeError(f"wkv_bwd kernel launch failed: CUDA error {err} "
                            f"({lib.wkv_chunk_error_string(err).decode()})")
     wkv_bwd.launches += 1
-    # du over b in a fixed order (a reduction of B rows, no atomics)
-    return dr, dk, dv, dg, du_part.sum(0)
+    # du over b and the tiles in a fixed order (a reduction, no atomics)
+    return dr, dk, dv, dg, du_part.view(B, H, -1, K).sum((0, 2))
 
 
 # kernel launches since the last reset (CPU calls excluded)

@@ -543,6 +543,54 @@ def test_wkv_backward_plain_version_matches_jax(with_state):
         torch.testing.assert_close(got, w, rtol=0, atol=0, msg=f"autograd d{name}")
 
 
+@pytest.mark.parametrize("S_,K,floor", [(96, 16, False), (100, 16, False),
+                                        (96, 32, False), (100, 32, False),
+                                        (100, 64, False), (64, 16, True),
+                                        (64, 64, True)])
+def test_wkv_bwd_tiled_ref_matches_jax(S_, K, floor):
+    """`ref.wkv_bwd_tiled_ref` (the CUDA backward's algebra: 32-step tiles,
+    log2 factoring, the state, cotangent and gradient passes) against
+    `jax.vjp` of the reference's `wkv_chunk_ref` on `jnp.clip`'s g and
+    `jax.grad` of `_chunked_linear_attention` (mode "rwkv", the bonus u),
+    and with a dstate against `ref.wkv_bwd_ref` in fp32 and float64.  S 96 spans three tiles,
+    S 100 ends in a ragged one; ``floor`` puts g at -1.2 on every step (55.4
+    bits of decay a tile, the exponent margin), where jnp.clip's gradient
+    halves at the tie and torch.clamp's passes whole: there dg is held to
+    `wkv_bwd_ref` alone."""
+    jax, jnp = _jax()
+    from repro.kernels.ref import wkv_chunk_ref as jref
+    from repro.models.ssm import _chunked_linear_attention as jscan
+
+    q, k, v, g, u, ct = _rwkv_inputs(np.random.default_rng(S_ + K), S_=S_, K=K)
+    if floor:
+        g[:] = np.float32(-1.2)
+    r, kk, vv, gg, dy = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                         for x in (q, k, v, g, ct))
+    ins = [_t(x) for x in (r, kk, vv, gg, u)]
+    plain = tref.wkv_bwd_tiled_ref(*ins, _t(dy))
+    _, vjp = jax.vjp(lambda *a: jref(*a[:3], jnp.clip(a[3], -1.2, 0.0), a[4]),
+                     r, kk, vv, gg, u)
+    by_scan = jax.grad(lambda *a: jnp.sum(jscan(*a[:4], chunk=32, mode="rwkv",
+                                                bonus=a[4]) * ct),
+                       argnums=(0, 1, 2, 3, 4))(q, k, v, g, u)
+    by_scan = [np.asarray(x).transpose(0, 2, 1, 3) for x in by_scan[:4]] + [by_scan[4]]
+    names = ("r", "k", "v", "g", "u")
+    for which, want in (("wkv_chunk_ref", vjp(jnp.asarray(dy))),
+                        ("_chunked_linear_attention", by_scan)):
+        for name, a, w in zip(names, plain, want):
+            if not (floor and name == "g"):
+                _close(a, w, TOL, f"d{name} vs {which}")
+    if floor:
+        _close(plain[3], tref.wkv_bwd_ref(*ins, _t(dy))[3], TOL, "dg vs wkv_bwd_ref")
+    ds = _t(np.random.default_rng(3).standard_normal((2, 3, K, K)))
+    got = tref.wkv_bwd_tiled_ref(*ins, _t(dy), ds)
+    for dtype in (torch.float32, torch.float64):  # the card's oracle: float64
+        want = tref.wkv_bwd_ref(*ins, _t(dy), ds, dtype=dtype)
+        for name, a, w in zip(names, got, want):
+            assert w.dtype == torch.float32
+            _close(a, w, TOL, f"d{name} with dstate vs wkv_bwd_ref in {dtype}")
+
+
 def test_cpu_gradients_launch_nothing():
     before = (tflash.flash_attention.launches, tflash.flash_attention_bwd_dq.launches,
               tflash.flash_attention_bwd_dkdv.launches, twkv.wkv.launches,

@@ -571,11 +571,14 @@ def test_cuda_flash_backward_matches_plain_on_card(cuda_device, B, H, S, T, D,
             assert gap <= 2.0 ** -6 * float(w.float().abs().max()), gap
 
 
-@pytest.mark.parametrize("S,K,with_state", [(1000, 64, True), (300, 32, False)])
+@pytest.mark.parametrize("S,K,with_state", [(1000, 64, True), (300, 32, False),
+                                          (96, 64, False), (33, 16, True),
+                                          (1, 32, True)])
 def test_cuda_wkv_backward_matches_plain_on_card(cuda_device, S, K, with_state):
-    """Autograd through the WKV kernel (its backward kernel) against autograd
-    through the plain recurrence within (1e-4, 1e-3); dg 0 where g was
-    clipped; two launches bitwise."""
+    """Autograd through the WKV kernel (its backward kernels) against
+    autograd through the plain recurrence within (1e-4, 1e-3); dg 0 where g
+    was clipped; two launches bitwise.  S 96 is three whole 32-step tiles
+    of the backward, S 33 a tile and one step, S 1 one step."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
 
     def draw(*shape, scale=1.0):
@@ -597,3 +600,19 @@ def test_cuda_wkv_backward_matches_plain_on_card(cuda_device, S, K, with_state):
     ag = torch.autograd.grad(twkv.wkv(*leaves, chunk=S), leaves, dy)
     ref_grads = twkv.wkv_bwd(r, k, v, g, u, dy)
     assert all(torch.equal(a, b) for a, b in zip(ag, ref_grads))
+
+
+def test_cuda_wkv_backward_at_the_clip_floor(cuda_device):
+    """g = -1.2 on every step (55.4 bits of decay a 32-step tile, the
+    backward's exponent margin), with the state's cotangent: the backward
+    kernels finite and within (1e-4, 1e-3) of the plain recurrence's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    r, k, v, dy = (torch.randn((1, 2, 256, 64), generator=gen, device=cuda_device)
+                   for _ in range(4))
+    g = torch.full_like(r, -1.2)
+    u = torch.randn((2, 64), generator=gen, device=cuda_device) * 0.3
+    ds = torch.randn((1, 2, 64, 64), generator=gen, device=cuda_device)
+    got = twkv.wkv_bwd(r, k, v, g, u, dy, ds)
+    for a, w in zip(got, tref.wkv_bwd_ref(r, k, v, g, u, dy, ds)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, w, atol=WKV_ATOL, rtol=WKV_RTOL)
