@@ -33,9 +33,11 @@ backward, each pass's device time from one trace, and the kernels'
 registers, shared memory and CTAs an SM (`flash_bwd`); the WKV backward's
 two kernels (the tiles' walks, then the gradients a tile) the same way
 at rwkv6-3b width (B 4, H 40, S 4096; S 1000 with the final state's
-cotangent; K 32) against the plain recurrence in float64, dg 0 wherever g
-was clipped, each kernel's device time beside the design's DRAM floor
-(`wkv_bwd`); then three
+cotangent; K 32; B 1 with g exactly -1.2 and 0 at a third of the
+entries, dg there half the gradient with respect to the clipped decay, as
+jnp.clip's gradient halves a tie) against the plain recurrence in float64,
+dg 0 wherever g was clipped, each kernel's device time beside the design's
+DRAM floor (`wkv_bwd`); then three
 AdamW steps of llama3.2-1b (train_4k's 4096 tokens, batch cut to 2) and
 two of rwkv6-3b (B 1) at full width and depth under remat "minimal"
 through `launch/train.make_train_step`, each step's launches counted from
@@ -44,6 +46,20 @@ kernel group, and layer 0's backward kernel inputs of the first step held
 against the plain versions (`llm_train`, `rwkv_train`); last the 40m
 example `repro_torch.examples.train_llm_100m` for LLM_SMALL_STEPS steps,
 its loss down 5 % within LLM_SMALL_SECONDS (`llm_train_small`).
+Then the dense configs at head dim 128 (`dense_phases`, DENSE_SERVE), each
+at full width with the port's seeded weights: llama3.2-3b and chatglm3-6b
+(half RoPE, qkv bias, 2 KV heads) at all 28 layers, prefill B 1, S 8192;
+qwen1.5-32b at 14 of 64 layers and qwen2-vl-72b at 8 of 80 (the card's 80
+GB), prefill B 1, S 4096, qwen2-vl's from the data pipeline's seeded stub
+patch embeddings and M-RoPE triplets: each prefill through
+`transformer.prefill`, one flash launch a layer, rerun bitwise
+(llama3.2-3b's also traced by kernel group), DENSE_DECODE_TOKENS greedy
+tokens from its cache, layer 0's attention inputs through the flash
+kernel against the plain version beside SDPA, and a 32-token prompt's
+prefill against token-by-token decode at bf16 and fp32
+(`llm_serve_<arch>`); after llama3.2-3b's, one AdamW step of it at B
+1, S 4096 (its launches counted, layer 0's flash backward inputs held and
+timed at D 128: `llm_train_llama3_2_3b`).
 Then the GNN paths at the full width of the gcn-paper workload (a
 2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
 exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
@@ -164,8 +180,13 @@ and on the host, bit for bit, and times both): each run twice, bit for
 bit, losses finite and falling under sync, step ms (LLCG's local and
 server steps apart), peak memory, bytes pushed and hit ratio; then at
 2**11 vertices on the card and on the CPU, the losses within 1e-4.  They
-compute densely and launch no kernel of the port.  Each phase prints one
-JSON line; the next-to-last lines
+compute densely and launch no kernel of the port.  Last, the GNN drivers
+(`gnn_drivers`): `train_gnn.main` with ``--no-engine --exec spmm_1d`` and
+with ``--trainable-features --embed-lr 0.01 --p2p-buckets 2 --parts 1
+--oracle-check``, and `examples.staleness_ablation` at ABLATION_EPOCHS
+epochs, each with finite losses.  The GAT kernels' cases run once, on the
+gat engine (every model's engine has the same layout).  Each phase prints
+one JSON line; the next-to-last lines
 are the per-kernel summary and the card's name and power limit from
 nvidia-smi, and the last line is {"ok": true, "device": {...}}; with
 ``--jsonl PATH`` every phase line is also appended to PATH.  Any failed check
@@ -1578,11 +1599,14 @@ def llm_kernel_group(name: str) -> str:
 
 
 def lm_prompt(cfg, B, S, device, seed):
+    """Seeded tokens [B, S] and their positions ((3, B, S) text triplets
+    under M-RoPE)."""
+    from repro_torch.data.pipeline import model_positions
+
     gen = torch.Generator(device=device).manual_seed(seed)
     tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
                            device=device)
-    return {"tokens": tokens,
-            "positions": torch.arange(S, device=device)[None].expand(B, S)}
+    return {"tokens": tokens, "positions": model_positions(cfg, B, S, device)}
 
 
 def timed_s(fn):
@@ -1603,7 +1627,7 @@ def prefill_run(cfg, params, batch, kernel):
     (logits, cache), seconds = timed_s(lambda: T.prefill(cfg, params, batch))
     launches = read_counts()
     check_counts(launches, {kernel: cfg.num_layers}, f"{cfg.name} prefill")
-    B = batch["tokens"].shape[0]
+    B = batch["positions"].shape[-2]
     check(logits.shape == (B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
@@ -1637,16 +1661,17 @@ def decode_from(cfg, params, cache, logits, pos0, n):
     return ms
 
 
-def prefill_vs_decode(cfg, params, device, seed):
+def prefill_vs_decode(cfg, params, device, seed, shape=PREFILL_DECODE_CHECK):
     """tests/test_prefill.py's contract at full width: the prefill's last
-    logits (and, for RWKV6, the state it hands on) against token-by-token
-    `serve_step` from an empty cache, which runs no kernel, within
-    PREFILL_DECODE_TOL of the largest magnitude: at the config's bf16 with
-    the cache as stored, at float32 with an fp32 cache."""
+    logits (and, for RWKV6, the state it hands on) of ``shape``'s (B, S)
+    against token-by-token `serve_step` from an empty cache, which runs no
+    kernel, within PREFILL_DECODE_TOL of the largest magnitude: at the
+    config's bf16 with the cache as stored, at float32 with an fp32
+    cache."""
     from repro_torch.models import transformer as T
     from repro_torch.models.kvcache import init_cache
 
-    B, S = PREFILL_DECODE_CHECK
+    B, S = shape
     out = {}
     for dtype, share in PREFILL_DECODE_TOL.items():
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -1687,7 +1712,8 @@ def layer0_attention(cfg, params, batch):
 
     with torch.inference_mode():
         blk = params.blocks[0]
-        h = T.embed_tokens(cfg, params, batch["tokens"])
+        h = (batch["embeds"].to(T._dtype(cfg)) if "embeds" in batch
+             else T.embed_tokens(cfg, params, batch["tokens"]))
         q, k, v = attention_qkv(blk.attn, rmsnorm(blk.ln1, h, cfg.norm_eps),
                                 cfg, positions=batch["positions"])
         n_rep = cfg.num_heads // cfg.num_kv_heads
@@ -2416,6 +2442,7 @@ def wkv_bwd_phase(device):
                                                    for t in (r, k, v, g)),
                               u[:, :32].contiguous(),
                               dy[:1, :, :S // 2, :32].contiguous(), None, 3))
+    cases.append(wkv_tie_case(draw, H, K))
     rows = [row for row, _ in cases]
     for row, device_ms in zip(rows, wkv_bwd_device_ms([call for _, call in cases])):
         row["kernel_device_ms"] = device_ms
@@ -2429,6 +2456,54 @@ def wkv_bwd_phase(device):
          resources={K_: bwd_kernel_resources(K_) for K_ in KEY_DIMS},
          seconds=time.perf_counter() - t0)
     return rows, launches
+
+
+# the tie case's steps (B 1 at rwkv6-3b's heads): its float64 gradient
+# through the plain recurrence walks them one at a time
+WKV_TIE_S = 256
+
+
+def wkv_tie_case(draw, H, K):
+    """The wkv backward with g exactly -1.2 on about a sixth of the entries
+    and exactly 0 on another sixth (B 1, S WKV_TIE_S): `wkv_bwd_case`'s
+    gates against the plain recurrence, whose clip halves a tie's gradient
+    as jnp.clip does, and dg at every tie within WKV_BWD_TOL of half the
+    gradient with respect to the clipped decay itself (the rule that
+    passed it whole; float64 autograd through `ref.wkv_chunk_ref`), that
+    gradient whole strictly inside the bounds and 0 outside.  Returns
+    `wkv_bwd_case`'s row, with the ties' readings, and call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv_chunk import G_MIN, wkv_bwd
+
+    B, S = 1, WKV_TIE_S
+    r, k, v = (draw(B, H, S, K, scale=0.5) for _ in range(3))
+    g = -torch.exp(draw(B, H, S, K, scale=0.8) - 0.5)
+    z = draw(B, H, S, K)
+    g = torch.where(z > 1.0, torch.full_like(g, G_MIN),
+                    torch.where(z < -1.0, torch.zeros_like(g), g))
+    u, dy = draw(H, K, scale=0.3), draw(B, H, S, K)
+    row, call = wkv_bwd_case("ties: g exactly -1.2 and 0", r, k, v, g, u, dy,
+                             None, 3)
+    with torch.enable_grad():
+        gc = g.clamp(G_MIN, 0.0).double().requires_grad_()
+        y = ref.wkv_chunk_ref(r, k, v, gc, u, dtype=torch.float64)
+        whole = torch.autograd.grad(y, gc, dy)[0].float()
+    dg = wkv_bwd(r, k, v, g, u, dy)[3]
+    tie = (g == G_MIN) | (g == 0.0)
+    inside = (g > G_MIN) & (g < 0.0)
+    want = torch.where(tie, 0.5 * whole, torch.where(inside, whole, 0.0))
+    over = excess(dg, want, WKV_BWD_TOL)
+    moved = tie & (whole.abs() > 1e-2)
+    ratio = (dg[moved] / whole[moved]).double()
+    check(float(tie.float().mean()) > 0.2 and over <= 0
+          and bool(moved.any()),
+          f"wkv backward at clip ties: dg beyond {WKV_BWD_TOL} of the halving "
+          f"rule by {over} ({int(tie.sum())} ties)")
+    row["ties"] = dict(share=float(tie.float().mean()), excess=over,
+                       max_abs_err=float((dg - want)[tie].abs().max()),
+                       dg_over_whole_min=float(ratio.min()),
+                       dg_over_whole_max=float(ratio.max()))
+    return row, call
 
 
 def train_batches(cfg, B, steps, device, seed):
@@ -2650,6 +2725,236 @@ def llm_train_phases(device):
         "rwkv_train"))
     add_counts(launches, llm_small_phase(device))
     return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# the dense configs of queue 1 item 15c: llama3.2-3b, chatglm3-6b (half
+# RoPE), qwen1.5-32b and qwen2-vl-72b (M-RoPE, stub patch embeddings)
+# served at full width, each prefill through the flash kernel at head dim
+# 128, and one llama3.2-3b training step through the flash backward at 128
+# ---------------------------------------------------------------------------
+
+# (phase, arch, layers served, prefill (B, S), seed, embeddings input): the
+# two that fit the card whole at every layer; qwen1.5-32b (64 layers of
+# 2.10 GB in fp32, 6.23 GB of embedding and head) at 14 layers, 35.7 GB, to
+# leave over 15 GB free for the bf16 casts, the cache and the activations;
+# qwen2-vl-72b (80 layers of 3.51 GB, 9.96 GB of embedding and head) at 8,
+# 38.0 GB
+DENSE_SERVE = (
+    ("llm_serve_llama3_2_3b", "llama3.2-3b", 28, (1, 8192), 61, False),
+    ("llm_serve_chatglm3_6b", "chatglm3-6b", 28, (1, 8192), 62, False),
+    ("llm_serve_qwen1_5_32b", "qwen1.5-32b", 14, (1, 4096), 63, False),
+    ("llm_serve_qwen2_vl_72b", "qwen2-vl-72b", 8, (1, 4096), 64, True),
+)
+DENSE_DECODE_TOKENS = 8  # greedy tokens decoded from each prefill's cache
+DENSE_PROFILED = "llama3.2-3b"  # the dense config whose prefill is traced
+DENSE_DECODE_CHECK = (1, 32)  # the token-by-token check's (B, S)
+# llama3.2-3b's AdamW step: train_4k's 4096 tokens, its batch of 256 cut to
+# 1 (fp32 params, grads and two moments of 3.21 B parameters: 51.4 GB)
+LLAMA3B_TRAIN = dict(batch=1, steps=1)
+
+
+def dense_serve_phase(device, phase, arch, layers, shape, seed, embeds):
+    """One dense config at full width (depth ``layers``, the port's own
+    seeded weights): the prefill of ``shape`` through
+    `transformer.prefill` (tokens, or with ``embeds`` the data pipeline's
+    seeded stub patch embeddings and M-RoPE triplets), one flash launch a
+    layer at head dim 128, its rerun bitwise; DENSE_DECODE_TOKENS greedy
+    tokens decoded from its cache; for DENSE_PROFILED a trace of the
+    prefill (`profile_phase`, its kernels grouped); layer 0's attention
+    inputs through the flash kernel against its plain version (`flash_at`,
+    beside SDPA and the bound); the prefill of a DENSE_DECODE_CHECK prompt against
+    token-by-token decode at bf16 and fp32 (`prefill_vs_decode`, the
+    llama phase's tolerances).  Returns the flash row and the launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    release()
+    params, init_s = timed_s(lambda: T.init_params(cfg, 0, device))
+    weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    B, S = shape
+    if embeds:
+        pre = dataclasses.replace(get_shape("prefill_32k"), seq_len=S,
+                                  global_batch=B)
+        batch = make_batch(cfg, pre, seed, device)["batch"]
+    else:
+        batch = lm_prompt(cfg, B, S, device, seed)
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, first_s, launches = prefill_run(cfg, params, batch,
+                                                   "flash_attention")
+    peak = torch.cuda.max_memory_allocated()
+    rerun_s = rerun_bitwise(cfg, params, batch, "flash_attention", logits, cache)
+    cache = {n: F.pad(t, (0, 0, 0, 0, 0, DENSE_DECODE_TOKENS))
+             for n, t in cache.items()}
+    decode_ms = decode_from(cfg, params, cache, logits, S, DENSE_DECODE_TOKENS)
+    del cache
+    if arch == DENSE_PROFILED:
+        profile_phase(f"{phase}_profile", lambda: T.prefill(cfg, params, batch),
+                      {"flash_bf16_kernel": layers}, groups=llm_kernel_group,
+                      model=arch, B=B, S=S)
+    row = flash_at(*layer0_attention(cfg, params, batch), 5)
+    row.update(kernel="flash_attention", case=f"{arch} prefill layer 0 "
+               f"B={B} S={S} D={cfg.head_dim}", causal=True, dtype="bfloat16")
+    emit("kernel", **row)
+    del batch
+    gaps = prefill_vs_decode(cfg, params, device, seed + 100, DENSE_DECODE_CHECK)
+    largest = max(r["logits"]["share"] for r in gaps.values())
+    emit(phase, model=arch, layers=layers, of_layers=full.num_layers,
+         cut=("full depth" if layers == full.num_layers else
+              f"{layers} of {full.num_layers} layers (the card's 80 GB)"),
+         weights_gb=weights_gb, rope_style=cfg.rope_style,
+         input="stub patch embeddings" if embeds else "tokens",
+         B=B, S=S, init_s=init_s, first_prefill_s=first_s,
+         prefill_ms=rerun_s * 1e3, prompt_tokens_per_s=B * S / rerun_s,
+         peak_gb=peak / 1e9, launches=launches, rerun_bitwise=True,
+         decode_tokens=DENSE_DECODE_TOKENS, decode_ms_per_token=decode_ms,
+         flash=dict(kernel_ms=row["kernel_ms"], library_ms=row["library_ms"],
+                    bound_ms=row["bound_ms"], max_abs_err=row["max_abs_err"]),
+         prefill_vs_decode=gaps, largest_gap_share=largest,
+         seconds=time.perf_counter() - t0)
+    del params
+    release()
+    return row, launches
+
+
+def dense_train_phase(device):
+    """One AdamW step of llama3.2-3b at full width and depth (remat
+    "minimal"; LLAMA3B_TRAIN) through `launch/train.make_train_step`, its
+    launches counted from 0 (two flash forwards, one dQ and one dK/dV a
+    layer, all at head dim 128), the loss and grad norm finite, then layer
+    0's flash backward inputs through both passes against the plain
+    backward (`flash_bwd_case`: timed beside SDPA's backward and each
+    pass's bound).  Returns the dQ and dK/dV rows and the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as F
+
+    t0 = time.perf_counter()
+    release()
+    cfg = get_config("llama3.2-3b")
+    L, B, steps = cfg.num_layers, LLAMA3B_TRAIN["batch"], LLAMA3B_TRAIN["steps"]
+    per_step = dict(flash_attention=2 * L, flash_attention_bwd_dq=L,
+                    flash_attention_bwd_dkdv=L)
+    batches = train_batches(cfg, B, steps, device, 301)
+    S = batches[0]["tokens"].shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    watch = LastCall(F, "flash_attention_bwd")
+    state, step, out = train_run(cfg, B, steps, batches, device, per_step, watch)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, batches
+    release()
+    q, k, v, _, _, do = watch.args[0]
+    dq_row, dkdv_row, _ = flash_bwd_case(
+        f"llama3.2-3b train step layer 0 B={B} S={S} D={q.shape[-1]}",
+        q, k, v, do, True, 5)
+    for r in (dq_row, dkdv_row):
+        emit("kernel", **r)
+    emit("llm_train_llama3_2_3b", model=cfg.name, B=B, S=S, steps=steps,
+         optimizer="adamw", lr=LLM_TRAIN_LR, remat=cfg.remat_policy,
+         cut=f"train_4k's batch 256 cut to {B} (memory)",
+         losses=out["losses"], grad_norms=out["grad_norms"],
+         step_ms=[x * 1e3 for x in out["step_s"]], init_s=out["init_s"],
+         peak_gb=peak / 1e9, launches_per_step=per_step,
+         layer0=dict(dq=dict(kernel_ms=dq_row["kernel_ms"],
+                             max_abs_err=dq_row["max_abs_err"],
+                             excess=dq_row["excess"]),
+                     dkdv=dict(kernel_ms=dkdv_row["kernel_ms"],
+                               max_abs_err=dkdv_row["max_abs_err"],
+                               excess=dkdv_row["excess"]),
+                     library_ms=dq_row["library_ms"]),
+         seconds=time.perf_counter() - t0)
+    del q, k, v, do, watch
+    release()
+    return dq_row, dkdv_row, {name: n * steps for name, n in per_step.items()}
+
+
+def dense_phases(device):
+    """The four dense configs' serve phases, then llama3.2-3b's train step.
+    Returns the kernel rows and the launches."""
+    rows = {"flash_attention": [], "flash_attention_bwd_dq": [],
+            "flash_attention_bwd_dkdv": []}
+    launches = {}
+    for phase, arch, layers, shape, seed, embeds in DENSE_SERVE:
+        row, n = dense_serve_phase(device, phase, arch, layers, shape, seed,
+                                   embeds)
+        rows["flash_attention"].append(row)
+        add_counts(launches, n)
+        if arch == "llama3.2-3b":  # its step after its serving, weights freed
+            dq_row, dkdv_row, n = dense_train_phase(device)
+            rows["flash_attention_bwd_dq"].append(dq_row)
+            rows["flash_attention_bwd_dkdv"].append(dkdv_row)
+            add_counts(launches, n)
+    return rows, launches
+
+
+# the GNN drivers on the card: the staleness ablation's epochs (the
+# reference's 60 cut to 20 for the time limit)
+ABLATION_EPOCHS = 20
+
+
+def gnn_drivers_phase(device) -> dict:
+    """The GNN drivers at their defaults on the card: `train_gnn.main`
+    with ``--no-engine --exec spmm_1d`` (the legacy dense SpMM path in a
+    world-size-1 NCCL group of its own), the engine with
+    ``--trainable-features --embed-lr 0.01 --p2p-buckets 2 --parts 1
+    --oracle-check`` (its single-device reference within 1e-4, launches
+    counted from 0), and `examples.staleness_ablation` at ABLATION_EPOCHS:
+    each exits with finite losses, printed.  Returns the engine's
+    launches."""
+    from repro_torch.core.execution import collectives
+    from repro_torch.examples import staleness_ablation
+    from repro_torch.launch import train_gnn
+
+    t0 = time.perf_counter()
+    release()
+    collectives.zero_calls()
+    legacy, legacy_s = timed_s(lambda: train_gnn.main(
+        ["--device", "cuda", "--no-engine", "--exec", "spmm_1d"]))
+    legacy_calls = collectives.read_calls()
+    check(bool(np.isfinite(legacy["losses"]).all())
+          and legacy["losses"][-1] < legacy["losses"][0]
+          and legacy_calls["all_gather"] > 0
+          and not torch.distributed.is_initialized(),
+          f"train_gnn --no-engine: losses {legacy['losses'][:3]}..., calls "
+          f"{legacy_calls}")
+    zero_counts()
+    eng, eng_s = timed_s(lambda: train_gnn.main(
+        ["--device", "cuda", "--trainable-features", "--embed-lr", "0.01",
+         "--p2p-buckets", "2", "--parts", "1", "--oracle-check"]))
+    launches = read_counts()
+    check(bool(np.isfinite(eng["losses"]).all()) and eng["oracle_gap"] <= TOL
+          and launches.get("ell_spmm", 0) > 0,
+          f"train_gnn --trainable-features: gap {eng['oracle_gap']}, "
+          f"launches {launches}")
+    abl, abl_s = timed_s(lambda: staleness_ablation.main(
+        ["--device", "cuda", "--epochs", str(ABLATION_EPOCHS)]))
+    rows = [dict(protocol="sync", final_loss=abl["sync"].losses[-1],
+                 test_acc=abl["sync"].test_acc, bytes_pushed=0.0)]
+    rows += [dict(protocol=p, **kw, final_loss=r.losses[-1],
+                  test_acc=r.test_acc, bytes_pushed=r.bytes_pushed)
+             for p, kw, r in abl["rows"]]
+    check(all(np.isfinite(r["final_loss"]) for r in rows)
+          and all(r["bytes_pushed"] > 0 for r in rows[1:]),
+          f"staleness ablation: {rows}")
+    emit("gnn_drivers",
+         legacy=dict(exec="spmm_1d", epochs=len(legacy["losses"]),
+                     first_loss=legacy["losses"][0],
+                     final_loss=legacy["losses"][-1],
+                     train_acc=legacy["train_acc"], calls=legacy_calls,
+                     seconds=legacy_s),
+         engine=dict(flags="--trainable-features --embed-lr 0.01 "
+                           "--p2p-buckets 2 --parts 1 --oracle-check",
+                     epochs=len(eng["losses"]), first_loss=eng["losses"][0],
+                     final_loss=eng["losses"][-1], oracle_gap=eng["oracle_gap"],
+                     comm=eng["comm"], launches=launches, seconds=eng_s),
+         ablation=dict(epochs=ABLATION_EPOCHS, rows=rows, seconds=abl_s),
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 def release() -> None:
@@ -4590,6 +4895,12 @@ def main(argv=None) -> int:
     train_rows, n = llm_train_phases(device)
     rows.update(train_rows)
     add_counts(launches, n)
+    # the dense configs at head dim 128: four served, llama3.2-3b trained
+    dense_rows, n = dense_phases(device)
+    for name, extra in dense_rows.items():
+        rows[name] += extra
+    add_counts(launches, n)
+    release()
 
     t0 = time.perf_counter()
     g = er_graph(CONFIG.num_vertices, avg_degree=CONFIG.avg_degree,
@@ -4651,7 +4962,9 @@ def main(argv=None) -> int:
                               lambda: eng.infer_full_graph(params=params),
                               {"ell_spmm_kernel": len(eng.dims) - 1},
                               exchange_chunks=1)
-            elif chunks == 1:
+            elif chunks == 1 and model == "gat":
+                # the GAT kernels' cases at the main path's layout, which
+                # every model's engine shares: once, on the gat engine
                 for name, extra in gat_kernel_phase(eng, device).items():
                     rows[name] = rows.get(name, []) + extra
             if chunks == 1 or model == "gat":
@@ -4762,6 +5075,9 @@ def main(argv=None) -> int:
     add_counts(launches, autotune_validate_phase(device))
     # the single-device trainers at the gcn-paper widths (dense products)
     add_counts(launches, trainer_phases(device))
+    # the GNN drivers: the legacy path, the engine's trainable and bucket
+    # flags, the staleness ablation
+    add_counts(launches, gnn_drivers_phase(device))
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
 

@@ -1,8 +1,9 @@
 """Model and input-shape configs: a trimmed copy of `repro/configs/base.py`.
 
 The fields that the port's copied model configs set (`llama3_2_1b`,
-`rwkv6_3b`) and those its serving and training paths read (the attention
-flavour, the family switches it refuses, the numerics, remat and the
+`rwkv6_3b`, `llama3_2_3b`, `qwen1_5_32b`, `chatglm3_6b`, `qwen2_vl_72b`)
+and those its serving and training paths read (the attention flavour, the
+family switches it refuses, the input mode, the numerics, remat and the
 optimizer), under the reference's names and
 defaults, so a copied `CONFIG` equals the reference's field by field; the
 `train_4k`, `prefill_32k` and `decode_32k` input shapes; and the registry
@@ -50,7 +51,7 @@ class ModelConfig:
     # --- encoder-decoder (seamless): not ported ---
     is_encoder_decoder: bool = False
 
-    # --- modality frontend stub: not ported (the two families take tokens) ---
+    # --- modality frontend stub (qwen2-vl: precomputed patch embeddings) ---
     input_mode: str = "tokens"  # tokens | embeddings
 
     # --- numerics / training ---
@@ -93,14 +94,15 @@ INPUT_SHAPES = {
 }
 
 # the archs the port has a copy of
-PORTED_ARCHS = ("llama3.2-1b", "rwkv6-3b")
+PORTED_ARCHS = ("llama3.2-1b", "rwkv6-3b", "llama3.2-3b", "qwen1.5-32b",
+                "chatglm3-6b", "qwen2-vl-72b")
 
 
 def _module(arch_id: str):
     if arch_id not in PORTED_ARCHS:
         raise KeyError(
             f"arch {arch_id!r} is not in the port, which serves {PORTED_ARCHS}; "
-            "the other language models wait in ROADMAP.md queue 1, item 15")
+            "the other language models wait in ROADMAP.md queue 1, item 15c")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
 

@@ -18,7 +18,9 @@ group's size and this rank's place in it:
   [r*nb, (r+1)*nb), issued asynchronously.  Its gradient (`_AllGatherRows`)
   is a reduce-scatter of the summed cotangent back to each rank's [nb, D],
   the transpose shard_map gives ``all_gather(tiled=True)``.
-- `reduce_scatter_rows`: that gradient.
+- `reduce_scatter_rows`: that gradient; itself differentiable
+  (`_ReduceScatterRows`: its gradient is the all_gather of the cotangent,
+  the 2-D SpMM models' transpose), an all_gather call in the backward.
 - `all_to_all_rows`: [k*w, D] on every rank, block d of w rows bound for
   rank d -> [k*w, D], block s the w rows rank s sent here, issued
   asynchronously (the p2p halo exchange's installment).  Its gradient
@@ -216,11 +218,26 @@ def ring_rotate(h: torch.Tensor, group=None) -> Callable[[], torch.Tensor]:
     return finish
 
 
+class _ReduceScatterRows(torch.autograd.Function):
+    """The reduce-scatter as an autograd op: the backward all-gathers the
+    cotangent of this rank's block back to [k*nb, D]."""
+
+    @staticmethod
+    def forward(ctx, ct, group):
+        ctx.group = group
+        out = ct.new_empty((ct.shape[0] // world_size(group), ct.shape[1]))
+        dist.reduce_scatter_tensor(out, ct, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g.contiguous(), ctx.group)(), None
+
+
 def reduce_scatter_rows(ct: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum over ranks of ct [k*nb, D], this rank's block [nb, D]."""
-    ct = ct.contiguous()
-    out = ct.new_empty((ct.shape[0] // world_size(group), ct.shape[1]))
-    dist.reduce_scatter_tensor(out, ct, op=dist.ReduceOp.SUM, group=group)
+    """The sum over ranks of ct [k*nb, D], this rank's block [nb, D];
+    differentiable in ct."""
+    out = _ReduceScatterRows.apply(ct.contiguous(), group)
     reduce_scatter_rows.calls += 1
     return out
 

@@ -21,7 +21,10 @@ place (i, j)) and this rank's blocks, laid out as the reference's
 this rank's block of Y, laid out as its ``out_specs`` (`output_block`
 names it).  The collectives are `core/execution/collectives.py`'s, each
 call counted.  The products are plain fp32 ``A @ H``, as the reference
-computes them outside any Pallas kernel.
+computes them outside any Pallas kernel.  `whole_product` is the
+reference's global view, the form `launch/train_gnn.run_legacy` trains
+through: every rank holds the whole A and H and gets the whole Y, with
+exact gradients on every rank.
 """
 from __future__ import annotations
 
@@ -220,26 +223,39 @@ _LAYOUTS = {
 }
 
 
+def input_block(fn, grid: ProcessGrid, V: int, D: int) -> Tuple[slice, slice]:
+    """The (rows, columns) of H [V, D] that this rank's input of ``fn``
+    holds: the reference's ``in_specs`` position."""
+    kind = _LAYOUTS[fn]
+    if kind == "replicated":
+        (k,), (me,) = grid.shape, grid.coords
+        dc = D // k
+        return slice(None), slice(me * dc, (me + 1) * dc)
+    if kind == "rows":
+        (k,), (me,) = grid.shape, grid.coords
+        nb = V // k
+        return slice(me * nb, (me + 1) * nb), slice(None)
+    (r, c), (i, j) = grid.shape, grid.coords
+    if kind == "2d":  # H chunk j*r + i of r*c
+        n = V // (r * c)
+        return slice((j * r + i) * n, (j * r + i + 1) * n), slice(None)
+    return slice(j * (V // c), (j + 1) * (V // c)), slice(None)  # 15d: block j of c
+
+
 def local_blocks(fn, grid: ProcessGrid, A, H):
     """This rank's (A block, H block) of the whole A [V, V] and H [V, D]
     for the model ``fn``, as the reference's ``in_specs`` lay them out;
     works on numpy arrays and tensors alike (views)."""
     kind = _LAYOUTS[fn]
     V, D = H.shape
+    rows, cols = input_block(fn, grid, V, D)
     if kind == "replicated":
-        (k,), (me,) = grid.shape, grid.coords
-        dc = D // k
-        return A, H[:, me * dc:(me + 1) * dc]
+        return A, H[rows, cols]
     if kind == "rows":
-        (k,), (me,) = grid.shape, grid.coords
-        nb = V // k
-        return A[me * nb:(me + 1) * nb], H[me * nb:(me + 1) * nb]
+        return A[rows], H[rows, cols]
     (r, c), (i, j) = grid.shape, grid.coords
     A_blk = A[i * (V // r):(i + 1) * (V // r), j * (V // c):(j + 1) * (V // c)]
-    if kind == "2d":  # H chunk j*r + i of r*c
-        n = V // (r * c)
-        return A_blk, H[(j * r + i) * n:(j * r + i + 1) * n]
-    return A_blk, H[j * (V // c):(j + 1) * (V // c)]  # 15d: H block j of c
+    return A_blk, H[rows, cols]
 
 
 def output_block(fn, grid: ProcessGrid, V: int, D: int) -> Tuple[slice, slice]:
@@ -255,3 +271,57 @@ def output_block(fn, grid: ProcessGrid, V: int, D: int) -> Tuple[slice, slice]:
     (r, c), (i, j) = grid.shape, grid.coords
     n = V // (r * c)
     return slice((i * c + j) * n, (i * c + j + 1) * n), slice(None)
+
+
+class _BlockOfWhole(torch.autograd.Function):
+    """This rank's block of a tensor every rank holds whole and alike; the
+    backward sums every rank's block cotangent into the whole cotangent
+    (one all_reduce of a zero-padded buffer), which every rank then holds
+    alike."""
+
+    @staticmethod
+    def forward(ctx, H, rows, cols):
+        ctx.shape, ctx.rows, ctx.cols = H.shape, rows, cols
+        return H[rows, cols].contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        whole = ct.new_zeros(ctx.shape)
+        whole[ctx.rows, ctx.cols] = ct
+        return collectives.all_reduce_flat([whole])[0], None, None
+
+
+class _WholeOfBlocks(torch.autograd.Function):
+    """The whole [V, D] from every rank's disjoint block (one all_reduce of
+    a zero-padded buffer: each entry is one rank's value plus zeros, so
+    exact); the backward takes this rank's block of the cotangent, which
+    every rank holds alike."""
+
+    @staticmethod
+    def forward(ctx, Y, rows, cols, shape):
+        ctx.rows, ctx.cols = rows, cols
+        whole = Y.new_zeros(shape)
+        whole[rows, cols] = Y
+        return collectives.all_reduce_flat([whole])[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct[ctx.rows, ctx.cols].contiguous(), None, None, None
+
+
+def whole_product(fn, grid: ProcessGrid, A: torch.Tensor,
+                  H: torch.Tensor) -> torch.Tensor:
+    """The reference's global-view call ``fn(mesh, A, H)`` over the process
+    grid: every rank holds the whole A [V, V] and H [V, D] alike, runs
+    ``fn`` on its blocks (`local_blocks`) and gets the whole Y = A @ H [V,
+    D], as `shard_map` hands the global array back.  Differentiable in H
+    with the exact gradient on every rank: the cotangent of each rank's
+    output block is its block of Y's (which every rank holds alike), and
+    the ranks' H-block cotangents are summed into H's (`_BlockOfWhole`).
+    Two all_reduce calls a product beside ``fn``'s own collectives (four
+    with the backward)."""
+    V, D = H.shape
+    A_blk, _ = local_blocks(fn, grid, A, H)
+    H_blk = _BlockOfWhole.apply(H, *input_block(fn, grid, V, D))
+    Y_blk = fn(grid, A_blk, H_blk)
+    return _WholeOfBlocks.apply(Y_blk, *output_block(fn, grid, V, D), (V, D))

@@ -3,9 +3,13 @@
 concrete train and serving batches.
 
 Every array is drawn with the reference's numpy `default_rng` calls in the
-reference's order, so for one seed the tokens and labels are bitwise the
-reference's; they become tensors on the ``device`` the caller names (the
-card unless the caller asks for the CPU).  The abstract half
+reference's order, so for one seed the tokens and labels (and, for an
+embeddings-input config, qwen2-vl's, the stub frontend's patch embeddings
+[B,S,D] in bf16) are bitwise the reference's; M-RoPE configs get (3, B, S)
+position triplets, all three rows the text position.  They become tensors
+on the ``device`` the caller names (the card unless the caller asks for the
+CPU).  The encoder-decoder batch waits with its family (ROADMAP.md queue 1,
+item 15c).  The abstract half
 (`input_specs`, `batch_logical_axes`) is sharding code and is not ported.
 """
 from __future__ import annotations
@@ -31,27 +35,40 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def _check_tokens(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.input_mode != "tokens" \
-            or cfg.rope_style == "mrope":
+def model_positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    """[B,S] text positions, or under M-RoPE the (3, B, S) triplets of a
+    text sequence (all three rows equal), as the reference builds them."""
+    p = _positions(B, S, device)
+    return p[None].expand(3, B, S) if cfg.rope_style == "mrope" else p
+
+
+def _check_served(cfg: ModelConfig) -> None:
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the pipeline's encoder-decoder, embedding and mrope "
-            "inputs are not ported (ROADMAP.md queue 1, item 15c)")
+            f"{cfg.name}: the pipeline's encoder-decoder inputs are not "
+            "ported (ROADMAP.md queue 1, item 15c)")
 
 
 def make_train_batch(cfg: ModelConfig, shape: ShapeConfig, *,
                      rng: np.random.Generator,
                      device="cuda") -> Dict[str, Any]:
-    """tokens, labels [B,S] int32 drawn from ``rng`` in the reference's
-    order, positions [B,S]."""
-    _check_tokens(cfg)
+    """tokens (or, for input_mode "embeddings", the stub frontend's embeds
+    [B,S,D] bf16) and labels [B,S] int32 drawn from ``rng`` in the
+    reference's order, positions [B,S] ([3,B,S] under mrope)."""
+    _check_served(cfg)
     device = _device(device)
     B, S = shape.global_batch, shape.seq_len
-    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    batch: Dict[str, Any] = {}
+    if cfg.input_mode == "embeddings":
+        embeds = rng.standard_normal((B, S, cfg.d_model), np.float32) * 0.02
+        batch["embeds"] = torch.from_numpy(embeds).to(device, torch.bfloat16)
+    else:
+        tokens = rng.integers(0, cfg.vocab_size, (B, S))
+        batch["tokens"] = torch.from_numpy(tokens.astype(np.int32)).to(device)
     labels = rng.integers(0, cfg.vocab_size, (B, S))
-    return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
-            "labels": torch.from_numpy(labels.astype(np.int32)).to(device),
-            "positions": _positions(B, S, device)}
+    batch["labels"] = torch.from_numpy(labels.astype(np.int32)).to(device)
+    batch["positions"] = model_positions(cfg, B, S, device)
+    return batch
 
 
 def make_prefill_batch(cfg: ModelConfig, shape: ShapeConfig, *,
@@ -73,7 +90,7 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
         return {"batch": make_prefill_batch(cfg, shape, rng=rng, device=device)}
     from repro_torch.models.kvcache import init_cache
 
-    _check_tokens(cfg)
+    _check_served(cfg)
     device = _device(device)
     B, S = shape.global_batch, shape.seq_len
     cache = init_cache(cfg, B, S, device=device)

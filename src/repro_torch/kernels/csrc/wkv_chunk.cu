@@ -562,8 +562,9 @@ int occupancy_k(int K) {
 //   dg_t = dLe + sum_{t' > t} w_t' + b_t,  b = -ke o dke,  w = q o dq + b
 //   dLe = rowsum(Gh o S0) + colsum(ke o X)     (the end decay's share)
 //
-// and dg is 0 where g was clipped (the clamp's gradient: it passes at the
-// bounds).  `ref.wkv_bwd_tiled_ref` is the same algebra in plain tensor
+// and dg is 0 where g was clipped and halved where g equals g_min or 0
+// exactly (jnp.clip's gradient, whose max and min split a tie's cotangent
+// evenly).  `ref.wkv_bwd_tiled_ref` is the same algebra in plain tensor
 // ops, held to JAX in the tests.  dLe is the decay's derivative through
 // the tile's end state, Gh o S_end summed over value columns, split as
 // Gh o (S0 + ke^T v) so that the pass needs neither S_end nor another
@@ -1155,7 +1156,9 @@ wkv_bwd_grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int j = 7; j >= 0; --j) {
     const int t = 8 * sg + j;
     if (t < rows)
-      dg[base + (long long)t * K + i] = gg[j] >= g_min && gg[j] <= 0.f ? acc + bt[j] : 0.f;
+      dg[base + (long long)t * K + i] =
+          (gg[j] > g_min && gg[j] < 0.f) ? acc + bt[j]
+          : (gg[j] == g_min || gg[j] == 0.f) ? 0.5f * (acc + bt[j]) : 0.f;
     acc += wt[j];
   }
   if (sg == 0)

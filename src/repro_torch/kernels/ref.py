@@ -172,6 +172,14 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y
 
 
+def clip_half_ties(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clip(x, lo, hi), lo and hi rounded to x's dtype, with `jnp.clip`'s
+    gradient: 1 inside (lo, hi), 0 outside, and 1/2 where x equals lo or hi
+    exactly (a max and a min, each of which splits a tie's cotangent
+    evenly between its two operands; `torch.clamp` would pass it whole)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
                 dstate: torch.Tensor = None, *,
@@ -181,12 +189,12 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-step recurrence, computed in ``dtype`` (fp32; float64 for an
     oracle: du sums B S per-step terms, and in fp32 that sum alone rounds
     by up to ~8e-4 at B 4, S 4096), returned in the inputs' dtypes.  dg is
-    0 where g lies outside [-1.2, 0] (the clamp's gradient; it passes at
-    the bounds themselves)."""
+    0 where g lies outside [-1.2, 0] and halved where g is -1.2 or 0
+    exactly (`clip_half_ties`, jnp.clip's gradient)."""
     with torch.enable_grad():
         leaves = [t.detach().to(dtype).requires_grad_() for t in (r, k, v, g, u)]
         rr, kk, vv, gg, uu = leaves
-        gc = torch.clamp(gg, torch.tensor(-1.2, dtype=g.dtype).item(), 0.0)
+        gc = clip_half_ties(gg, torch.tensor(-1.2, dtype=g.dtype).item(), 0.0)
         if dstate is None:
             y = wkv_chunk_ref(rr, kk, vv, gc, uu, dtype=dtype)
             grads = torch.autograd.grad(y, leaves, dy.to(dtype))
@@ -215,7 +223,8 @@ def wkv_bwd_tiled_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          dv = A^T dy + ke Gh; dr = dq 2^Lp + u k dbon,
          dk = dke 2^-L + u r dbon; dg_t = dLe + sum_{t' > t} w_t' + b_t
          with b = -ke dke, w = q dq + b and the end decay's
-         dLe = rowsum(Gh o S0) + colsum(ke o X); 0 where g was clipped.
+         dLe = rowsum(Gh o S0) + colsum(ke o X); 0 where g was clipped,
+         halved where g is -1.2 or 0 exactly (jnp.clip's gradient).
 
     Returns (dr, dk, dv, dg [B,H,S,K], du [H,K]) in fp32."""
     B, H, S, K = r.shape
@@ -263,7 +272,9 @@ def wkv_bwd_tiled_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = q * dq + b
     dLe = (gh * s0).sum(-1) + (ke * X).sum(2)  # [BH, n, K]
     later = torch.flip(torch.cumsum(torch.flip(w, [2]), 2), [2]) - w
-    dg = (dLe[:, :, None] + later + b) * ((gt >= g_min) & (gt <= 0.0))
+    inside = ((gt > g_min) & (gt < 0.0)).float()
+    tie = ((gt == g_min) | (gt == 0.0)).float()
+    dg = (dLe[:, :, None] + later + b) * (inside + 0.5 * tie)
     du = (rt * kt * dbon).reshape(B, H, n * tile, K).sum((0, 2))
 
     def back(x):

@@ -32,7 +32,8 @@ depend on it).
 
 Both wrappers are differentiable.  On a CUDA tensor that needs a gradient
 they run `_WKV`, whose backward calls `wkv_bwd`: dr, dk, dv, dg (0 where g
-was clipped) and du in fp32, replacing JAX's autodiff of the reference's
+was clipped, halved where g is -1.2 or 0 exactly, as jnp.clip's gradient
+halves a tie) and du in fp32, replacing JAX's autodiff of the reference's
 `_chunked_linear_attention` (`src/repro/models/ssm.py:29`; the Pallas
 kernel has no gradient rule), and like it differentiating the tiled form.
 Two CUDA kernels on the current stream: `wkv_bwd_walk_kernel` walks the
@@ -47,8 +48,8 @@ equal.  `ref.wkv_bwd_tiled_ref` is the same algebra in plain tensor ops.
 The backward takes fp32 inputs only (the model's scan hands the kernel
 fp32): a bf16 input that needs a gradient on the card raises.
 
-A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on the clipped
-g, differentiable through autograd); a CUDA tensor launches the kernels on
+A CPU tensor takes the plain version (`ref.wkv_chunk_ref` on g clipped by
+`ref.clip_half_ties`, differentiable through autograd); a CUDA tensor launches the kernels on
 the current stream or raises.  `wkv.launches` counts one a call of either
 forward wrapper that launches, `wkv_bwd.launches` one a backward call
 (its two kernels).
@@ -217,7 +218,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     dtype (see the module docstring); differentiable on both paths."""
     _check(r, k, v, g, u, chunk)
     if r.device.type == "cpu":
-        return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u)
+        return ref.wkv_chunk_ref(r, k, v, ref.clip_half_ties(g, G_MIN, 0.0), u)
     if _needs_grad(r, k, v, g, u):
         _check_kernel(r, k, v, g, u)
         return _WKV.apply(r, k, v, g, u, False)
@@ -234,7 +235,7 @@ def wkv_with_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU `ref.wkv_chunk_ref(..., return_state=True)`."""
     _check(r, k, v, g, u, chunk)
     if r.device.type == "cpu":
-        return ref.wkv_chunk_ref(r, k, v, torch.clamp(g, G_MIN, 0.0), u,
+        return ref.wkv_chunk_ref(r, k, v, ref.clip_half_ties(g, G_MIN, 0.0), u,
                                  return_state=True)
     if _needs_grad(r, k, v, g, u):
         _check_kernel(r, k, v, g, u)
@@ -250,7 +251,8 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
             dstate: torch.Tensor = None) -> tuple:
     """The gradient of `wkv` (of `wkv_with_state` with ``dstate``, the final
     state's cotangent [B,H,K,K]) for y's cotangent dy: (dr, dk, dv, dg
-    [B,H,S,K], du [H,K]), fp32; dg is 0 where g was clipped.  On the card
+    [B,H,S,K], du [H,K]), fp32; dg is 0 where g was clipped and halved
+    where g is -1.2 or 0 exactly.  On the card
     the backward's two kernels (du's tile partials summed over b and the
     tiles afterwards, in order); on the CPU `ref.wkv_bwd_ref`."""
     _check(r, k, v, g, u, r.shape[2] or 1)

@@ -7,7 +7,8 @@ the engine is built; the engine then runs on every rank of it.  Without
 ``--init-method`` the process runs alone, with no group.  The device is
 ``cuda:<rank>`` unless the caller asks for another (``--device cpu``), and
 the backend follows it: NCCL on the card, gloo on the CPU.
-``--partition-family`` picks edge_cut (``--partitioner``), vertex_cut
+``--partition-family`` picks edge_cut (``--partitioner``, or the reference
+driver's ``--partition``), vertex_cut
 (``--vertex-cut``) or hybrid (``--partitioner`` for the masters,
 ``--hub-threshold`` for the hubs), with the reference's defaults.
 
@@ -36,12 +37,14 @@ def add_group_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--init-method", default=None,
                     help="the group's rendezvous, file://<path> or "
                          "tcp://<host>:<port>; none: run alone, no group")
-    ap.add_argument("--partitioner", default=EngineConfig.partitioner,
+    ap.add_argument("--partitioner", "--partition", dest="partitioner",
+                    default=EngineConfig.partitioner,
                     choices=list(PARTITIONERS),
                     help="the edge-cut partitioner that assigns vertices to "
                          "ranks, the hybrid family's masters too (metis_like "
                          "is a host loop: pass hash on graphs of millions of "
-                         "vertices)")
+                         "vertices); --partition is the reference driver's "
+                         "name for it")
     ap.add_argument("--partition-family", default=EngineConfig.partition_family,
                     choices=list(PARTITION_FAMILIES),
                     help="edge-cut halo exchange, vertex-cut replica sync "
@@ -73,6 +76,18 @@ def per_layer(arg, default: int, layers: int) -> tuple:
     if arg is None:
         return (default,) * layers
     return tuple(int(x) for x in arg.split(","))
+
+
+def check_parts(args) -> int:
+    """The world size of the joined group (1 without one), which ``--parts``
+    must name: 0 (the default) means the world size, as the reference's 0
+    means every device; any other value that is not it raises."""
+    k = collectives.world_size()
+    if args.parts not in (0, k):
+        raise ValueError(f"--parts {args.parts} does not match the process "
+                         f"group's {k} rank(s): one partition a rank (0 = the "
+                         "world size)")
+    return k
 
 
 def device_of(args) -> torch.device:

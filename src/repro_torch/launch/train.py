@@ -47,7 +47,10 @@ def make_train_step(cfg, optimizer: Optimizer, *, clip_norm: float = 1.0,
         model = state["params"]
         tree = T.param_tree(model)
         loss, metrics = T.loss_fn(cfg, model, batch, window=window)
-        flat = iter(torch.autograd.grad(loss, tree_leaves(tree)))
+        # a leaf the loss does not read (the embedding table of a config fed
+        # embeddings) gets a zero gradient, as JAX's grad gives it
+        flat = iter(torch.autograd.grad(loss, tree_leaves(tree),
+                                        materialize_grads=True))
         grads = tree_map(lambda p: next(flat), tree)
         del flat
         gnorm = clip_by_global_norm_(grads, clip_norm)
@@ -77,6 +80,24 @@ def default_optimizer(cfg, *, base_lr=3e-4, warmup=100, total=10000) -> Optimize
 # ---------------------------------------------------------------------------
 
 
+def stub_frontend(cfg, batch):
+    """The CLI loop's stream batch as the config takes it: for an
+    embeddings-input config (qwen2-vl) the reference loop's stub frontend,
+    each token a one-hot row (token mod d_model) in bf16 in place of the
+    tokens; under M-RoPE the [B,S] positions as (3, B, S) text triplets
+    (the reference's loop hands its mrope the [B,S] positions, which its
+    `apply_rope` refuses)."""
+    batch = dict(batch)
+    if cfg.rope_style == "mrope":
+        B, S = batch["positions"].shape
+        batch["positions"] = batch["positions"][None].expand(3, B, S)
+    if cfg.input_mode == "embeddings":
+        tokens = batch.pop("tokens").long()
+        batch["embeds"] = torch.nn.functional.one_hot(
+            tokens % cfg.d_model, cfg.d_model).to(torch.bfloat16)
+    return batch
+
+
 def run_training(arch: str, steps: int, *, smoke: bool = True, batch: int = 8,
                  seq: int = 128, log_every: int = 10,
                  ckpt_dir: Optional[str] = None, device="cuda"):
@@ -93,7 +114,7 @@ def run_training(arch: str, steps: int, *, smoke: bool = True, batch: int = 8,
     t0 = time.time()
     losses = []
     for i in range(steps):
-        state, metrics = step_fn(state, next(stream))
+        state, metrics = step_fn(state, stub_frontend(cfg, next(stream)))
         losses.append(float(metrics["loss"]))
         if i % log_every == 0:
             log.info("step %d loss %.4f grad_norm %.3f (%.2fs)", i, losses[-1],

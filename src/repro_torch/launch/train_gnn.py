@@ -1,4 +1,4 @@
-"""GNN training entry point (the port's counterpart of the engine branch of
+"""GNN training entry point (the port's counterpart of
 `examples/train_gnn_distributed.py`): `DistGNNEngine`'s full-graph training
 step (synchronous, or under a historical-embedding protocol), timed step by
 step, or with ``--batching node_wise|layer_wise|subgraph`` the sampled
@@ -8,8 +8,23 @@ mini-batch epoch under a schedule (``--schedule``; ``--batch-size``,
 prefetch thread or, with ``--prefetch-mode process``, in a pool of
 ``--num-sample-workers`` sampling processes over a shared-memory ring,
 ``--prefetch-depth`` batches ahead), with the single-device oracle and the
-layer-wise inference sweep as checks.  One process per rank
-(`launch/common.py`): without ``--init-method`` it runs alone.
+layer-wise inference sweep as checks.  ``--p2p-buckets`` splits the p2p
+send caps into power-of-two installments; ``--trainable-features`` makes
+the layer-0 rows learnable embedding rows (row-sparse AdamW at
+``--embed-lr``; sync protocol).  One process per rank (`launch/common.py`):
+without ``--init-method`` it runs alone; ``--parts`` 0 (the default) is the
+world size, any other value must equal it.
+
+``--no-engine`` (or a legacy ``--exec`` name: spmm_1d, the default there,
+spmm_1d_ring, spmm_2d, spmm_15d, replicated) runs the reference's legacy
+path instead, `run_legacy`: a 2-layer gcn of width 32 over the dense
+normalized adjacency, relabelled so each rank's row block is one
+partition, every aggregation one of the dense SpMM execution models
+(`core/execution/spmm_models.py`) over a `ProcessGrid` of the group (1-D,
+or r x c for the 2-D models), SGD at lr 0.5.  The models' collectives
+need a process group: run alone, the legacy path joins a group of one rank
+for the run.  The mini-batch modes, the replica families and
+``--trace-out`` run on the engine path only, as in the reference.
 
 ``--trace-out t.json`` enables the run-wide telemetry (`core/telemetry.py`)
 and, after the run, writes a Chrome trace-event file (open it in Perfetto
@@ -27,6 +42,8 @@ metric's max/mean imbalance.  Rank r > 0 of a group writes
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --cache static_degree --cache-capacity 32 --oracle-check --infer
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --schedule pipelined --prefetch-mode process --oracle-check
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --batching node_wise --schedule pipelined --trace-out /tmp/t.json
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --trainable-features --embed-lr 0.01 --p2p-buckets 2 --oracle-check
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu --no-engine --exec spmm_1d
     # rank r of 4 gloo ranks on the CPU (start r = 0, 1, 2, 3 together):
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --world-size 4 --rank r --init-method file:///tmp/rdv --oracle-check --infer
@@ -35,7 +52,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
+import shutil
+import tempfile
 import time
 
 from typing import Tuple
@@ -50,9 +70,23 @@ from repro_torch.core.engine import (
     DistGNNEngine,
     EngineConfig,
 )
+from repro_torch.core.execution import collectives
+from repro_torch.core.execution.spmm_models import (
+    SPMM_MODELS,
+    process_grid,
+    whole_product,
+)
 from repro_torch.core.graph import sbm_graph
+from repro_torch.core.models.gnn import (
+    accuracy,
+    full_graph_forward,
+    init_gnn_params,
+    softmax_xent,
+)
+from repro_torch.core.partition.edge_cut import PARTITIONERS
 from repro_torch.launch.common import (
     add_group_args,
+    check_parts,
     device_of,
     join_group,
     leave_group,
@@ -88,7 +122,10 @@ def build_engine(args, g):
                        cache_capacity=args.cache_capacity,
                        prefetch_depth=args.prefetch_depth,
                        prefetch_mode=args.prefetch_mode,
-                       num_sample_workers=args.num_sample_workers)
+                       num_sample_workers=args.num_sample_workers,
+                       p2p_buckets=args.p2p_buckets,
+                       trainable_features=args.trainable_features,
+                       embed_lr=args.embed_lr)
     return DistGNNEngine(g, cfg=cfg, device=device_of(args))
 
 
@@ -117,8 +154,9 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
     each timed on the host clock ending in a device synchronize, with the
     step's wire bytes accrued into CommStats as `eng.train` accrues them.
     Returns the losses, the rows each step pushed into the history (0
-    under sync), the step walls (seconds), the final state and the last
-    step's logits of every vertex (one all_gather after the run); with
+    under sync), the step walls (seconds), the final state, the last
+    step's logits of every vertex (one all_gather after the run) and the
+    run's CommStats as a dict; with
     ``oracle_check`` also the reference run's losses and the largest
     per-step loss gap, and with ``infer`` the layer-wise sweep's gap to the
     reference sweep at the final params."""
@@ -141,7 +179,7 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
                      comm_total_bytes=eng.comm_stats.total())
     logits = eng.gather_rows(logits)
     out = dict(losses=losses, rows_pushed=pushed, walls=walls, state=state,
-               logits=logits)
+               logits=logits, comm=dataclasses.asdict(eng.comm_stats))
     for e in range(0, epochs, max(epochs // 4, 1)):
         log.info("epoch %3d loss %.4f (%.1f ms)", e, losses[e], walls[e] * 1e3)
     log.info("final: train_acc=%.3f test_acc=%.3f (halo bytes %d, replica "
@@ -149,6 +187,10 @@ def run_training(eng, epochs: int, *, oracle_check: bool = False,
              eng.accuracy(logits, "train"), eng.accuracy(logits, "test"),
              eng.comm_stats.halo_bytes, eng.comm_stats.replica_sync_bytes,
              epochs, sum(pushed))
+    if eng.cfg.trainable_features:
+        log.info("trainable embeddings: %.3f MB gradient rows routed to "
+                 "owners over %d steps",
+                 eng.comm_stats.embed_grad_bytes / 1e6, epochs)
     if oracle_check:
         ref_losses, _ = eng.train(epochs, reference=True)
         gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
@@ -199,6 +241,94 @@ def run_minibatch(eng, epochs: int, *, schedule: str = "conventional",
     return out
 
 
+LEGACY_HIDDEN = 32  # the reference's legacy gcn: [features, 32, classes]
+LEGACY_LR = 0.5  # its SGD step, whatever --lr says
+
+
+def legacy_grid_shape(exec_name: str, k: int) -> tuple:
+    """The reference's mesh for a legacy model: r x c with r the largest
+    divisor of k at most sqrt(k) for spmm_2d and spmm_15d, else (k,)."""
+    if exec_name in ("spmm_2d", "spmm_15d"):
+        r = math.isqrt(k)
+        while k % r:
+            r -= 1
+        return (r, k // r)
+    return (k,)
+
+
+def _legacy_group(device):
+    """The dense SpMM models' collectives need a process group: without
+    one, a group of one rank over a file rendezvous in a temporary folder,
+    left (and the folder removed) when the run ends."""
+    if collectives.group_active():
+        return None
+    folder = tempfile.mkdtemp(prefix="train_gnn_legacy_")
+    collectives.init_group(f"file://{folder}/rendezvous", 1, 0, device)
+    return folder
+
+
+def run_legacy(args, g, device, params=None) -> dict:
+    """The reference's `run_legacy`: vertices relabelled so each rank's row
+    block is one partition (``--partitioner``), the dense normalized
+    adjacency, a 2-layer gcn (width LEGACY_HIDDEN) whose aggregations are
+    `SPMM_MODELS[--exec]` over a `ProcessGrid` of the group
+    (`whole_product`: every rank holds the whole A and H, as the
+    reference's global view does), ``--epochs`` SGD steps at LEGACY_LR.
+    ``params`` (a params tree, e.g. the reference's weights through
+    `params_from_numpy`) replaces the port's seeded draw.  Returns the
+    losses (each before its step's update), the final params, the last
+    logits, the grid shape and the accuracies."""
+    folder = _legacy_group(device)
+    try:
+        k = check_parts(args)
+        part = PARTITIONERS[args.partitioner](g, k)
+        order = np.argsort(part.assignment, kind="stable")
+        A = torch.from_numpy(g.to_dense_adj()[np.ix_(order, order)]).to(device)
+        X = torch.from_numpy(np.ascontiguousarray(g.features[order])).to(device)
+        y = torch.from_numpy(g.labels[order].astype(np.int64)).to(device)
+        train_m, test_m = (torch.from_numpy(m[order].astype(np.float32)).to(device)
+                           for m in (g.train_mask, g.test_mask))
+        shape = legacy_grid_shape(args.exec, k)
+        grid = process_grid(shape)
+        fn = SPMM_MODELS[args.exec]
+        dims = [g.features.shape[1], LEGACY_HIDDEN, int(g.labels.max()) + 1]
+        if params is None:
+            params = init_gnn_params("gcn", dims, torch.Generator().manual_seed(0),
+                                     device)
+        leaves = [t.detach().clone() for p in params["layers"] for t in p.values()]
+        keys = [list(p) for p in params["layers"]]
+        log.info("execution model %s on a %s grid of the group's %d rank(s)",
+                 args.exec, shape, k)
+
+        def tree(ts):
+            it = iter(ts)
+            return {"layers": [{key: next(it) for key in ks} for ks in keys]}
+
+        losses, logits = [], None
+        for e in range(args.epochs):
+            live = [t.requires_grad_() for t in leaves]
+            with torch.enable_grad():
+                logits = full_graph_forward(
+                    "gcn", tree(live), A, X,
+                    aggregate=lambda A_, H_: whole_product(fn, grid, A_, H_))
+                loss = softmax_xent(logits, y, train_m)
+                grads = torch.autograd.grad(loss, live)
+            leaves = [(t - LEGACY_LR * d).detach() for t, d in zip(live, grads)]
+            losses.append(float(loss.detach()))
+            if e % 10 == 0:
+                log.info("epoch %3d loss %.4f", e, losses[-1])
+        logits = logits.detach()
+        train_acc = float(accuracy(logits, y, train_m))
+        test_acc = float(accuracy(logits, y, test_m))
+        log.info("final: train_acc=%.3f test_acc=%.3f", train_acc, test_acc)
+        return dict(losses=losses, params=tree(leaves), logits=logits,
+                    grid=shape, train_acc=train_acc, test_acc=test_acc)
+    finally:
+        if folder is not None:
+            collectives.destroy_group()
+            shutil.rmtree(folder, ignore_errors=True)
+
+
 def trace_paths(path: str, rank: int) -> Tuple[str, str]:
     """The trace and step-log files of ``--trace-out path`` on ``rank``:
     rank 0 writes ``path``, rank r > 0 ``<root>.rank<r><ext>``; each step
@@ -242,9 +372,27 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device the step runs on (cpu only when asked)")
-    ap.add_argument("--exec", default=EngineConfig.execution,
-                    choices=list(PORTED_EXECUTION_MODELS))
+    ap.add_argument("--engine", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the DistGNNEngine (ELL + exchange); --no-engine runs "
+                         "the legacy dense SpMM execution models")
+    ap.add_argument("--exec", default=None,
+                    help=f"engine: {PORTED_EXECUTION_MODELS} (default "
+                         f"{EngineConfig.execution}); legacy: "
+                         f"{list(SPMM_MODELS)} (default spmm_1d)")
     add_group_args(ap)
+    ap.add_argument("--parts", type=int, default=0,
+                    help="partitions, one a rank: 0 = the world size (the "
+                         "reference's 0 = all devices); another value raises")
+    ap.add_argument("--p2p-buckets", type=int, default=1,
+                    help="power-of-two installments splitting the p2p "
+                         "all_to_all send caps")
+    ap.add_argument("--trainable-features",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="layer-0 rows are learnable embedding rows updated "
+                         "by row-sparse AdamW (protocol sync)")
+    ap.add_argument("--embed-lr", type=float, default=0.1,
+                    help="the row-sparse AdamW's learning rate")
     ap.add_argument("--protocol", default="sync", choices=list(PORTED_PROTOCOLS))
     ap.add_argument("--model", default="gcn", choices=list(PORTED_GNN_MODELS))
     ap.add_argument("--exchange-chunks", type=int, default=1)
@@ -300,7 +448,30 @@ def parse_args(argv=None):
                          "trace-event file here (open in Perfetto / "
                          "chrome://tracing) plus <t.json>.steps.jsonl; logs "
                          "per-stage seconds and per-device imbalance ratios")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    # the reference driver's rules between the two paths
+    if args.exec is None:
+        args.exec = EngineConfig.execution if args.engine else "spmm_1d"
+    elif args.exec not in set(PORTED_EXECUTION_MODELS) | set(SPMM_MODELS):
+        ap.error(f"--exec must be one of {PORTED_EXECUTION_MODELS} (engine) or "
+                 f"{list(SPMM_MODELS)} (legacy), got {args.exec!r}")
+    if args.engine and args.exec in SPMM_MODELS:
+        args.engine = False  # a legacy exec name: the legacy path
+    if not args.engine and args.exec not in SPMM_MODELS:
+        ap.error(f"--no-engine requires a legacy exec name {list(SPMM_MODELS)}, "
+                 f"got {args.exec!r}")
+    if args.batching != "full_graph" and not args.engine:
+        ap.error("mini-batch --batching modes run on the engine path only")
+    if args.trace_out and not args.engine:
+        ap.error("--trace-out instruments the engine path only")
+    if args.partition_family != "edge_cut":
+        if not args.engine:
+            ap.error(f"--partition-family {args.partition_family} runs on "
+                     "the engine path only")
+        if args.batching != "full_graph":
+            ap.error(f"{args.partition_family} supports --batching "
+                     "full_graph only")
+    return args
 
 
 def main(argv=None):
@@ -310,6 +481,9 @@ def main(argv=None):
     try:
         g = sbm_graph(args.vertices, num_blocks=8, p_in=0.05, p_out=0.003,
                       seed=0)
+        if not args.engine:
+            return run_legacy(args, g, device_of(args))
+        check_parts(args)
         eng = build_engine(args, g)
         log.info("engine: model=%s exec=%s protocol=%s family=%s rank %d of "
                  "k=%d (nb=%d, K=%d) on %s", args.model, args.exec,

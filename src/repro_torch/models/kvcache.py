@@ -19,12 +19,10 @@ import torch
 
 def check_served(cfg) -> None:
     """Raise for a config outside the two families the port serves and
-    trains (dense GQA with full RoPE, and RWKV6)."""
+    trains (dense GQA, any RoPE style and either input mode, and RWKV6)."""
     refused = {"MLA": cfg.use_mla, "MoE": cfg.num_experts > 0,
                "mamba2 / hybrid": cfg.ssm_kind == "mamba2" or cfg.attn_every > 0,
-               "encoder-decoder": cfg.is_encoder_decoder,
-               f"rope_style {cfg.rope_style!r}": (not cfg.ssm_kind
-                                                   and cfg.rope_style != "full")}
+               "encoder-decoder": cfg.is_encoder_decoder}
     for what, hit in refused.items():
         if hit:
             raise NotImplementedError(

@@ -1,5 +1,6 @@
 """Core neural layers of the language-model substrate: the dense half of
-`repro/models/layers.py` (parameter builder, RMSNorm, full RoPE, chunked
+`repro/models/layers.py` (parameter builder, RMSNorm, RoPE in its three
+styles, chunked
 attention, decode attention, the GQA attention block, the SwiGLU MLP).
 
 Functions take the reference's arguments and layouts ([B,S,H,D] activations,
@@ -153,7 +154,7 @@ def rmsnorm(p, x, eps: float):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (the "full" style; "half" and "mrope" belong to unported configs)
+# RoPE: "full", "half" (chatglm's 2d RoPE) and "mrope" (qwen2-vl's M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -168,21 +169,55 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
 
 
-def _rope_angles(positions, dim: int, theta: float, style: str):
-    """The full style's angles [B,S,1,dim/2] for positions [B,S]."""
-    if style != "full":
-        raise NotImplementedError(
-            f"rope_style {style!r} is not ported (its configs wait in "
-            "ROADMAP.md queue 1, item 15); the port has 'full'")
-    return positions[..., None, None].float() * _rope_freqs(dim, theta,
-                                                            positions.device)
+def mrope_sections(dh: int) -> tuple:
+    """M-RoPE's (t, h, w) shares of the dh/2 frequencies: (16, 24, 24) at
+    dh 128, as the reference splits them."""
+    half = dh // 2
+    s_hw = 3 * half // 8
+    return (half - 2 * s_hw, s_hw, s_hw)
+
+
+def _rope_angles(positions, dh: int, theta: float, style: str):
+    """The angles [B,S,1,m] of the dims ``style`` rotates: "full" m = dh/2
+    over all dh dims and "half" m = dh/4 over the first dh/2 (the
+    frequencies of dh/2), for positions [B,S]; "mrope" m = dh/2 for
+    positions [3,B,S], the (t, h, w) sections of the frequencies taking
+    the three position rows in turn."""
+    dev = positions.device
+    if style == "full":
+        return positions[..., None, None].float() * _rope_freqs(dh, theta, dev)
+    if style == "half":
+        return positions[..., None, None].float() * _rope_freqs(dh // 2, theta,
+                                                                dev)
+    if style == "mrope":
+        if positions.dim() != 3:
+            raise ValueError("rope_style 'mrope' needs [3,B,S] position "
+                             f"triplets; got positions {tuple(positions.shape)}")
+        freqs = _rope_freqs(dh, theta, dev)
+        parts, off = [], 0
+        for row, sec in zip(positions, mrope_sections(dh)):
+            parts.append(row[..., None, None].float() * freqs[off:off + sec])
+            off += sec
+        return torch.cat(parts, -1)
+    raise ValueError(f"rope_style must be 'full', 'half' or 'mrope'; got "
+                     f"{style!r}")
+
+
+def _rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 style: str) -> torch.Tensor:
+    """x rotated by a style's angles: "half" rotates the first half of the
+    head dims and keeps the rest."""
+    if style == "half":
+        rot, keep = x.chunk(2, dim=-1)
+        return torch.cat([_rotate(rot, cos, sin), keep], -1)
+    return _rotate(x, cos, sin)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                style: str = "full") -> torch.Tensor:
-    """x [B,S,H,Dh]; positions [B,S]."""
+    """x [B,S,H,Dh]; positions [B,S] ([3,B,S] for mrope)."""
     ang = _rope_angles(positions, x.shape[-1], theta, style)
-    return _rotate(x, torch.cos(ang), torch.sin(ang))
+    return _rope_rotate(x, torch.cos(ang), torch.sin(ang), style)
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +386,8 @@ def attention_qkv(p, x, cfg, *, positions=None, rope: bool = True):
         ang = _rope_angles(positions, q.shape[-1], cfg.rope_theta,
                            cfg.rope_style)
         cos, sin = torch.cos(ang), torch.sin(ang)
-        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+        q = _rope_rotate(q, cos, sin, cfg.rope_style)
+        k = _rope_rotate(k, cos, sin, cfg.rope_style)
     return q, k, v
 
 

@@ -14,8 +14,9 @@ kernel; mamba2 is not ported).  Decode goes through `rwkv6_time_mix_step`,
 the single-step recurrence in plain torch (`linear_attention_step`), which
 the reference has no Pallas twin for either; decode never trains.
 
-Log-decays are clamped to >= LOG_DECAY_MIN per step, as the reference and
-the kernel clamp them.
+Log-decays are clipped to [LOG_DECAY_MIN, 0] per step, as the reference and
+the kernel clip them, by `ref.clip_half_ties`: its gradient is jnp.clip's,
+half the cotangent where a decay sits exactly on a bound.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import clip_half_ties
 from repro_torch.kernels.wkv_chunk import wkv, wkv_with_state
 from repro_torch.models.layers import ParamBuilder, rmsnorm
 
@@ -41,7 +43,7 @@ def _scan_plain(q, k, v, log_decay, chunk, mode, bonus, init_state,
     f32 = torch.float32
     out_dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
-    g = torch.clamp(log_decay.float(), LOG_DECAY_MIN, 0.0).expand(B, S, H, K)
+    g = clip_half_ties(log_decay.float(), LOG_DECAY_MIN, 0.0).expand(B, S, H, K)
     if pad:
         # zero k/v and unit decay on the tail: earlier outputs unaffected,
         # final state unchanged by padded steps
@@ -129,7 +131,7 @@ def linear_attention_step(q, k, v, log_decay, state, *, mode: str,
     log_decay [B,H,K] or [B,H,1]; state [B,H,K,V].  Returns (y [B,H,V],
     state), fp32; plain on every device."""
     q, k, v = q.float(), k.float(), v.float()
-    g = torch.clamp(log_decay.float(), LOG_DECAY_MIN, 0.0).expand(k.shape)
+    g = clip_half_ties(log_decay.float(), LOG_DECAY_MIN, 0.0).expand(k.shape)
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
     if mode == "mamba":
         state = torch.exp(g)[..., None] * state + kv

@@ -1,6 +1,10 @@
 """The language model for the dense GQA and RWKV6 families: parameter
 construction, the full-sequence forward, the loss (training), the prefill
 and the single-token decode (serving) of `repro/models/transformer.py`.
+The dense blocks take each RoPE style (full, chatglm's half, qwen2-vl's
+M-RoPE over [3,B,S] position triplets, a decode position broadcast to all
+three rows) and either input mode (token ids, or precomputed embeddings
+``batch["embeds"]`` [B,S,D] in place of them, qwen2-vl's stub frontend).
 
 The model is a `TransformerLM` module: ``embed``, ``lm_head`` (untied
 configs), ``final_norm`` and ``blocks``, whose `Params` hold the reference's
@@ -258,13 +262,16 @@ def _remat(fn, policy: str):
 
 def forward(cfg, params: TransformerLM, batch, *, window: int = 0,
             collect_kv: bool = False, collect_state: bool = False):
-    """Full-sequence forward (train, prefill).  batch keys: 'tokens' [B,S],
-    'positions' [B,S].  Returns (h_final [B,S,D], aux (0), (stacks, None)):
+    """Full-sequence forward (train, prefill).  batch keys: 'tokens' [B,S]
+    or 'embeds' [B,S,D]; 'positions' [B,S] (or [3,B,S] for mrope).  Returns (h_final [B,S,D], aux (0), (stacks, None)):
     the stacks are (k, v) [L,B,S,KV,hd] bf16 with ``collect_kv``, (tm_x,
     cm_x, s) with ``collect_state`` (RWKV6), else None.  Differentiable;
     each block under `_remat` with the config's policy."""
     check_served(cfg)
-    h = embed_tokens(cfg, params, batch["tokens"])
+    if "embeds" in batch:
+        h = batch["embeds"].to(_dtype(cfg))
+    else:
+        h = embed_tokens(cfg, params, batch["tokens"])
     positions = batch["positions"]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     per_layer = []
@@ -362,6 +369,8 @@ def _decode_layer(cfg, blk, h, k_l, v_l, lanes, pos, cache_len, opts):
     B = h.shape[0]
     positions = (torch.full((B, 1), pos, device=h.device) if isinstance(pos, int)
                  else pos.reshape(B, 1))
+    if cfg.rope_style == "mrope":  # a text token: all three rows alike
+        positions = positions[None].expand(3, B, 1)
     q, k, v = attention_qkv(blk.attn, hn, cfg, positions=positions)
     k_l[lanes, pos] = k[:, 0].to(k_l.dtype)
     v_l[lanes, pos] = v[:, 0].to(v_l.dtype)

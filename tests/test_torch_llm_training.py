@@ -3,12 +3,14 @@
 The data pipeline's streams and batches (bitwise), the optimizers, the
 clip and the schedule on one numpy tree, checkpoints in the reference's
 layout (a JAX-written one restored into the port, `_gc`), the loss and
-every gradient leaf of both smoke configs against
+every gradient leaf of the six smoke configs (llama3.2-1b, rwkv6-3b,
+llama3.2-3b, qwen1.5-32b, chatglm3-6b, qwen2-vl-72b: its batches through
+the stub frontend's embeddings and M-RoPE triplets) against
 `jax.value_and_grad(loss_fn)` from JAX's weights (`params_from_numpy`),
 three train steps against the reference's jitted step, the plain
 gradients of `chunked_attention` and `_chunked_linear_attention` (and of
-the two kernels' plain versions) against `jax.grad`, `run_training` and
-the examples.  On the CPU the kernel wrappers take their plain versions,
+the two kernels' plain versions) against `jax.grad` (the WKV gradient's
+halving at a clip tie among them), `run_training` and the examples.  On the CPU the kernel wrappers take their plain versions,
 so no kernel launches here; the card runs them in `chip_smoke.py`.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.configs import base as tbase
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import wkv_chunk as twkv
 from repro_torch.launch import train as ttrain
@@ -34,7 +37,8 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.utils import tree_flatten_with_paths
 
 CPU = torch.device("cpu")
-ARCHS = ["llama3.2-1b", "rwkv6-3b"]
+ARCHS = ["llama3.2-1b", "rwkv6-3b", "llama3.2-3b", "qwen1.5-32b", "chatglm3-6b",
+         "qwen2-vl-72b"]
 B, S = 2, 32
 # fp32 port against fp32 JAX: the same formulas, sums in another order
 TOL = 1e-4
@@ -118,10 +122,13 @@ def test_make_batch_bitwise_equal(arch):
                            tbase.ShapeConfig("t", 48, 3, "train"), 4, CPU)["batch"]
     assert set(got) == set(want)
     for key in got:
-        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+        np.testing.assert_array_equal(got[key].float().numpy(),
+                                      np.asarray(want[key], np.float32))
     pre = tpipe.make_batch(tbase.get_smoke_config(arch),
                            tbase.ShapeConfig("p", 48, 3, "prefill"), 4, CPU)["batch"]
-    np.testing.assert_array_equal(pre["tokens"].numpy(), np.asarray(want["tokens"]))
+    key = "embeds" if "embeds" in want else "tokens"
+    np.testing.assert_array_equal(pre[key].float().numpy(),
+                                  np.asarray(want[key], np.float32))
     assert "labels" not in pre
 
 
@@ -310,12 +317,34 @@ def models():
     return get
 
 
-def _stream_batch(jnp, vocab, seed=7, batch=B, seq=S):
+def _frontend(jax, jnp, cfg, jb, tb):
+    """A stream batch as the config takes it, on both sides: the reference
+    loop's stub frontend (one-hot embeddings of token mod d_model, bf16) for
+    an embeddings-input config, (3, B, S) text triplets under mrope; the
+    port's `launch.train.stub_frontend` must give the same tensors."""
+    tb = ttrain.stub_frontend(cfg, tb)
+    if cfg.rope_style == "mrope":
+        jb = dict(jb, positions=jnp.broadcast_to(jb["positions"][None],
+                                                 (3,) + jb["positions"].shape))
+    if cfg.input_mode == "embeddings":
+        jb = {"embeds": jax.nn.one_hot(jb["tokens"] % cfg.d_model, cfg.d_model,
+                                       dtype=jnp.bfloat16),
+              "labels": jb["labels"], "positions": jb["positions"]}
+    assert set(jb) == set(tb)
+    for key in tb:
+        np.testing.assert_array_equal(tb[key].float().numpy(),
+                                      np.asarray(jb[key], np.float32))
+    return jb, tb
+
+
+def _stream_batch(jnp, cfg, seed=7, batch=B, seq=S):
+    import jax
     from repro.data.pipeline import synthetic_token_stream
 
+    vocab = cfg.vocab_size
     jb = next(synthetic_token_stream(vocab, batch, seq, seed=seed))
     tb = next(tpipe.synthetic_token_stream(vocab, batch, seq, seed=seed, device=CPU))
-    return jb, tb
+    return _frontend(jax, jnp, cfg, jb, tb)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -325,13 +354,14 @@ def test_loss_and_every_gradient_match_jax(models, arch, dtype):
     from repro.models import transformer as JT
 
     jcfg, jparams, cfg, params = models(arch, dtype)
-    jb, tb = _stream_batch(jnp, cfg.vocab_size)
+    jb, tb = _stream_batch(jnp, cfg)
     (jloss, jmet), jgrads = jax.value_and_grad(
         lambda p: JT.loss_fn(jcfg, p, jb), has_aux=True)(jparams)
     tree = TT.param_tree(params)
     leaves = [leaf for _, leaf in tree_flatten_with_paths(tree)]
     loss, met = TT.loss_fn(cfg, params, tb)
-    grads = dict(zip(_flat(tree), torch.autograd.grad(loss, leaves)))
+    grads = dict(zip(_flat(tree), torch.autograd.grad(loss, leaves,
+                                                      materialize_grads=True)))
     want = _jflat(jax, jgrads)
     assert set(grads) == set(want)
     if dtype == "float32":
@@ -373,8 +403,9 @@ def test_three_train_steps_match_reference(models, arch):
     tstream = tpipe.synthetic_token_stream(cfg.vocab_size, B, S, seed=3, device=CPU)
     losses = []
     for i in range(3):
-        jstate, jm = jstep(jstate, next(jstream))
-        tstate, tm = tstep(tstate, next(tstream))
+        jb, tb = _frontend(jax, jnp, cfg, next(jstream), next(tstream))
+        jstate, jm = jstep(jstate, jb)
+        tstate, tm = tstep(tstate, tb)
         _close(tm["loss"], jm["loss"], TOL, f"step {i} loss")
         _close(tm["grad_norm"], jm["grad_norm"], TOL, f"step {i} grad_norm")
         losses.append(float(tm["loss"]))
@@ -391,7 +422,7 @@ def test_remat_policy_changes_no_number(models, policy):
     checkpoint: the loss and the gradients are bitwise the same."""
     jax, jnp = _jax()
     _, _, cfg, params = models("llama3.2-1b", "float32")
-    _, tb = _stream_batch(jnp, cfg.vocab_size)
+    _, tb = _stream_batch(jnp, cfg)
     leaves = [leaf for _, leaf in tree_flatten_with_paths(TT.param_tree(params))]
     outs = []
     for c in (cfg, dataclasses.replace(cfg, remat_policy=policy)):
@@ -444,8 +475,8 @@ def test_chunked_attention_gradient_matches_jax(S_, qc, kc, causal):
 def _rwkv_inputs(rng, B_=2, S_=40, H=3, K=16):
     q, k, v = (rng.standard_normal((B_, S_, H, K)).astype(np.float32) * 0.5
                for _ in range(3))
-    # log decays across the clip floor; no value within 1e-3 of -1.2 or 0,
-    # where the clamp's and jnp.clip's gradients differ at a tie
+    # log decays across the clip floor; no value within 1e-3 of -1.2 or 0
+    # (a tie on a bound halves the gradient: `test_wkv_gradient_halves_at_a_clip_tie`)
     g = -np.exp(rng.standard_normal((B_, S_, H, K)) * 0.8 - 0.5).astype(np.float32)
     g = np.where(np.abs(g + 1.2) < 1e-3, g - 3e-3, g).astype(np.float32)
     g[0, :3] = np.float32(0.25)  # above 0: clipped to 0, no gradient
@@ -555,8 +586,8 @@ def test_wkv_bwd_tiled_ref_matches_jax(S_, K, floor):
     and with a dstate against `ref.wkv_bwd_ref` in fp32 and float64.  S 96 spans three tiles,
     S 100 ends in a ragged one; ``floor`` puts g at -1.2 on every step (55.4
     bits of decay a tile, the exponent margin), where jnp.clip's gradient
-    halves at the tie and torch.clamp's passes whole: there dg is held to
-    `wkv_bwd_ref` alone."""
+    halves at the tie, as the port's does: there dg is held to JAX and to
+    `wkv_bwd_ref` both."""
     jax, jnp = _jax()
     from repro.kernels.ref import wkv_chunk_ref as jref
     from repro.models.ssm import _chunked_linear_attention as jscan
@@ -578,8 +609,7 @@ def test_wkv_bwd_tiled_ref_matches_jax(S_, K, floor):
     for which, want in (("wkv_chunk_ref", vjp(jnp.asarray(dy))),
                         ("_chunked_linear_attention", by_scan)):
         for name, a, w in zip(names, plain, want):
-            if not (floor and name == "g"):
-                _close(a, w, TOL, f"d{name} vs {which}")
+            _close(a, w, TOL, f"d{name} vs {which}")
     if floor:
         _close(plain[3], tref.wkv_bwd_ref(*ins, _t(dy))[3], TOL, "dg vs wkv_bwd_ref")
     ds = _t(np.random.default_rng(3).standard_normal((2, 3, K, K)))
@@ -589,6 +619,57 @@ def test_wkv_bwd_tiled_ref_matches_jax(S_, K, floor):
         for name, a, w in zip(names, got, want):
             assert w.dtype == torch.float32
             _close(a, w, TOL, f"d{name} with dstate vs wkv_bwd_ref in {dtype}")
+
+
+def test_wkv_gradient_halves_at_a_clip_tie():
+    """g exactly -1.2 and exactly 0 at several entries: `ops.wkv`'s dg under
+    autograd on the CPU, `ref.wkv_bwd_ref`, `ref.wkv_bwd_tiled_ref` (the CUDA
+    backward's algebra) and the model's scan against `jax.vjp` of the
+    reference's `wkv_chunk_ref` on `jnp.clip`'s g (and `jax.grad` of its
+    `_chunked_linear_attention`), and dg at each tie half of the gradient
+    with respect to the clipped decay itself (the rule that passed it
+    whole)."""
+    jax, jnp = _jax()
+    from repro.kernels.ref import wkv_chunk_ref as jref
+    from repro.models.ssm import _chunked_linear_attention as jscan
+
+    rng = np.random.default_rng(12)
+    q, k, v, g, u, ct = _rwkv_inputs(rng, S_=40)
+    floor, top = rng.random(g.shape) < 0.15, rng.random(g.shape) < 0.15
+    g[floor] = np.float32(-1.2)
+    g[top & ~floor] = np.float32(0.0)
+    r, kk, vv, gg, dy = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                         for x in (q, k, v, g, ct))
+    _, vjp = jax.vjp(lambda *a: jref(*a[:3], jnp.clip(a[3], -1.2, 0.0), a[4]),
+                     r, kk, vv, gg, u)
+    want = [np.asarray(x) for x in vjp(jnp.asarray(dy))]
+    ins = [_t(x) for x in (r, kk, vv, gg, u)]
+    leaves = [x.clone().requires_grad_() for x in ins]
+    by_ops = torch.autograd.grad(ops.wkv(*leaves), leaves, _t(dy))
+    names = ("r", "k", "v", "g", "u")
+    for which, got in (("ops.wkv", by_ops),
+                       ("wkv_bwd_ref", tref.wkv_bwd_ref(*ins, _t(dy))),
+                       ("wkv_bwd_tiled_ref", tref.wkv_bwd_tiled_ref(*ins, _t(dy)))):
+        for name, a, w in zip(names, got, want):
+            _close(a, w, TOL, f"d{name} of {which}")
+    jg = jax.grad(lambda *a: jnp.sum(jscan(*a[:4], chunk=16, mode="rwkv",
+                                           bonus=a[4]) * ct),
+                  argnums=3)(q, k, v, g, u)
+    gl = _t(g).requires_grad_()
+    out = tssm._chunked_linear_attention(*(_t(x) for x in (q, k, v)), gl,
+                                         chunk=16, mode="rwkv", bonus=_t(u))
+    _close(torch.autograd.grad(out, gl, _t(ct))[0], jg, TOL, "dg of the scan")
+    # the gradient with respect to the clipped decay: g's own where it ties
+    gc = _t(np.clip(gg, np.float32(-1.2), np.float32(0.0))).requires_grad_()
+    whole = torch.autograd.grad(tref.wkv_chunk_ref(ins[0], ins[1], ins[2], gc,
+                                                   ins[4]), gc, _t(dy))[0]
+    tie = (gg == np.float32(-1.2)) | (gg == np.float32(0.0))
+    # (the last step's decay reaches no output: its gradient is 0 either way)
+    assert (np.abs(whole.numpy()[tie]) > 1e-2).sum() > 20
+    np.testing.assert_allclose(by_ops[3].numpy()[tie], 0.5 * whole.numpy()[tie],
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(want[3][tie], 0.5 * whole.numpy()[tie],
+                               atol=TOL, rtol=TOL)
 
 
 def test_cpu_gradients_launch_nothing():
