@@ -60,6 +60,23 @@ prefill against token-by-token decode at bf16 and fp32
 (`llm_serve_<arch>`); after llama3.2-3b's, one AdamW step of it at B
 1, S 4096 (its launches counted, layer 0's flash backward inputs held and
 timed at D 128: `llm_train_llama3_2_3b`).
+Then the MoE family (`kimi_phases`): kimi-k2-1t-a32b at full width, cut to
+its dense head layer and one MoE layer (384 experts, top-8, one shared
+expert; bf16 weights, 39.2 GB): the prefill of KIMI_PREFILL through
+`transformer.prefill`, one flash launch a layer at H 64, D 128, rerun
+bitwise; the MoE layer's routing of that prompt at the config's capacity
+factor (pairs dropped, the experts' load max over mean, aux);
+DENSE_DECODE_TOKENS greedy tokens from its cache; one trace of the
+prefill by kernel group (`llm_serve_kimi_k2_1t_a32b_profile`); layer 0's attention
+through the flash kernel against its plain version beside SDPA; the
+32-token prompt's prefill against token-by-token decode at bf16 and fp32
+at capacity factor KIMI_CHECK_CAPACITY (drop-free), with the router's
+top-k margin at the compared token (`llm_serve_kimi_k2_1t_a32b`); then, in
+a world-size-1 NCCL group on a 1 x 1 (data, model) grid, the loaded MoE
+layer at KIMI_EP_TOKENS tokens through the expert-parallel dispatch, its
+dedup dispatch and the weights-stationary decode layout, each within
+EP_SHARE of the largest |y| of the single-device path, their all_to_all
+calls counted (`nccl_moe`).
 Then the GNN paths at the full width of the gcn-paper workload (a
 2**20-vertex graph, dims [256, 256, 256, 64], random seeded weights), for
 exchange_chunks 1 and 2 each and for the models gcn, sage, gin and gat: the
@@ -1711,7 +1728,7 @@ def layer0_attention(cfg, params, batch):
     from repro_torch.models.layers import attention_qkv, repeat_kv, rmsnorm
 
     with torch.inference_mode():
-        blk = params.blocks[0]
+        blk = T.model_layers(params)[0]
         h = (batch["embeds"].to(T._dtype(cfg)) if "embeds" in batch
              else T.embed_tokens(cfg, params, batch["tokens"]))
         q, k, v = attention_qkv(blk.attn, rmsnorm(blk.ln1, h, cfg.norm_eps),
@@ -2890,6 +2907,217 @@ def dense_phases(device):
             rows["flash_attention_bwd_dkdv"].append(dkdv_row)
             add_counts(launches, n)
     return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: kimi-k2-1t-a32b served, its expert-parallel dispatch
+# ---------------------------------------------------------------------------
+
+# kimi-k2-1t-a32b cut to its first_k_dense layer and one MoE layer (19.6 G
+# bf16 parameters, 39.2 GB: a third layer's init could not fit), the
+# prefill's (B, S) and seed
+KIMI = dict(arch="kimi-k2-1t-a32b", layers=2, shape=(1, 4096), seed=65)
+# the token-by-token check routes DENSE_DECODE_CHECK's 32 tokens at once,
+# decode one: drop-free needs capacity >= T, a capacity factor >= E / k
+KIMI_CHECK_CAPACITY = 48.0
+# nccl_moe: one dispatch chunk of the prefill's MoE-layer input; drop-free
+# at capacity factor 8 on the expert-parallel paths (cap_e 682 >= 512) and
+# KIMI_CHECK_CAPACITY on the single-device path (cap 512)
+KIMI_EP_TOKENS = 512
+KIMI_EP_CAPACITY = 8.0
+EP_SHARE = 2e-2  # tests/test_distributed.py's gap to the reference path
+KIMI_EP_REPS = 3
+
+
+def route_fields(cfg, p, x) -> dict:
+    """The single-device path's routing of x [B,S,D] at the config's
+    capacity factor: pairs dropped, the experts' load (pairs) max over
+    mean, aux."""
+    from repro_torch.models import moe
+
+    w, ids, pos, cap, aux = moe.routing(p, x, cfg)
+    load = torch.bincount(ids, minlength=cfg.num_experts).float()
+    return dict(capacity_factor=cfg.capacity_factor, capacity=cap,
+                pairs=int(ids.numel()), dropped_pairs=int((pos >= cap).sum()),
+                load_max_over_mean=float(load.max() / load.mean()),
+                experts_unused=int((load == 0).sum()), aux=float(aux))
+
+
+def topk_margin(cfg, p, x) -> dict:
+    """The router's k-th minus (k+1)-th probability at the last token of x
+    (the token the prefill-against-decode check compares) and the least
+    over x's tokens: a bf16 routing flip shows as a margin near 0."""
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(),
+                          -1)
+    top = torch.topk(probs, cfg.moe_top_k + 1, dim=-1).values
+    gap = top[:, -2] - top[:, -1]
+    return dict(last=float(gap[-1]), least=float(gap.min()))
+
+
+def nccl_moe_phase(cfg, p, x, device) -> None:
+    """The loaded MoE layer's pieces on a 1 x 1 (data, model) grid of a
+    world-size-1 NCCL group (joined and left here): x [1, KIMI_EP_TOKENS,
+    D] through `_moe_expert_parallel` (the baseline dispatch, three
+    all_to_alls a chunk: tokens, expert ids, the return), the same with
+    the dedup dispatch (``moe_group_limit`` 1: two) and `_moe_decode_2d`
+    (the baseline dispatch over all tokens), each within EP_SHARE of the
+    largest |y| of `_moe_reference` at KIMI_CHECK_CAPACITY, every
+    collective call counted; each path's ms (no wire: one rank)."""
+    from repro_torch.core.execution import collectives
+    from repro_torch.core.execution import spmm_models as sm
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    collectives.init_group(f"file://{rendezvous}/rendezvous", 1, 0, device)
+    try:
+        grid = sm.process_grid((1, 1))
+        ref_cfg = dataclasses.replace(cfg, capacity_factor=KIMI_CHECK_CAPACITY)
+        ep_cfg = dataclasses.replace(cfg, capacity_factor=KIMI_EP_CAPACITY)
+        T_ = x.shape[0] * x.shape[1]
+        chunks = T_ // min(cfg.moe_dispatch_chunk, T_)
+        with torch.inference_mode():
+            route = route_fields(ref_cfg, p, x)
+            check(route["dropped_pairs"] == 0,
+                  f"nccl_moe: the reference path dropped {route['dropped_pairs']} "
+                  f"pairs at capacity factor {KIMI_CHECK_CAPACITY}")
+            y_ref, _ = moe._moe_reference(p, x, ref_cfg)
+            scale = float(y_ref.float().abs().max())
+            ref_ms = cuda_ms(lambda: moe._moe_reference(p, x, ref_cfg),
+                             KIMI_EP_REPS)
+            paths = []
+            for name, c, decode_2d, calls in (
+                    ("expert_parallel", ep_cfg, False,
+                     {"all_to_all": 3 * chunks, "all_reduce": chunks}),
+                    ("expert_parallel_dedup",
+                     dataclasses.replace(ep_cfg, moe_group_limit=1), False,
+                     {"all_to_all": 2 * chunks, "all_reduce": chunks}),
+                    ("decode_2d", ep_cfg, True,
+                     {"all_to_all": 3, "all_reduce": 1})):
+                p_local = moe.shard_params(p, c, grid, decode_2d)
+                x_local, split = moe.shard_batch(x, grid)
+                collectives.zero_calls()
+                y, aux = moe.moe_apply(p_local, x_local, c, grid,
+                                       decode_2d=decode_2d, batch_sharded=split)
+                check_calls(collectives.read_calls(), calls, f"nccl_moe {name}")
+                gap = float((y.float() - y_ref.float()).abs().max())
+                check(bool(torch.isfinite(y).all()) and y.shape == x.shape
+                      and gap <= EP_SHARE * scale,
+                      f"nccl_moe {name}: {gap} from the reference path, over "
+                      f"{EP_SHARE} of its largest |y| {scale}")
+                again, _ = moe.moe_apply(p_local, x_local, c, grid,
+                                         decode_2d=decode_2d,
+                                         batch_sharded=split)
+                check(torch.equal(again, y), f"nccl_moe {name}: a rerun differs")
+                paths.append(dict(
+                    name=name, capacity_factor=c.capacity_factor,
+                    group_limit=c.moe_group_limit, calls=calls,
+                    max_abs_gap=gap, share=gap / scale, aux=float(aux),
+                    rerun_bitwise=True,
+                    ms=cuda_ms(lambda: moe.moe_apply(
+                        p_local, x_local, c, grid, decode_2d=decode_2d,
+                        batch_sharded=split), KIMI_EP_REPS)))
+                del y, again, p_local
+                release()
+        emit("nccl_moe", model=cfg.name, tokens=T_, chunks=chunks, grid=[1, 1],
+             backend=torch.distributed.get_backend(),
+             reference=dict(route, ms=ref_ms, scale=scale),
+             paths=paths, tol_share=EP_SHARE,
+             timing_note="world-size-1 NCCL group: each collective is a copy "
+                         "on the card, no wire time",
+             seconds=time.perf_counter() - t0)
+    finally:
+        release()
+        collectives.destroy_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def kimi_phases(device):
+    """kimi-k2-1t-a32b at full width (KIMI's depth, the port's own seeded
+    bf16 weights): the prefill through `transformer.prefill` (two flash
+    launches), its rerun bitwise, the MoE layer's routing of the prompt,
+    DENSE_DECODE_TOKENS greedy tokens, a trace of the prefill by kernel
+    group, layer 0's attention through
+    `flash_at`, the prefill against token-by-token decode at
+    KIMI_CHECK_CAPACITY, then `nccl_moe_phase` on the loaded layer.
+    Returns the flash row and the launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    arch, layers, (B, S), seed = (KIMI[k] for k in ("arch", "layers", "shape",
+                                                    "seed"))
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed_s(lambda: T.init_params(cfg, 0, device))
+    init_peak = torch.cuda.max_memory_allocated()
+    weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    p = T.model_layers(params)[cfg.first_k_dense].moe
+    wi = p["wi"].detach()  # [E, D, F], drawn a slice at a time
+    E = wi.shape[0]
+    check(not torch.equal(wi[:E // 2, :8], wi[E // 2:, :8])
+          and abs(float(wi[-1].float().std()) * cfg.d_model ** 0.5 - 1) < 0.05,
+          f"{arch}: the expert stack's draw repeats or is off scale")
+    batch = lm_prompt(cfg, B, S, device, seed)
+    torch.cuda.reset_peak_memory_stats()
+    with LastCall(T, "moe_apply") as moe_in:
+        logits, cache, first_s, launches = prefill_run(cfg, params, batch,
+                                                       "flash_attention")
+    peak = torch.cuda.max_memory_allocated()
+    x_moe = moe_in.args[0][1]  # the MoE layer's input, [B, S, D]
+    with torch.inference_mode():
+        route = route_fields(cfg, p, x_moe)
+    rerun_s = rerun_bitwise(cfg, params, batch, "flash_attention", logits, cache)
+    cache = {n: F.pad(t, (0, 0, 0, 0, 0, DENSE_DECODE_TOKENS))
+             for n, t in cache.items()}
+    decode_ms = decode_from(cfg, params, cache, logits, S, DENSE_DECODE_TOKENS)
+    del cache
+    profile_phase("llm_serve_kimi_k2_1t_a32b_profile",
+                  lambda: T.prefill(cfg, params, batch),
+                  {"flash_bf16_kernel": layers}, groups=llm_kernel_group,
+                  model=arch, B=B, S=S)
+    row = flash_at(*layer0_attention(cfg, params, batch), 5)
+    row.update(kernel="flash_attention", case=f"{arch} prefill layer 0 "
+               f"B={B} S={S} D={cfg.head_dim}", causal=True, dtype="bfloat16")
+    emit("kernel", **row)
+    del batch
+    check_cfg = dataclasses.replace(cfg, capacity_factor=KIMI_CHECK_CAPACITY)
+    with LastCall(T, "moe_apply") as check_in:
+        T.prefill(check_cfg, params, lm_prompt(check_cfg, *DENSE_DECODE_CHECK,
+                                               device, seed + 100))
+    with torch.inference_mode():
+        margin = topk_margin(cfg, p, check_in.args[0][1])
+        check_route = route_fields(check_cfg, p, check_in.args[0][1])
+    check(check_route["dropped_pairs"] == 0,
+          f"{arch}: the token-by-token check's prefill dropped pairs")
+    gaps = prefill_vs_decode(check_cfg, params, device, seed + 100,
+                             DENSE_DECODE_CHECK)
+    largest = max(r["logits"]["share"] for r in gaps.values())
+    emit("llm_serve_kimi_k2_1t_a32b", model=arch, layers=layers,
+         of_layers=full.num_layers,
+         cut=f"{layers} of {full.num_layers} layers: the first_k_dense layer "
+             "and one MoE layer (the card's 80 GB)",
+         weights_gb=weights_gb, init_s=init_s, init_peak_gb=init_peak / 1e9,
+         B=B, S=S, first_prefill_s=first_s, prefill_ms=rerun_s * 1e3,
+         prompt_tokens_per_s=B * S / rerun_s, peak_gb=peak / 1e9,
+         launches=launches, rerun_bitwise=True, moe=route,
+         decode_tokens=DENSE_DECODE_TOKENS, decode_ms_per_token=decode_ms,
+         flash=dict(kernel_ms=row["kernel_ms"], library_ms=row["library_ms"],
+                    bound_ms=row["bound_ms"], max_abs_err=row["max_abs_err"]),
+         check_capacity_factor=KIMI_CHECK_CAPACITY, topk_margin=margin,
+         prefill_vs_decode=gaps, largest_gap_share=largest,
+         seconds=time.perf_counter() - t0)
+    with torch.inference_mode():
+        x_ep = x_moe[:, :KIMI_EP_TOKENS].contiguous()
+    del x_moe, moe_in, check_in
+    nccl_moe_phase(cfg, p, x_ep, device)
+    del params, p, wi, x_ep
+    release()
+    return row, launches
 
 
 # the GNN drivers on the card: the staleness ablation's epochs (the
@@ -4899,6 +5127,11 @@ def main(argv=None) -> int:
     dense_rows, n = dense_phases(device)
     for name, extra in dense_rows.items():
         rows[name] += extra
+    add_counts(launches, n)
+    # the MoE family: kimi-k2 served through its MoE layer, then the
+    # expert-parallel dispatch over a world-size-1 NCCL group
+    kimi_row, n = kimi_phases(device)
+    rows["flash_attention"].append(kimi_row)
     add_counts(launches, n)
     release()
 

@@ -1,10 +1,10 @@
 """Model and input-shape configs: a trimmed copy of `repro/configs/base.py`.
 
 The fields that the port's copied model configs set (`llama3_2_1b`,
-`rwkv6_3b`, `llama3_2_3b`, `qwen1_5_32b`, `chatglm3_6b`, `qwen2_vl_72b`)
-and those its serving and training paths read (the attention flavour, the
-family switches it refuses, the input mode, the numerics, remat and the
-optimizer), under the reference's names and
+`rwkv6_3b`, `llama3_2_3b`, `qwen1_5_32b`, `chatglm3_6b`, `qwen2_vl_72b`,
+`kimi_k2_1t_a32b`) and those its serving and training paths read (the
+attention flavour, the MoE layer, the family switches it refuses, the input
+mode, the numerics, remat and the optimizer), under the reference's names and
 defaults, so a copied `CONFIG` equals the reference's field by field; the
 `train_4k`, `prefill_32k` and `decode_32k` input shapes; and the registry
 (`get_config`, `get_smoke_config`, `get_shape`) over the archs the port has.
@@ -36,9 +36,19 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     sliding_window: int = 0  # >0 enables sliding-window attention variant
 
-    # --- MLA (deepseek-v2) and MoE: not ported; the model refuses them ---
+    # --- MLA (deepseek-v2): not ported; the model refuses it ---
     use_mla: bool = False
+
+    # --- MoE (kimi-k2) ---
     num_experts: int = 0
+    num_shared_experts: int = 0
+    moe_top_k: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch_chunk: int = 4096  # tokens per dispatch chunk (memory lever)
+    moe_group_limit: int = 0  # >0: route each token to experts on <= this many
+    #   model shards (DeepSeek-style group-limited routing) and DEDUPLICATE the
+    #   dispatch (one copy per destination shard, not per expert)
     router_aux_coef: float = 0.01  # the loss's weight of the MoE aux term
 
     # --- SSM (rwkv6) ---
@@ -64,6 +74,8 @@ class ModelConfig:
 
     def __post_init__(self):
         assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+        if self.family == "moe":
+            assert self.num_experts > 0 and self.moe_top_k > 0
         if self.ssm_kind:
             assert self.ssm_kind in ("rwkv6", "mamba2")
             assert self.ssm_state > 0 and self.ssm_heads > 0
@@ -95,7 +107,7 @@ INPUT_SHAPES = {
 
 # the archs the port has a copy of
 PORTED_ARCHS = ("llama3.2-1b", "rwkv6-3b", "llama3.2-3b", "qwen1.5-32b",
-                "chatglm3-6b", "qwen2-vl-72b")
+                "chatglm3-6b", "qwen2-vl-72b", "kimi-k2-1t-a32b")
 
 
 def _module(arch_id: str):

@@ -9,10 +9,11 @@ rendezvous or collective raises.
 
 Five collectives, each counting its calls in a plain integer
 (``all_gather_rows.calls`` and so on, like the kernel wrappers' launch
-counters).  The first four take an optional ``group`` (a subgroup from
+counters).  Each takes an optional ``group`` (a subgroup from
 `torch.distributed.new_group`, the 2-D SpMM models' grid rows and
-columns); without one they act on the world, and k and r below are the
-group's size and this rank's place in it:
+columns, the MoE layer's data and model groups); without one it acts on
+the world, and k and r below are the group's size and this rank's place
+in it:
 
 - `all_gather_rows`: [nb, D] on every rank -> [k*nb, D], rank r's rows at
   [r*nb, (r+1)*nb), issued asynchronously.  Its gradient (`_AllGatherRows`)
@@ -242,12 +243,13 @@ def reduce_scatter_rows(ct: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def all_reduce_flat(tensors: Sequence[torch.Tensor],
+                    group=None) -> List[torch.Tensor]:
     """The sum over ranks of every tensor, through one all_reduce of one
     flat buffer packed in the order given; returns new tensors of the
     inputs' shapes."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     all_reduce_flat.calls += 1
     out, at = [], 0
     for t in tensors:

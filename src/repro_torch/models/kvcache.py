@@ -6,9 +6,10 @@ A cache is a flat dict of tensors stacked over layers (leading L dim):
   attention : k, v        [L, B, T, KV, hd]  bf16
   rwkv6     : tm_x, cm_x  [L, B, D] bf16, s [L, B, H, K, K] fp32
 
-The other families' layouts (MLA, mamba2, the hybrid's shared attention,
-encoder-decoder) belong to configs the port does not serve: `check_served`
-refuses them.
+The attention layout covers every layer of a config, an MoE config's
+dense head layers first.  The other families' layouts (MLA, mamba2, the
+hybrid's shared attention, encoder-decoder) belong to configs the port does
+not serve: `check_served` refuses them.
 """
 from __future__ import annotations
 
@@ -18,16 +19,18 @@ import torch
 
 
 def check_served(cfg) -> None:
-    """Raise for a config outside the two families the port serves and
-    trains (dense GQA, any RoPE style and either input mode, and RWKV6)."""
-    refused = {"MLA": cfg.use_mla, "MoE": cfg.num_experts > 0,
+    """Raise for a config outside the families the port serves and trains
+    (dense GQA, any RoPE style and either input mode, MoE over GQA
+    attention, and RWKV6)."""
+    refused = {"MLA": cfg.use_mla,
                "mamba2 / hybrid": cfg.ssm_kind == "mamba2" or cfg.attn_every > 0,
                "encoder-decoder": cfg.is_encoder_decoder}
     for what, hit in refused.items():
         if hit:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported; the port serves and trains "
-                "the dense GQA and RWKV6 families (ROADMAP.md queue 1, item 15)")
+                "the dense GQA, MoE and RWKV6 families (ROADMAP.md queue 1, "
+                "item 15)")
 
 
 def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:

@@ -27,6 +27,7 @@ reference (no Pallas twin).
 from __future__ import annotations
 
 import contextlib
+import math
 import zlib
 from typing import Dict
 
@@ -51,7 +52,13 @@ class ParamBuilder:
     the reference's inits: ``fan_in`` (normal, std scale / sqrt(fan_in),
     fan_in the first dim unless given), ``normal`` (std scale), ``zeros``,
     ``ones``.  Inside ``stacked(n)`` every parameter gets a leading (n,)
-    layer dim, drawn whole, as the reference stacks its blocks."""
+    layer dim, drawn whole, as the reference stacks its blocks.  A leaf of
+    more than WHOLE_DRAW elements (kimi-k2's expert stacks, 5.6e9 each) is
+    drawn one slice at a time along its leading dims, in order, from the
+    same generator: a whole fp32 draw would hold 22.5 GB beside the
+    parameter's own bf16 copy."""
+
+    WHOLE_DRAW = 1 << 31
 
     def __init__(self, seed: int, device, param_dtype=torch.float32):
         self.seed = int(seed)
@@ -97,27 +104,55 @@ class ParamBuilder:
             std = scale
         else:
             raise ValueError(init)
-        x = torch.randn(full_shape, generator=self.generator(path),
-                        dtype=torch.float32, device=self.device)
-        return x.mul_(std).to(self.param_dtype)
+        gen = self.generator(path)
+        n = math.prod(full_shape)
+        if n <= self.WHOLE_DRAW:
+            x = torch.randn(full_shape, generator=gen, dtype=torch.float32,
+                            device=self.device)
+            return x.mul_(std).to(self.param_dtype)
+        lead = 0  # the leading dims walked; each slice the rest
+        while n > self.WHOLE_DRAW:
+            n //= full_shape[lead]
+            lead += 1
+        out = torch.empty(full_shape, **kw)
+        for piece in out.view(-1, *full_shape[lead:]):
+            piece.copy_(torch.randn(piece.shape, generator=gen,
+                                    dtype=torch.float32,
+                                    device=self.device).mul_(std))
+        return out
 
 
 class Params(nn.Module):
     """One of the reference's parameter dicts as a module: its tensors are
     registered under the reference's keys as trainable parameters (serving
     runs under `torch.inference_mode`, which records no gradient) and read
-    as the reference reads them, ``p["wq"]``, ``"bq" in p``."""
+    as the reference reads them, ``p["wq"]``, ``"bq" in p``; a nested dict
+    (the MoE layer's ``shared`` expert) is a `Params` child, ``p["shared"]``."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t))
+            if isinstance(t, dict):
+                self.add_module(name, Params(t))
+            else:
+                self.register_parameter(name, nn.Parameter(t))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str):
+        if name in self._modules:
+            return self._modules[name]
         return self._parameters[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
+
+    def unbind_layers(self) -> list:
+        """The stacked [L, ...] leaves as L `LayerParams`, one ``unbind`` a
+        leaf (its backward stacks the layers' gradients once)."""
+        per = {k: t.unbind(0) for k, t in self._parameters.items()}
+        per.update({k: m.unbind_layers() for k, m in self._modules.items()})
+        n = len(next(iter(per.values())))
+        return [LayerParams({k: ts[i] for k, ts in per.items()})
+                for i in range(n)]
 
 
 class LayerParams:
@@ -412,9 +447,9 @@ def attention_apply(p, x, positions, cfg, *, window=0):
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(b: ParamBuilder, cfg):
-    D, F_ = cfg.d_model, cfg.d_ff
-    with b.scope("mlp"):
+def mlp_params(b: ParamBuilder, cfg, name="mlp", d_ff=None):
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
+    with b.scope(name):
         return {
             "wi": b.param("wi", (D, F_)),
             "wg": b.param("wg", (D, F_)),

@@ -1,18 +1,23 @@
-"""The language model for the dense GQA and RWKV6 families: parameter
+"""The language model for the dense GQA, MoE and RWKV6 families: parameter
 construction, the full-sequence forward, the loss (training), the prefill
 and the single-token decode (serving) of `repro/models/transformer.py`.
 The dense blocks take each RoPE style (full, chatglm's half, qwen2-vl's
 M-RoPE over [3,B,S] position triplets, a decode position broadcast to all
 three rows) and either input mode (token ids, or precomputed embeddings
 ``batch["embeds"]`` [B,S,D] in place of them, qwen2-vl's stub frontend).
+An MoE config (kimi-k2) has ``first_k_dense`` dense layers in
+``head_blocks``, then MoE layers in ``blocks`` (`models/moe.py`'s
+single-device path), as the reference's tree has them; its aux loss is
+summed over the layers.
 
 The model is a `TransformerLM` module: ``embed``, ``lm_head`` (untied
-configs), ``final_norm`` and ``blocks``, whose `Params` hold the reference's
-per-layer dicts stacked over layers ([L, ...] leaves, as the reference's
-scan carries them), so the parameter ``blocks.attn.wq`` is the reference's
-``params["blocks"]["attn"]["wq"]`` and `param_tree` gives the reference's
-tree.  Iterating ``blocks`` gives each layer's views (`LayerParams`, one
-``unbind`` a leaf: its backward stacks the layers' gradients once).
+configs), ``final_norm``, ``head_blocks`` (MoE configs) and ``blocks``,
+whose `Params` hold the reference's per-layer dicts stacked over layers
+([L, ...] leaves, as the reference's scan carries them), so the parameter
+``blocks.attn.wq`` is the reference's ``params["blocks"]["attn"]["wq"]``
+and `param_tree` gives the reference's tree.  `model_layers` gives each
+layer's views in order (`LayerParams`, one ``unbind`` a leaf: its backward
+stacks the layers' gradients once), the KV cache's layer index.
 `init_params` draws the port's own weights on the device it is given (the
 card unless the caller asks for the CPU); `params_from_numpy` carries the
 reference's tree over, so the tests compute with JAX's weights.
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.kvcache import check_served
+from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.layers import (
     LayerParams,
     ParamBuilder,
@@ -79,7 +85,7 @@ def _dtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(b: ParamBuilder, cfg) -> Dict[str, Any]:
+def _block_params(b: ParamBuilder, cfg, *, moe: bool = False) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": rmsnorm_params(b, "ln1", cfg.d_model),
                          "ln2": rmsnorm_params(b, "ln2", cfg.d_model)}
     if cfg.ssm_kind == "rwkv6":
@@ -87,12 +93,16 @@ def _block_params(b: ParamBuilder, cfg) -> Dict[str, Any]:
         p["cmix"] = ssm_lib.rwkv6_channel_mix_params(b, cfg)
         return p
     p["attn"] = attention_params(b, cfg)
-    p["mlp"] = mlp_params(b, cfg)
+    if moe:
+        p["moe"] = moe_params(b, cfg)
+    else:
+        p["mlp"] = mlp_params(b, cfg)
     return p
 
 
 def build_params(cfg, b: ParamBuilder) -> Dict[str, Any]:
-    """The reference's params tree (blocks stacked over layers)."""
+    """The reference's params tree (blocks stacked over layers; an MoE
+    config's first ``first_k_dense`` layers dense, in ``head_blocks``)."""
     check_served(cfg)
     params: Dict[str, Any] = {}
     params["embed"] = b.param("embed", (cfg.vocab_size, cfg.d_model),
@@ -100,14 +110,18 @@ def build_params(cfg, b: ParamBuilder) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = b.param("lm_head", (cfg.d_model, cfg.vocab_size))
     params["final_norm"] = rmsnorm_params(b, "final_norm", cfg.d_model)
-    with b.scope("blocks"), b.stacked(cfg.num_layers):
-        params["blocks"] = _block_params(b, cfg)
+    n_dense = cfg.first_k_dense if cfg.num_experts else 0
+    if n_dense:
+        with b.scope("head_blocks"), b.stacked(n_dense):
+            params["head_blocks"] = _block_params(b, cfg)
+    with b.scope("blocks"), b.stacked(cfg.num_layers - n_dense):
+        params["blocks"] = _block_params(b, cfg, moe=bool(cfg.num_experts))
     return params
 
 
 class Layer:
-    """One layer's views: an attribute per reference dict (``ln1``, ``attn``
-    ...), each a `LayerParams`."""
+    """One layer's views: an attribute per reference dict (``ln1``, ``attn``,
+    ``mlp`` or ``moe`` ...), each a `LayerParams`."""
 
     def __init__(self, dicts: Dict[str, LayerParams]):
         self.__dict__.update(dicts)
@@ -126,10 +140,8 @@ class Blocks(nn.Module):
         return next(iter(self.parameters())).shape[0]
 
     def layers(self) -> List[Layer]:
-        per = {name: {k: t.unbind(0) for k, t in mod._parameters.items()}
-               for name, mod in self.named_children()}
-        return [Layer({name: LayerParams({k: ts[i] for k, ts in d.items()})
-                       for name, d in per.items()})
+        per = {name: mod.unbind_layers() for name, mod in self.named_children()}
+        return [Layer({name: views[i] for name, views in per.items()})
                 for i in range(len(self))]
 
     def __iter__(self):
@@ -149,7 +161,20 @@ class TransformerLM(nn.Module):
         if "lm_head" in tree:
             self.lm_head = nn.Parameter(tree["lm_head"])
         self.final_norm = Params(tree["final_norm"])
+        if "head_blocks" in tree:
+            self.head_blocks = Blocks(tree["head_blocks"])
         self.blocks = Blocks(tree["blocks"])
+
+
+def layer_stacks(params: TransformerLM) -> List[Blocks]:
+    """The stacks in layer order: ``head_blocks`` (MoE configs), ``blocks``."""
+    head = [params.head_blocks] if hasattr(params, "head_blocks") else []
+    return head + [params.blocks]
+
+
+def model_layers(params: TransformerLM) -> List[Layer]:
+    """Every layer's views in order, the KV cache's layer index."""
+    return [blk for stack in layer_stacks(params) for blk in stack]
 
 
 def param_tree(params: TransformerLM) -> Dict[str, Any]:
@@ -210,6 +235,16 @@ def embed_tokens(cfg, params: TransformerLM, tokens: torch.Tensor) -> torch.Tens
     return params.embed[tokens.long()].to(_dtype(cfg))
 
 
+def _ffn(cfg, blk, h):
+    """The block's FFN half: (h + FFN(ln2(h)), the MoE layer's aux or
+    None)."""
+    hn = rmsnorm(blk.ln2, h, cfg.norm_eps)
+    if hasattr(blk, "moe"):
+        y, aux = moe_apply(blk.moe, hn, cfg)
+        return h + y, aux
+    return h + mlp_apply(blk.mlp, hn), None
+
+
 def _std_block_seq(cfg, blk, h, positions, *, window, collect_kv):
     hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
     kv = None
@@ -223,8 +258,8 @@ def _std_block_seq(cfg, blk, h, positions, *, window, collect_kv):
         h = h + attention_out(blk.attn, y, h.dtype)
     else:
         h = h + attention_apply(blk.attn, hn, positions, cfg, window=window)
-    h = h + mlp_apply(blk.mlp, rmsnorm(blk.ln2, h, cfg.norm_eps))
-    return h, kv
+    h, aux = _ffn(cfg, blk, h)
+    return h, kv, aux
 
 
 def _rwkv_block_seq(cfg, blk, h, collect_state):
@@ -235,11 +270,14 @@ def _rwkv_block_seq(cfg, blk, h, collect_state):
         y2, cm_x = ssm_lib.rwkv6_channel_mix(
             blk.cmix, rmsnorm(blk.ln2, h, cfg.norm_eps), return_state=True)
         h = h + y2
-        return h, (tm_x.to(torch.bfloat16), cm_x.to(torch.bfloat16), s_f)
-    h = h + ssm_lib.rwkv6_time_mix(blk.tmix, rmsnorm(blk.ln1, h, cfg.norm_eps),
-                                   cfg)
-    h = h + ssm_lib.rwkv6_channel_mix(blk.cmix, rmsnorm(blk.ln2, h, cfg.norm_eps))
-    return h, None
+        st = (tm_x.to(torch.bfloat16), cm_x.to(torch.bfloat16), s_f)
+    else:
+        h = h + ssm_lib.rwkv6_time_mix(blk.tmix,
+                                       rmsnorm(blk.ln1, h, cfg.norm_eps), cfg)
+        h = h + ssm_lib.rwkv6_channel_mix(blk.cmix,
+                                          rmsnorm(blk.ln2, h, cfg.norm_eps))
+        st = None
+    return h, st, None
 
 
 def _remat(fn, policy: str):
@@ -263,10 +301,12 @@ def _remat(fn, policy: str):
 def forward(cfg, params: TransformerLM, batch, *, window: int = 0,
             collect_kv: bool = False, collect_state: bool = False):
     """Full-sequence forward (train, prefill).  batch keys: 'tokens' [B,S]
-    or 'embeds' [B,S,D]; 'positions' [B,S] (or [3,B,S] for mrope).  Returns (h_final [B,S,D], aux (0), (stacks, None)):
-    the stacks are (k, v) [L,B,S,KV,hd] bf16 with ``collect_kv``, (tm_x,
-    cm_x, s) with ``collect_state`` (RWKV6), else None.  Differentiable;
-    each block under `_remat` with the config's policy."""
+    or 'embeds' [B,S,D]; 'positions' [B,S] (or [3,B,S] for mrope).  Returns
+    (h_final [B,S,D], aux (the MoE layers' aux summed, each stack's in
+    turn; 0 without MoE), (stacks, None)): the stacks are (k, v)
+    [L,B,S,KV,hd] bf16 with ``collect_kv``, (tm_x, cm_x, s) with
+    ``collect_state`` (RWKV6), else None.  Differentiable; each block under
+    `_remat` with the config's policy."""
     check_served(cfg)
     if "embeds" in batch:
         h = batch["embeds"].to(_dtype(cfg))
@@ -275,16 +315,22 @@ def forward(cfg, params: TransformerLM, batch, *, window: int = 0,
     positions = batch["positions"]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     per_layer = []
-    for blk in params.blocks:
-        if cfg.ssm_kind == "rwkv6":
-            def body(hh, blk=blk):
-                return _rwkv_block_seq(cfg, blk, hh, collect_state)
-        else:
-            def body(hh, blk=blk):
-                return _std_block_seq(cfg, blk, hh, positions, window=window,
-                                      collect_kv=collect_kv)
-        h, st = _remat(body, cfg.remat_policy)(h)
-        per_layer.append(st)
+    for stack in layer_stacks(params):
+        auxs = []
+        for blk in stack:
+            if cfg.ssm_kind == "rwkv6":
+                def body(hh, blk=blk):
+                    return _rwkv_block_seq(cfg, blk, hh, collect_state)
+            else:
+                def body(hh, blk=blk):
+                    return _std_block_seq(cfg, blk, hh, positions,
+                                          window=window, collect_kv=collect_kv)
+            h, st, layer_aux = _remat(body, cfg.remat_policy)(h)
+            per_layer.append(st)
+            if layer_aux is not None:
+                auxs.append(layer_aux)
+        if auxs:
+            aux = aux + torch.stack(auxs).sum()
     stacks = None
     if per_layer[0] is not None:
         stacks = tuple(torch.stack(xs) for xs in zip(*per_layer))
@@ -358,7 +404,7 @@ def prefill(cfg, params: TransformerLM, batch, *, window: int = 0):
 
 
 def _ffn_decode(cfg, blk, h):
-    return h + mlp_apply(blk.mlp, rmsnorm(blk.ln2, h, cfg.norm_eps))
+    return _ffn(cfg, blk, h)[0]
 
 
 def _decode_layer(cfg, blk, h, k_l, v_l, lanes, pos, cache_len, opts):
@@ -395,7 +441,7 @@ def serve_step(cfg, params: TransformerLM, cache, tokens, pos: int,
     h = embed_tokens(cfg, params, tokens)
     if cfg.ssm_kind == "rwkv6":
         tm, cm, s = cache["tm_x"], cache["cm_x"], cache["s"]
-        for l, blk in enumerate(params.blocks):
+        for l, blk in enumerate(model_layers(params)):
             hn = rmsnorm(blk.ln1, h[:, 0], cfg.norm_eps)
             y, (tm_x2, s2) = ssm_lib.rwkv6_time_mix_step(blk.tmix, hn, cfg,
                                                          tm[l], s[l])
@@ -407,7 +453,7 @@ def serve_step(cfg, params: TransformerLM, cache, tokens, pos: int,
             tm[l], cm[l], s[l] = tm_x2, cm_x2, s2
     else:
         lanes = slice(None)
-        for l, blk in enumerate(params.blocks):
+        for l, blk in enumerate(model_layers(params)):
             h = _decode_layer(cfg, blk, h, cache["k"][l], cache["v"][l], lanes,
                               pos, pos + 1, opts)
     h = rmsnorm(params.final_norm, h, cfg.norm_eps)
@@ -417,7 +463,7 @@ def serve_step(cfg, params: TransformerLM, cache, tokens, pos: int,
 @torch.inference_mode()
 def serve_step_vec(cfg, params: TransformerLM, cache, tokens,
                    pos_vec: torch.Tensor, opts: ServeOptions = ServeOptions()):
-    """Per-slot-position decode for continuous batching (dense GQA).
+    """Per-slot-position decode for continuous batching (dense GQA and MoE).
     tokens [B,1]; pos_vec [B] int: each lane writes its KV at its own
     position and attends to its own prefix.  Returns (logits, the cache,
     updated in place)."""
@@ -429,7 +475,7 @@ def serve_step_vec(cfg, params: TransformerLM, cache, tokens,
     h = embed_tokens(cfg, params, tokens)
     pos_vec = pos_vec.to(h.device).long()
     lanes = torch.arange(tokens.shape[0], device=h.device)
-    for l, blk in enumerate(params.blocks):
+    for l, blk in enumerate(model_layers(params)):
         h = _decode_layer(cfg, blk, h, cache["k"][l], cache["v"][l], lanes,
                           pos_vec, pos_vec + 1, opts)
     h = rmsnorm(params.final_norm, h, cfg.norm_eps)

@@ -2,8 +2,10 @@
 `launch/batching.py`, `launch/serve_llm.py`) against the JAX package on the
 CPU, at the smoke configs of llama3.2-1b, rwkv6-3b, llama3.2-3b,
 qwen1.5-32b (qkv bias, as many KV heads as query heads), chatglm3-6b (half
-RoPE) and qwen2-vl-72b (M-RoPE over (3, B, S) triplets; the embeddings input
-mode beside the token path).
+RoPE), qwen2-vl-72b (M-RoPE over (3, B, S) triplets; the embeddings input
+mode beside the token path) and kimi-k2-1t-a32b (a dense head layer, then
+an MoE layer; at capacity factor 8.0, as the reference's decode test runs
+it, so that the prefill routes no pair past an expert's capacity).
 
 The same seeded numpy inputs go through each JAX function and its port:
 `chunked_attention` over `tests/test_attention_ssm.py`'s cases (window and
@@ -48,7 +50,9 @@ CPU = torch.device("cpu")
 TOL = 1e-4  # fp32 port against fp32 JAX
 BF16_STEP = 2.0 ** -7  # one bf16 step (7 stored mantissa bits), relative
 ARCHS = ["llama3.2-1b", "rwkv6-3b", "llama3.2-3b", "qwen1.5-32b", "chatglm3-6b",
-         "qwen2-vl-72b"]
+         "qwen2-vl-72b", "kimi-k2-1t-a32b"]
+# an MoE config's capacity factor here (tests/test_decode_consistency.py's)
+MOE_CAPACITY = 8.0
 B, S = 2, 12  # test_decode_consistency.py's batch and prompt
 
 
@@ -239,6 +243,9 @@ def _configs(arch, dtype):
 
     jcfg = get_smoke_config(arch)
     cfg = tbase.get_smoke_config(arch)
+    if cfg.num_experts:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=MOE_CAPACITY)
+        cfg = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY)
     if dtype != "bfloat16":
         jcfg = dataclasses.replace(jcfg, dtype=dtype)
         cfg = dataclasses.replace(cfg, dtype=dtype)
@@ -418,10 +425,19 @@ def test_serve_steps_match_jax(models, arch, cache_dtype, flip_gain):
 def test_serve_step_vec_matches_jax(models):
     """Lanes at different depths: lane 0 at position 5 over a prefix the
     per-lane cache holds, lane 1 at position 2."""
+    _serve_step_vec_case(models, "llama3.2-1b")
+
+
+def test_moe_serve_step_vec_matches_jax(models):
+    """The same lanes through kimi-k2's dense head layer and MoE layer."""
+    _serve_step_vec_case(models, "kimi-k2-1t-a32b")
+
+
+def _serve_step_vec_case(models, arch):
     jax, jnp = _jax()
     from repro.models import transformer as JT
 
-    jcfg, jparams, cfg, params = models("llama3.2-1b")
+    jcfg, jparams, cfg, params = models(arch)
     rng = np.random.default_rng(5)
     shape = (cfg.num_layers, B, 16, cfg.num_kv_heads, cfg.head_dim)
     k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
@@ -562,11 +578,20 @@ def test_slot_reuse_does_not_leak_state(models):
 
 def test_batching_engine_tokens_equal_jax(models):
     """The same staggered requests through both engines."""
+    _batching_case(models, "llama3.2-1b")
+
+
+def test_moe_batching_engine_tokens_equal_jax(models):
+    """The same staggered requests through both engines, kimi-k2."""
+    _batching_case(models, "kimi-k2-1t-a32b")
+
+
+def _batching_case(models, arch):
     _jax()
     from repro.launch.batching import ContinuousBatchingEngine as JEngine
     from repro.launch.batching import Request as JRequest
 
-    jcfg, jparams, cfg, params = models("llama3.2-1b")
+    jcfg, jparams, cfg, params = models(arch)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 3, 7, 4)]
@@ -606,7 +631,7 @@ def test_registry_equals_the_reference(arch):
             get_shape(name))
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v2-236b", "zamba2-1.2b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-1.2b",
                                   "seamless-m4t-large-v2", "gcn-paper",
                                   "no-such-arch"])
 def test_registry_refuses_what_the_port_lacks(arch):
@@ -648,9 +673,12 @@ def test_seeded_draw(arch):
         else:
             assert not torch.equal(t, t3), name
             # a layer's shape: the stacked leaves lead with L
-            shape = t.shape[1:] if name.startswith("blocks.") else t.shape
+            shape = (t.shape[1:] if name.startswith(("blocks.", "head_blocks."))
+                     else t.shape)
             fan_in = {"wo": shape[0] * shape[1] if len(shape) == 3 else shape[0]
                       }.get(leaf, shape[0])
+            if ".moe.w" in name:  # an expert stack [E, D, F] / [E, F, D]
+                fan_in = shape[1]
             std = 0.02 if name == "embed" else fan_in ** -0.5
             assert abs(float(t.std()) / std - 1.0) < 0.1, (name, float(t.std()), std)
 

@@ -3,11 +3,13 @@
 The data pipeline's streams and batches (bitwise), the optimizers, the
 clip and the schedule on one numpy tree, checkpoints in the reference's
 layout (a JAX-written one restored into the port, `_gc`), the loss and
-every gradient leaf of the six smoke configs (llama3.2-1b, rwkv6-3b,
+every gradient leaf of the seven smoke configs (llama3.2-1b, rwkv6-3b,
 llama3.2-3b, qwen1.5-32b, chatglm3-6b, qwen2-vl-72b: its batches through
-the stub frontend's embeddings and M-RoPE triplets) against
+the stub frontend's embeddings and M-RoPE triplets; kimi-k2-1t-a32b: the
+loss with the MoE layer's aux term, at its capacity factor 1.25) against
 `jax.value_and_grad(loss_fn)` from JAX's weights (`params_from_numpy`),
-three train steps against the reference's jitted step, the plain
+three train steps (the config's optimizer: AdamW, Adafactor for kimi-k2)
+against the reference's jitted step, the plain
 gradients of `chunked_attention` and `_chunked_linear_attention` (and of
 the two kernels' plain versions) against `jax.grad` (the WKV gradient's
 halving at a clip tie among them), `run_training` and the examples.  On the CPU the kernel wrappers take their plain versions,
@@ -38,7 +40,7 @@ from repro_torch.utils import tree_flatten_with_paths
 
 CPU = torch.device("cpu")
 ARCHS = ["llama3.2-1b", "rwkv6-3b", "llama3.2-3b", "qwen1.5-32b", "chatglm3-6b",
-         "qwen2-vl-72b"]
+         "qwen2-vl-72b", "kimi-k2-1t-a32b"]
 B, S = 2, 32
 # fp32 port against fp32 JAX: the same formulas, sums in another order
 TOL = 1e-4
@@ -388,9 +390,11 @@ def test_three_train_steps_match_reference(models, arch):
     # steps, so a gradient entry within fp32 noise of 0 (1e-9 here, summed in
     # another order) can move it by up to lr in one implementation and not
     # the other: at lr 1e-2 and eps 1e-8 one entry in 10**5 read 2e-4 apart.
-    # At lr 1e-3 and eps 1e-6 such an entry moves by at most lr 1e-9 / 1e-6
-    jo = jopt.make_optimizer("adamw", jopt.cosine_schedule(1e-3, 0, 10), eps=1e-6)
-    to = topt.make_optimizer("adamw", topt.cosine_schedule(1e-3, 0, 10), eps=1e-6)
+    # At lr 1e-3 and eps 1e-6 such an entry moves by at most lr 1e-9 / 1e-6.
+    # The config's optimizer: Adafactor (its defaults) for kimi-k2
+    kw = dict(eps=1e-6) if cfg.optimizer == "adamw" else {}
+    jo = jopt.make_optimizer(cfg.optimizer, jopt.cosine_schedule(1e-3, 0, 10), **kw)
+    to = topt.make_optimizer(cfg.optimizer, topt.cosine_schedule(1e-3, 0, 10), **kw)
     jstate = {"params": jparams, "opt": jo.init(jparams),
               "step": jnp.zeros((), jnp.int32)}
     tstate = {"params": params, "opt": to.init(TT.param_tree(params)),
